@@ -1,0 +1,46 @@
+"""The port stands alone: importing every module of
+``sesameai_tts_tpu_torch`` loads neither ``jax`` nor the JAX package, and
+its entry points run on the card unless the caller asks for the CPU."""
+
+import os
+import subprocess
+import sys
+
+import pytest
+import torch
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+_PROBE = """
+import importlib, pkgutil, sys
+import sesameai_tts_tpu_torch as pkg
+names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
+for name in names:
+    importlib.import_module(name)
+bad = sorted(k for k in sys.modules
+             if k == "jax" or k.startswith("jax.") or k == "jaxlib"
+             or k == "sesameai_tts_tpu" or k.startswith("sesameai_tts_tpu."))
+print(len(names), bad)
+"""
+
+
+def test_port_imports_neither_jax_nor_the_jax_package():
+    out = subprocess.run([sys.executable, "-c", _PROBE], cwd=REPO, capture_output=True,
+                         text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    n, bad = out.stdout.split(" ", 1)
+    assert int(n) >= 15, out.stdout  # every module of the slice was imported
+    assert bad.strip() == "[]", bad
+
+
+def test_entry_points_default_to_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default device is usable")
+    from sesameai_tts_tpu_torch.runtime.generator import resolve_device
+    from sesameai_tts_tpu_torch.runtime.loader import build_generator, test_tiny_spec
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        build_generator(test_tiny_spec())
+    with pytest.raises(RuntimeError, match="CUDA"):
+        resolve_device("cuda")
+    assert resolve_device("cpu") == torch.device("cpu")
