@@ -7,21 +7,31 @@ Needs one CUDA card (an H100) and ``nvcc``; exits non-zero without them.
 Phases, each of which fails the run if it fails:
 
 1. device: the card's name and power limit (``nvidia-smi``);
-2. build: compile every kernel of the main path from ``csrc/``;
-3. kernels vs plain: each kernel against its plain PyTorch version at the
-   main path's shapes, timed beside the plain version, one library call
-   and the card's bound;
-4. main path: CSM-1B int8 with a bf16 Mimi, random weights from a seed,
-   three requests (offline, streamed, voice context) through the
-   Generator; the launch counts show the path went through the kernels;
-5. slice parity: the tiny f32 model, greedy, on the card equals the CPU.
+2. build: compile every kernel in ``csrc/`` (one ``nvcc`` per source, all
+   started together) and print each build's time;
+3. kernels vs plain: ``quant_matmul``, ``quant4_matmul`` and ``quant_mlp``
+   against their plain PyTorch versions at the main paths' shapes, each
+   timed beside its plain version, a library yardstick and the card's
+   bound;
+4. main paths, CSM-1B at full width with a bf16 Mimi and random weights
+   from a seed, one configuration at a time: int8 trunks (offline,
+   streamed and voice-context requests), int4 trunks and the fused int8
+   MLP (offline and streamed each).  Exact launch counts per decoded frame
+   show that each path went through its kernels.  Then each
+   configuration's profiled window (device busy share, kernel mix);
+5. QA at full width: teacher-forced agreement of the int4 generator with
+   the dense twin of its own tree, and of the fused generator with the
+   unfused one, against thresholds; the int8 and int4 acceptance reports
+   against the bf16 tree, as information;
+6. slice parity: the tiny f32 model, greedy, on the card equals the CPU.
 
-Prints a JSON line of kernel results, then on its last line
-``{"ok": true, "device": {...}}``.
+Prints the card's name and power limit, a JSON line of kernel results,
+then on its last line ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
+import gc
 import json
 import math
 import os
@@ -52,16 +62,49 @@ _FLAGSHIP_SHAPES = (
     ("decoder.w13", 1024, 16384, 128),
     ("decoder.w2", 8192, 1024, 128),
 )
+# int4 scale groups: the trunks' default G = 2 (half-matrix groups) at
+# every shape, and G = D/128 (group = 128) at two of them
+_INT4_FINE_GROUPS = ("backbone.w13", "decoder.w2")
+# the decode-time MLPs, (name, D, F, Dout, launches per decoded frame)
+_MLP_SHAPES = (
+    ("backbone.mlp", 2048, 8192, 2048, 16),
+    ("decoder.mlp", 1024, 8192, 1024, 128),
+)
 _S_VALUES = (1, 8, 64)
-# kernel vs plain: both accumulate bf16 products in f32, in another order,
-# and round to bf16, so they may differ by one bf16 ulp (<= 2^-7 relative)
-# plus f32 rounding noise of the sum
+# kernel vs plain: both accumulate exact bf16 x integer products in f32, in
+# another order, and round to bf16, so they may differ by one bf16 ulp
+# (<= 2^-7 relative) plus f32 rounding noise of the sum; in quant_mlp a few
+# hidden values may round to the neighbouring bf16 value, each moving the
+# output by a fraction of one of its F terms, well inside the same bound
 _RTOL = 1e-2
 _ATOL_OF_PEAK = 1e-3
 
 TEXT_1 = "Hello from the port. This sentence is spoken by random weights."
 TEXT_2 = "And this one continues in the same voice."
-AUDIO_MS = 3000
+AUDIO_MS = 2000
+
+# the main paths: ModelSpec fields, kernel launches per decoded frame, and
+# whether the voice-context request runs
+_PATHS = (
+    ("int8", {}, {"quant_matmul": 576, "quant4_matmul": 0, "quant_mlp": 0}, True),
+    ("int4", {"quantize": "int4"}, {"quant_matmul": 0, "quant4_matmul": 576, "quant_mlp": 0},
+     False),
+    ("fused", {"fused_mlp": True}, {"quant_matmul": 288, "quant4_matmul": 0, "quant_mlp": 144},
+     False),
+)
+_KERNELS = ("quant_matmul", "quant4_matmul", "quant_mlp")
+
+QA_TEXT = "Teacher forcing holds two generators to one trajectory of frames."
+QA_STEPS = 32  # the gated pairs
+QA_INFO_STEPS = 16  # the informational acceptance reports
+# logit SNR floors of the two same-function pairs (see phase_qa).  On one
+# H100 80GB HBM3 at 700 W the pairs measured 36.7 dB (int4, the same in two
+# runs) and 38.6-38.7 dB (fused): bf16 rounding at other points of the same
+# arithmetic.  A kernel fault (a wrong group scale, a lost nibble, a dropped
+# tile) moves the logits by O(1) of their size, toward the 3.5 dB that int4
+# weights give against the bf16 tree, so 30 dB keeps ~7 dB of margin below
+# the measurements and far above any fault.
+QA_MIN_SNR_DB = {"int4_vs_dense_twin": 30.0, "fused_vs_unfused": 30.0}
 
 
 class PhaseError(RuntimeError):
@@ -87,18 +130,20 @@ def phase_device(torch):
         capture_output=True, text=True, timeout=60,
     )
     _check(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr.strip()}")
-    print(smi.stdout.strip().splitlines()[0], flush=True)
+    card = smi.stdout.strip().splitlines()[0]
+    print(card, flush=True)
     name = torch.cuda.get_device_name(0)
     print(f"device: {name} x{torch.cuda.device_count()}, torch {torch.__version__}, "
           f"cuda {torch.version.cuda}", flush=True)
-    return name
+    return name, card
 
 
 def phase_build(quant):
-    quant._LIBRARY.unlink(missing_ok=True)  # always build from the checkout's source
     t0 = time.perf_counter()
-    quant.build_kernel()
-    print(f"build: quant_matmul in {time.perf_counter() - t0:.2f} s", flush=True)
+    quant.build_kernels(force=True)  # always build from the checkout's sources
+    for name in _KERNELS:
+        print(f"build: {name} in {quant.build_seconds[name]:.2f} s", flush=True)
+    print(f"build: all kernels in {time.perf_counter() - t0:.2f} s (in parallel)", flush=True)
 
 
 def _events_ms(torch, run) -> float:
@@ -139,71 +184,178 @@ def _device_ms(torch, fn, reps: int, replays: int = 5) -> float:
     return ms / (replays * reps)
 
 
-def phase_kernels(torch, quant, peak_bw, peak_flops):
-    """quant_matmul vs quant_matmul_plain at every flagship shape.  Timed
-    over enough weight copies to overflow the 50 MB L2, as on the decode
-    path, where each frame streams 4.5 GB of weights."""
+def _copies(nbytes: int) -> int:
+    """Weight copies to cycle through so that the timed loop streams past
+    the 50 MB L2, as on the decode path (GBs of weights per frame)."""
+    return max(2, math.ceil(160e6 / nbytes))
+
+
+def _measure(torch, label: str, row: dict, got, want, kernel, plain, library, copies: int,
+             nbytes: float, flops: float, peak_bw: float, peak_flops: float) -> dict:
+    """Check got against want within the stated tolerance, time the kernel,
+    its plain version and the library yardstick, and add the bound."""
+    torch.cuda.synchronize()
+    diff = (got.float() - want.float()).abs()
+    peak = want.float().abs().max().item()
+    ok = bool((diff <= _RTOL * want.float().abs() + _ATOL_OF_PEAK * peak).all())
+    reps = max(copies, 20)
+    t_bytes, t_ops = nbytes / peak_bw, flops / peak_flops
+    row.update({
+        "max_abs_err": diff.max().item(), "peak_abs": peak, "ok": ok,
+        "kernel_ms": _device_ms(torch, kernel, reps),
+        "kernel_eager_ms": _eager_ms(torch, kernel, reps),
+        "plain_ms": _device_ms(torch, plain, min(reps, 8)),
+        "library_ms": _device_ms(torch, library, reps),
+        "bound_ms": max(t_bytes, t_ops) * 1e3,
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+    })
+    print(f"kernel {label} " + json.dumps(row), flush=True)
+    _check(ok, f"{label} disagrees with its plain version at {row}")
+    return row
+
+
+def phase_quant_matmul(torch, quant, peak_bw, peak_flops):
+    """quant_matmul vs quant_matmul_plain at every flagship shape."""
     gen = torch.Generator(device="cuda").manual_seed(0)
     rows = []
     for name, D, F, per_frame in _FLAGSHIP_SHAPES:
         q = torch.randint(-127, 128, (D, F), generator=gen, device="cuda", dtype=torch.int8)
         scale = torch.rand(F, generator=gen, device="cuda") * 1e-2 + 1e-3
-        copies = max(2, math.ceil(160e6 / (D * F)))
+        copies = _copies(D * F)
         qs = [q] + [q.clone() for _ in range(copies - 1)]
         w = quant._dequant({"q": q, "scale": scale}, torch.bfloat16)
         ws = [w] + [w.clone() for _ in range(copies - 1)]
         for S in _S_VALUES:
             x = torch.randn((S, D), generator=gen, device="cuda").to(torch.bfloat16)
-            got = quant.quant_matmul(x, q, scale)
-            want = quant.quant_matmul_plain(x, q, scale)
-            torch.cuda.synchronize()
-            diff = (got.float() - want.float()).abs()
-            peak = want.float().abs().max().item()
-            ok = bool((diff <= _RTOL * want.float().abs() + _ATOL_OF_PEAK * peak).all())
-            reps = max(copies, 20)
-            kernel = lambda i: quant.quant_matmul(x, qs[i % copies], scale)  # noqa: E731
-            plain = lambda i: quant.quant_matmul_plain(x, qs[i % copies], scale)  # noqa: E731
-            library = lambda i: torch.matmul(x, ws[i % copies])  # noqa: E731
-            kernel_ms = _device_ms(torch, kernel, reps)
-            plain_ms = _device_ms(torch, plain, min(reps, 8))
-            library_ms = _device_ms(torch, library, reps)
-            kernel_eager_ms = _eager_ms(torch, kernel, reps)
-            nbytes = D * F + 2 * S * D + 2 * S * F + 4 * F
-            bound_ms = max(nbytes / peak_bw, 2 * S * D * F / peak_flops) * 1e3
-            row = {
-                "shape": name, "S": S, "D": D, "F": F, "per_frame": per_frame,
-                "max_abs_err": diff.max().item(), "peak_abs": peak, "ok": ok,
-                "kernel_ms": kernel_ms, "kernel_eager_ms": kernel_eager_ms,
-                "plain_ms": plain_ms, "library_ms": library_ms,
-                "bound_ms": bound_ms, "bound_by": "bytes" if nbytes / peak_bw >=
-                2 * S * D * F / peak_flops else "operations",
-            }
-            rows.append(row)
-            print("kernel " + json.dumps(row), flush=True)
-            _check(ok, f"quant_matmul disagrees with its plain version at {name} S={S}: "
-                       f"max abs err {row['max_abs_err']} (peak {peak})")
+            rows.append(_measure(
+                torch, "quant_matmul",
+                {"shape": name, "S": S, "D": D, "F": F, "per_frame": per_frame},
+                quant.quant_matmul(x, q, scale), quant.quant_matmul_plain(x, q, scale),
+                lambda i: quant.quant_matmul(x, qs[i % copies], scale),
+                lambda i: quant.quant_matmul_plain(x, qs[i % copies], scale),
+                lambda i: torch.matmul(x, ws[i % copies]),
+                copies, D * F + 2 * S * D + 2 * S * F + 4 * F, 2 * S * D * F,
+                peak_bw, peak_flops))
         del qs, ws, w, q
         torch.cuda.empty_cache()
     return rows
 
 
-def phase_main_path(torch, quant):
+def phase_quant4_matmul(torch, quant, peak_bw, peak_flops):
+    """quant4_matmul vs quant4_matmul_plain at every flagship shape at the
+    default G = 2, and at G = D/128 at two of them."""
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    rows = []
+    cases = [(name, D, F, n, 2) for name, D, F, n in _FLAGSHIP_SHAPES]
+    cases += [(name, D, F, n, D // 128) for name, D, F, n in _FLAGSHIP_SHAPES
+              if name in _INT4_FINE_GROUPS]
+    for name, D, F, per_frame, G in cases:
+        q4 = torch.randint(-128, 128, (D // 2, F), generator=gen, device="cuda",
+                           dtype=torch.int8)
+        scale = torch.rand((G, F), generator=gen, device="cuda") * 1e-2 + 1e-3
+        copies = _copies(D * F // 2)
+        q4s = [q4] + [q4.clone() for _ in range(copies - 1)]
+        w = quant._dequant4({"q4": q4, "scale": scale}, torch.bfloat16)
+        ws = [w] + [w.clone() for _ in range(_copies(2 * D * F) - 1)]
+        for S in _S_VALUES:
+            x = torch.randn((S, D), generator=gen, device="cuda").to(torch.bfloat16)
+            rows.append(_measure(
+                torch, "quant4_matmul",
+                {"shape": name, "S": S, "D": D, "F": F, "G": G, "per_frame": per_frame},
+                quant.quant4_matmul(x, q4, scale), quant.quant4_matmul_plain(x, q4, scale),
+                lambda i: quant.quant4_matmul(x, q4s[i % copies], scale),
+                lambda i: quant.quant4_matmul_plain(x, q4s[i % copies], scale),
+                lambda i: torch.matmul(x, ws[i % len(ws)]),
+                copies, D * F // 2 + 4 * G * F + 2 * S * D + 2 * S * F, 2 * S * D * F,
+                peak_bw, peak_flops))
+        del q4s, ws, w, q4
+        torch.cuda.empty_cache()
+    return rows
+
+
+def phase_quant_mlp(torch, quant, peak_bw, peak_flops):
+    """quant_mlp vs quant_mlp_plain at the backbone and decoder MLPs.  The
+    library yardstick is the dense bf16 SwiGLU sequence: three
+    torch.matmul calls, silu and a product."""
+    F_ = torch.nn.functional
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    rows = []
+    for name, D, F, Dout, per_frame in _MLP_SHAPES:
+        q13 = torch.randint(-127, 128, (D, 2 * F), generator=gen, device="cuda",
+                            dtype=torch.int8)
+        q2 = torch.randint(-127, 128, (F, Dout), generator=gen, device="cuda", dtype=torch.int8)
+        s13 = torch.rand(2 * F, generator=gen, device="cuda") * 1e-3 + 1e-4
+        s2 = torch.rand(Dout, generator=gen, device="cuda") * 1e-2 + 1e-3
+        weight_bytes = 2 * D * F + F * Dout
+        copies = _copies(weight_bytes)
+        mats = [(q13, q2)] + [(q13.clone(), q2.clone()) for _ in range(copies - 1)]
+        w13 = quant._dequant({"q": q13, "scale": s13}, torch.bfloat16)
+        w2 = quant._dequant({"q": q2, "scale": s2}, torch.bfloat16)
+        dense = [(w13[:, :F].contiguous(), w13[:, F:].contiguous(), w2)]
+        dense += [tuple(t.clone() for t in dense[0]) for _ in range(_copies(2 * weight_bytes) - 1)]
+        del w13
+
+        def library(i, x=None):
+            w1, w3, w2_ = dense[i % len(dense)]
+            return torch.matmul(F_.silu(torch.matmul(x, w1)) * torch.matmul(x, w3), w2_)
+
+        for S in _S_VALUES:
+            x = torch.randn((S, D), generator=gen, device="cuda").to(torch.bfloat16)
+            tiles = F // quant._mlp_block_i(S)
+            row = _measure(
+                torch, "quant_mlp",
+                {"shape": name, "S": S, "D": D, "F": F, "Dout": Dout, "per_frame": per_frame,
+                 "tiles": tiles},
+                quant.quant_mlp(x, q13, s13, q2, s2), quant.quant_mlp_plain(x, q13, s13, q2, s2),
+                lambda i: quant.quant_mlp(x, mats[i % copies][0], s13, mats[i % copies][1], s2),
+                lambda i: quant.quant_mlp_plain(x, mats[i % copies][0], s13, mats[i % copies][1],
+                                                s2),
+                lambda i: library(i, x),
+                copies, weight_bytes + 4 * (2 * F + Dout) + 2 * S * D + 2 * S * Dout,
+                2 * S * (2 * D * F + F * Dout), peak_bw, peak_flops)
+            # the design's own traffic: each tile's f32 (S, Dout) partial is
+            # written once and read once by the second pass
+            ws_bytes = 2 * 4 * tiles * S * Dout
+            row["workspace_bytes"] = ws_bytes
+            row["bound_with_workspace_ms"] = row["bound_ms"] + ws_bytes / peak_bw * 1e3
+            rows.append(row)
+        del mats, dense, q13, q2
+        torch.cuda.empty_cache()
+    return rows
+
+
+def _reset_counts(quant):
+    for name in _KERNELS:
+        getattr(quant, name).launches = 0
+
+
+def _counts(quant) -> dict:
+    return {name: getattr(quant, name).launches for name in _KERNELS}
+
+
+def phase_main_path(torch, quant, path: str, spec_fields: dict, per_frame: dict,
+                    voice: bool):
+    """One configuration of the serving path at CSM-1B width: offline and
+    streamed requests (and a voice-context one), launch counts per decoded
+    frame checked exactly."""
     import numpy as np
 
     from sesameai_tts_tpu_torch.runtime.frames import Segment
     from sesameai_tts_tpu_torch.runtime.loader import build_generator, csm_1b_spec
 
     t0 = time.perf_counter()
-    gen = build_generator(csm_1b_spec(), device="cuda")
+    gen = build_generator(csm_1b_spec(**spec_fields), device="cuda")
     torch.cuda.synchronize()
-    print(f"main: built CSM-1B int8 + bf16 Mimi in {time.perf_counter() - t0:.1f} s", flush=True)
+    torch.cuda.reset_peak_memory_stats()
+    print(f"main[{path}]: built CSM-1B + bf16 Mimi in {time.perf_counter() - t0:.1f} s",
+          flush=True)
     # warm-up (cuBLAS/cuDNN handles, allocator): not counted
     gen.generate("warm up", 0, [], max_audio_length_ms=240, temperature=0.8, topk=40, seed=7)
     torch.cuda.synchronize()
 
     sr = gen.sample_rate
     gen.metrics.reset()
-    quant.quant_matmul.launches = 0
+    _reset_counts(quant)
     t0 = time.perf_counter()
     offline = gen.generate(TEXT_1, 0, [], max_audio_length_ms=AUDIO_MS, temperature=0.8,
                            topk=40, seed=0)
@@ -218,14 +370,16 @@ def phase_main_path(torch, quant):
         chunks.append(chunk)
     t_stream = time.perf_counter() - t0
     streamed = np.concatenate(chunks)
+    outputs = {"offline": (offline, t_offline), "stream": (streamed, t_stream)}
 
-    t0 = time.perf_counter()
-    ctx = gen.precompute_context_state([Segment(0, TEXT_1, offline)])
-    voiced = gen.generate(TEXT_2, 0, [], max_audio_length_ms=AUDIO_MS, temperature=0.8,
-                          topk=40, cached_context=ctx, seed=1)
-    t_voice = time.perf_counter() - t0
+    if voice:
+        t0 = time.perf_counter()
+        ctx = gen.precompute_context_state([Segment(0, TEXT_1, offline)])
+        voiced = gen.generate(TEXT_2, 0, [], max_audio_length_ms=AUDIO_MS, temperature=0.8,
+                              topk=40, cached_context=ctx, seed=1)
+        outputs["voice"] = (voiced, time.perf_counter() - t0)
     torch.cuda.synchronize()
-    launches = quant.quant_matmul.launches
+    launches = _counts(quant)
 
     summary = gen.metrics.summary()
     decoded = int(summary["decoded_frames"]["total"])
@@ -233,55 +387,80 @@ def phase_main_path(torch, quant):
     rel = float(np.abs(streamed - offline).max() / max(np.abs(offline).max(), 1e-12)) \
         if streamed.shape == offline.shape else float("inf")
     result = {
-        "frames": {"offline": offline.size // gen._hop, "stream": streamed.size // gen._hop,
-                   "voice": voiced.size // gen._hop, "decoded": decoded},
-        "audio_s": {"offline": offline.size / sr, "stream": streamed.size / sr,
-                    "voice": voiced.size / sr},
-        "rtf": {"offline": t_offline / (offline.size / sr), "stream": t_stream / (streamed.size / sr),
-                "voice": t_voice / (voiced.size / sr)},
+        "path": path,
+        "frames": {**{k: pcm.size // gen._hop for k, (pcm, _) in outputs.items()},
+                   "decoded": decoded},
+        "audio_s": {k: pcm.size / sr for k, (pcm, _) in outputs.items()},
+        "rtf": {k: t / (pcm.size / sr) for k, (pcm, t) in outputs.items()},
         "first_chunk_ms": first_chunk_s * 1e3,
         "ms_per_decoded_frame": decode_s / decoded * 1e3,
-        # where the three requests' wall time went; the rest is host-side
+        # where the requests' wall time went; the rest is host-side
         # tokenization and the voice context's backbone pass
-        "wall_s": t_offline + t_stream + t_voice,
+        "wall_s": sum(t for _, t in outputs.values()),
         "breakdown_s": {k: summary[k]["total"] for k in ("prefill_s", "decode_s", "codec_s",
                                                          "encode_s") if k in summary},
-        "quant_matmul_launches": launches,
+        "launches": launches,
+        "launches_per_decoded_frame": {k: v / decoded for k, v in launches.items()},
         "stream_vs_offline_rel_err": rel,
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
     }
-    print("main " + json.dumps(result), flush=True)
-    for name, pcm in (("offline", offline), ("stream", streamed), ("voice", voiced)):
-        _check(pcm.size > 0 and bool(np.isfinite(pcm).all()), f"{name} PCM empty or not finite")
-    _check(launches == 576 * decoded,
-           f"quant_matmul launched {launches} times for {decoded} decoded frames "
-           f"(want 576 per frame)")
+    print(f"main[{path}] " + json.dumps(result), flush=True)
+    for name, (pcm, _) in outputs.items():
+        _check(pcm.size > 0 and bool(np.isfinite(pcm).all()),
+               f"{path}: {name} PCM empty or not finite")
+    for kernel, n in per_frame.items():
+        _check(launches[kernel] == n * decoded,
+               f"{path}: {kernel} launched {launches[kernel]} times for {decoded} decoded "
+               f"frames (want {n} per frame)")
     # same seed ⇒ same frames; the PCM then differs only by the bf16
     # rounding of chunked vs whole-utterance codec convolutions
     _check(streamed.shape == offline.shape and rel < 5e-2,
-           f"streamed != offline: shapes {streamed.shape} vs {offline.shape}, rel err {rel}")
-    print("profile " + json.dumps(_profile_decode(torch, gen)), flush=True)
+           f"{path}: streamed != offline: shapes {streamed.shape} vs {offline.shape}, "
+           f"rel err {rel}")
     del gen
+    _collect(torch)
+    return result
+
+
+def _collect(torch) -> None:
+    """Free the device memory of generators the caller has dropped: a
+    Generator holds a reference cycle (its tokenizer's audio encoder)."""
+    gc.collect()
     torch.cuda.empty_cache()
-    return result, launches
+
+
+def phase_profile(torch):
+    """Each configuration's profiled window, after every counted request:
+    a torch.profiler session leaves the host slower at issuing kernels for
+    the rest of the process, so no counted request may follow one."""
+    from sesameai_tts_tpu_torch.runtime.loader import build_generator, csm_1b_spec
+
+    for path, fields, _, _ in _PATHS:
+        gen = build_generator(csm_1b_spec(**fields), device="cuda")
+        gen.generate("warm up", 0, [], max_audio_length_ms=240, temperature=0.8, topk=40,
+                     seed=7)
+        print(f"profile[{path}] " + json.dumps(_profile_decode(torch, gen)), flush=True)
+        del gen
+        _collect(torch)
 
 
 def _profile_decode(torch, gen) -> dict:
-    """Device busy share and kernel mix of one short request (prefill + 9
-    decoded frames) under torch.profiler; after the counted run."""
+    """Device busy share and kernel mix of one short request (prefill + 4
+    decoded frames) under torch.profiler, device activity only (host-side
+    events make the trace's processing take minutes)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        gen.generate_frames(TEXT_2, 0, [], max_audio_length_ms=800, temperature=0.8, topk=40,
+        gen.generate_frames(TEXT_2, 0, [], max_audio_length_ms=400, temperature=0.8, topk=40,
                             seed=2)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     cuda = torch.autograd.DeviceType.CUDA
     kernels = [e for e in prof.key_averages() if getattr(e, "device_type", None) == cuda]
     if not kernels:
-        return {"window": "prefill + 9 decoded frames", "device_time": "not measured",
+        return {"window": "prefill + 4 decoded frames", "device_time": "not measured",
                 "wall_ms_profiled": wall_ms}
 
     def dev_us(e):
@@ -289,16 +468,75 @@ def _profile_decode(torch, gen) -> dict:
 
     device_ms = sum(dev_us(e) for e in kernels) / 1e3
     top = sorted(kernels, key=dev_us, reverse=True)[:8]
-    qmm = sum(dev_us(e) for e in kernels if "qmm_" in e.key) / 1e3
+    ours = {prefix: sum(dev_us(e) for e in kernels if prefix in e.key) / 1e3
+            for prefix in ("qmm_", "q4mm_", "qmlp_")}
     return {
-        "window": "prefill + 9 decoded frames, profiled",
+        "window": "prefill + 4 decoded frames, profiled",
         "wall_ms_profiled": wall_ms,
         "device_kernel_ms": device_ms,
         "device_busy_share": device_ms / wall_ms,
         "kernel_launches": sum(e.count for e in kernels),
-        "quant_matmul_device_ms": qmm,
+        "port_kernel_device_ms": ours,
         "top": [[e.key[:70], dev_us(e) / 1e3, e.count] for e in top],
     }
+
+
+def _sibling(gen, params, fused_mlp: bool = False):
+    """A Generator over another CSM tree that shares gen's codec and text
+    tokenizer."""
+    from sesameai_tts_tpu_torch.runtime.generator import Generator
+
+    return Generator(params, gen._cfg, gen._mimi, gen._mimi_params,
+                     gen._tokenizer.text_tokenizer, device=gen.device, fused_mlp=fused_mlp)
+
+
+def phase_qa(torch):
+    """Teacher-forced agreement at full width, from one bf16 tree (seed 0).
+
+    Gated pairs: each computes one function twice and differs only in the
+    kernel's arithmetic, so the codebook-0 logits must agree closely:
+    - the int4 generator against a twin that runs the dense bf16
+      dequantization of the same int4 tree (its prefill shadow);
+    - the fused int8 generator against the unfused one on the same tree.
+    Both sides round activations to bf16 at every trunk linear; they differ
+    in where the f32 sums are cut and whether a product's output rounds to
+    bf16 before the next op.  Informational: ``quant_acceptance`` of int8
+    and of int4 against the bf16 tree (random weights at half-matrix int4
+    groups sit below the int8 gate, so int4 is not gated on it)."""
+    from sesameai_tts_tpu_torch.ops.quant import quantize_csm
+    from sesameai_tts_tpu_torch.runtime import qa
+    from sesameai_tts_tpu_torch.runtime.loader import build_generator, csm_1b_spec
+
+    t0 = time.perf_counter()
+    dense = build_generator(csm_1b_spec(quantize=None), device="cuda")
+    g8 = _sibling(dense, quantize_csm(dense._params, bits=8))
+    fused = _sibling(dense, g8._params, fused_mlp=True)
+    g4 = _sibling(dense, quantize_csm(dense._params, bits=4))
+    g4_twin = _sibling(dense, g4._prefill_params)  # dense bf16 of the same int4 tree
+    built_s = time.perf_counter() - t0
+    result = {"steps": QA_STEPS, "built_s": built_s}
+    for name, gen_q, gen_ref in (("int4_vs_dense_twin", g4, g4_twin),
+                                 ("fused_vs_unfused", fused, g8)):
+        t0 = time.perf_counter()
+        rep = qa.teacher_forced_agreement(gen_q, gen_ref, QA_TEXT, steps=QA_STEPS)
+        result[name] = {**rep, "min_logit_snr_db": QA_MIN_SNR_DB[name],
+                        "s": time.perf_counter() - t0}
+        print(f"qa {name} " + json.dumps(result[name]), flush=True)
+    for name, gen_q in (("int8_acceptance", g8), ("int4_acceptance", g4)):
+        t0 = time.perf_counter()
+        result[name] = {**qa.quant_acceptance(gen_q, dense, QA_TEXT, steps=QA_INFO_STEPS),
+                        "s": time.perf_counter() - t0}
+        print(f"qa {name} (information) " + json.dumps(result[name]), flush=True)
+    del dense, g8, fused, g4, g4_twin
+    _collect(torch)
+    for name, floor in QA_MIN_SNR_DB.items():
+        rep = result[name]
+        _check(rep["steps"] >= 30, f"qa {name}: only {rep['steps']} steps evaluated")
+        _check(rep["self_consistency"] == 1.0,
+               f"qa {name}: the teacher-forced replay does not reproduce the decode")
+        _check(rep["logit_snr_db"] >= floor,
+               f"qa {name}: logit SNR {rep['logit_snr_db']:.2f} dB < {floor} dB")
+    return result
 
 
 def phase_parity(torch):
@@ -324,6 +562,41 @@ def phase_parity(torch):
     return result
 
 
+def _entry(name: str, source: str, replaces: str, rows, launches: dict, path: str,
+           library: str) -> dict:
+    """One kernel's line: times summed over one decoded frame's launches at
+    the main path's S=1 (the default G=2 for int4), shape rows beside."""
+    main_rows = [r for r in rows if r["S"] == 1 and r.get("G", 2) == 2]
+
+    def per_frame(key):
+        return sum(r[key] * r["per_frame"] for r in main_rows)
+
+    entry = {
+        "name": name,
+        "route": "cuda",
+        "source": source,
+        "replaces": replaces,
+        "launches": launches[path][name],
+        "launches_by_path": {p: c[name] for p, c in launches.items() if c[name]},
+        "max_abs_err": max(r["max_abs_err"] for r in rows),
+        "ms": per_frame("kernel_ms"),
+        "plain_ms": per_frame("plain_ms"),
+        "bound_ms": per_frame("bound_ms"),
+        "bound_by": "bytes",
+        "library_ms": per_frame("library_ms"),
+        "library": library,
+        "timed_as": f"device time (CUDA graph replay, weights past L2) summed over one "
+                    f"decoded frame's launches on the {path} path at S=1",
+        "shapes": [{k: r[k] for k in ("shape", "S", "D", "F", "G", "Dout", "kernel_ms",
+                                      "kernel_eager_ms", "plain_ms", "library_ms", "bound_ms",
+                                      "bound_with_workspace_ms", "max_abs_err") if k in r}
+                   for r in rows],
+    }
+    entry["max_err"] = entry["max_abs_err"]
+    entry["kernel_ms"] = entry["ms"]
+    return entry
+
+
 def main() -> int:
     try:
         import torch
@@ -346,13 +619,28 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     t_start = time.perf_counter()
+    phase_s = {}
+
+    def timed(label, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        phase_s[label] = round(time.perf_counter() - t0, 1)
+        return out
+
     try:
-        name = phase_device(torch)
+        name, card = phase_device(torch)
         peak_bw, peak_flops = _peaks(name)
-        phase_build(quant)
-        rows = phase_kernels(torch, quant, peak_bw, peak_flops)
-        _, launches = phase_main_path(torch, quant)
-        phase_parity(torch)
+        timed("build", phase_build, quant)
+        rows = {k: timed(k, fn, torch, quant, peak_bw, peak_flops) for k, fn in (
+            ("quant_matmul", phase_quant_matmul), ("quant4_matmul", phase_quant4_matmul),
+            ("quant_mlp", phase_quant_mlp))}
+        launches = {}
+        for path, fields, per_frame, voice in _PATHS:
+            launches[path] = timed(f"main[{path}]", phase_main_path, torch, quant, path,
+                                   fields, per_frame, voice)["launches"]
+        timed("profile", phase_profile, torch)
+        timed("qa", phase_qa, torch)
+        timed("parity", phase_parity, torch)
     except Exception as e:  # any phase failing fails the run
         import traceback
 
@@ -360,35 +648,21 @@ def main() -> int:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
 
-    # one entry per kernel; its times are the sum over one decoded frame's
-    # launches at the main path's S=1, the per-shape rows beside them
-    main_rows = [r for r in rows if r["S"] == 1]
-
-    def per_frame(key):
-        return sum(r[key] * r["per_frame"] for r in main_rows)
-
-    entry = {
-        "name": "quant_matmul",
-        "route": "cuda",
-        "source": "sesameai_tts_tpu_torch/csrc/quant_matmul.cu",
-        "replaces": "sesameai_tts_tpu/ops/quant.py:135",
-        "launches": launches,
-        "max_abs_err": max(r["max_abs_err"] for r in rows),
-        "ms": per_frame("kernel_ms"),
-        "plain_ms": per_frame("plain_ms"),
-        "bound_ms": per_frame("bound_ms"),
-        "bound_by": "bytes",
-        "library_ms": per_frame("library_ms"),
-        "timed_as": "device time (CUDA graph replay, weights past L2) summed over one "
-                    "decoded frame's 576 launches at S=1",
-        "shapes": [{k: r[k] for k in ("shape", "S", "D", "F", "kernel_ms", "kernel_eager_ms",
-                                      "plain_ms", "library_ms", "bound_ms", "max_abs_err")}
-                   for r in rows],
-    }
-    entry["max_err"] = entry["max_abs_err"]
-    entry["kernel_ms"] = entry["ms"]
-    print(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s", flush=True)
-    print(json.dumps({"kernels": [entry]}), flush=True)
+    entries = [
+        _entry("quant_matmul", "sesameai_tts_tpu_torch/csrc/quant_matmul.cu",
+               "sesameai_tts_tpu/ops/quant.py:135", rows["quant_matmul"], launches, "int8",
+               "torch.matmul on a pre-dequantized bf16 weight"),
+        _entry("quant4_matmul", "sesameai_tts_tpu_torch/csrc/quant4_matmul.cu",
+               "sesameai_tts_tpu/ops/quant.py:202", rows["quant4_matmul"], launches, "int4",
+               "torch.matmul on a pre-dequantized bf16 weight"),
+        _entry("quant_mlp", "sesameai_tts_tpu_torch/csrc/quant_mlp.cu",
+               "sesameai_tts_tpu/ops/quant.py:286", rows["quant_mlp"], launches, "fused",
+               "several calls: torch.matmul x3, silu and a product on dense bf16 weights"),
+    ]
+    print(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s "
+          f"{json.dumps(phase_s)}", flush=True)
+    print(card, flush=True)
+    print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}), flush=True)
     return 0

@@ -5,7 +5,8 @@ whose leaves are numpy arrays (``jax.tree.map(np.asarray, params)``) and
 returns the port's tree: the same nesting with torch tensors, and the CSM
 trunks in the port's per-layer layout.  A JAX trunk may be stacked
 (``{"layers": {name: (L, ...)}}``) or per-layer (``{"layers": (L ×
-{name: ...})}``); int8 ``{"q", "scale"}`` leaves keep their keys.
+{name: ...})}``); int8 ``{"q", "scale"}`` and int4 ``{"q4", "scale"}``
+leaves keep their keys.
 """
 
 from __future__ import annotations
@@ -42,8 +43,10 @@ def _tensor(a) -> torch.Tensor:
 def _per_layer(trunk: dict) -> dict:
     layers = trunk["layers"]
     if isinstance(layers, dict):  # stacked on a leading L axis
-        L = next(iter(layers.values()))
-        L = (L["q"] if isinstance(L, dict) else L).shape[0]
+        leaf = next(iter(layers.values()))
+        while isinstance(leaf, dict):  # a quantized leaf: any of its arrays
+            leaf = next(iter(leaf.values()))
+        L = leaf.shape[0]
         layers = tuple(tree_map(lambda a, l=l: a[l], layers) for l in range(L))
     return {"layers": tuple(layers), "final_norm": trunk["final_norm"]}
 

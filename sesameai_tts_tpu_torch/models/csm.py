@@ -110,6 +110,7 @@ def _decode_codebooks(
     generator: Optional[torch.Generator],
     temperature,
     topk,
+    fused_mlp: bool = False,
 ) -> torch.Tensor:
     """Run the decoder AR over codebooks 1..K-1 → (B, K-1) samples.  The
     decoder cache is fresh every frame, positions 0..K-1."""
@@ -123,7 +124,8 @@ def _decode_codebooks(
 
     def dec_step(x, pos):
         pos0 = torch.full((B,), pos, dtype=torch.int64, device=dev)
-        h, _ = transformer_forward(params["decoder"], dec, x, pos0, cache, rope_cs)
+        h, _ = transformer_forward(params["decoder"], dec, x, pos0, cache, rope_cs,
+                                   fused_mlp=fused_mlp)
         return h[:, 0, :]
 
     # position 0: the projected backbone hidden; its output is unused
@@ -168,16 +170,18 @@ def generate_frame(
     topk=40,
     valid_len: Optional[torch.Tensor] = None,  # (B,) for right-padded prefill
     rope_cs: Optional[torch.Tensor] = None,
+    fused_mlp: bool = False,
 ) -> Tuple[torch.Tensor, CSMState]:
     """One frame of K codes from a window of input rows (prefill: S prompt
-    rows; decode: S=1 feedback row) → ((B, K) frame, new state)."""
+    rows; decode: S=1 feedback row) → ((B, K) frame, new state).
+    ``fused_mlp`` sends the int8 MLPs to the fused ``quant_mlp`` kernel."""
     bb = cfg.backbone
     B, S, _ = tokens.shape
     if rope_cs is None:
         rope_cs = precompute_rope(bb, device=tokens.device)
     x = embed_frames(params, cfg, tokens, tokens_mask).to(params["projection"].dtype)
     h, cache = transformer_forward(params["backbone"], bb, x, state.pos, state.cache,
-                                   rope_cs, valid_len=valid_len)
+                                   rope_cs, valid_len=valid_len, fused_mlp=fused_mlp)
     if valid_len is None:
         last_h = h[:, -1, :]
         new_pos = state.pos + S
@@ -190,7 +194,7 @@ def generate_frame(
 
     c0 = sample_topk(generator, _head_logits(last_h, params["codebook0_head"]),
                      topk, temperature)
-    cs = _decode_codebooks(params, cfg, last_h, c0, generator, temperature, topk)
+    cs = _decode_codebooks(params, cfg, last_h, c0, generator, temperature, topk, fused_mlp)
     frame = torch.cat([c0[:, None], cs], dim=1)
     return frame, CSMState(cache=cache, pos=new_pos)
 
@@ -214,6 +218,7 @@ def decode_frames(
     topk=40,
     rope_cs: Optional[torch.Tensor] = None,
     start_index: int = 0,
+    fused_mlp: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, CSMState]:
     """Generate ``num_frames`` more frames on the device, the all-zero-frame
     EOS rule applied as masking.  Frame ``start_index + i`` draws its noise
@@ -233,7 +238,8 @@ def decode_frames(
         tokens = torch.cat([frame[:, None, :], zero_text], dim=-1)
         gen = frame_generator(seed, start_index + i, dev)
         new_frame, state = generate_frame(params, cfg, state, tokens, mask_row, gen,
-                                          temperature, topk, rope_cs=rope_cs)
+                                          temperature, topk, rope_cs=rope_cs,
+                                          fused_mlp=fused_mlp)
         is_eos = (new_frame == 0).all(dim=-1)
         valid = ~(done | is_eos)
         done = done | is_eos
@@ -250,6 +256,7 @@ def teacher_forced_eval(
     state: CSMState,
     teacher: torch.Tensor,  # (T, B, K) fixed feedback trajectory
     rope_cs: Optional[torch.Tensor] = None,
+    fused_mlp: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Greedy decode with the feedback forced to ``teacher`` → ((T, B, K)
     greedy frames, (T, B, V) f32 codebook-0 logits)."""
@@ -266,11 +273,11 @@ def teacher_forced_eval(
         tokens = torch.cat([fin[:, None, :], zero_text], dim=-1)
         x = embed_frames(params, cfg, tokens, mask_row).to(params["projection"].dtype)
         h, cache = transformer_forward(params["backbone"], bb, x, state.pos, state.cache,
-                                       rope_cs)
+                                       rope_cs, fused_mlp=fused_mlp)
         last_h = h[:, -1, :]
         c0_logits = _head_logits(last_h, params["codebook0_head"])
         c0 = c0_logits.argmax(dim=-1)
-        cs = _decode_codebooks(params, cfg, last_h, c0, None, 1.0, 1)
+        cs = _decode_codebooks(params, cfg, last_h, c0, None, 1.0, 1, fused_mlp)
         frames.append(torch.cat([c0[:, None], cs], dim=1))
         logits_all.append(c0_logits)
         state = CSMState(cache=cache, pos=state.pos + 1)

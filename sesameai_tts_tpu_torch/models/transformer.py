@@ -132,6 +132,7 @@ def transformer_forward(
     cache: KVCache,  # written in place
     rope_cs: torch.Tensor,  # (max_seq, hd/2, 2)
     valid_len: Optional[torch.Tensor] = None,  # (B,) real rows (right-padded prefill)
+    fused_mlp: bool = False,  # int8 MLPs through the fused quant_mlp kernel
 ) -> Tuple[torch.Tensor, KVCache]:
     """Run the trunk over the window [pos0, pos0+S) of every row: prefill,
     S=1 decode, or a right-padded batch with ``valid_len``."""
@@ -163,7 +164,7 @@ def transformer_forward(
         attn = _attention(q, lk, lv, mask)
         h = h + qdot(attn.transpose(1, 2).reshape(B, S, H * hd), wl["o_proj"])
         hn = rms_norm(h, wl["mlp_norm"], cfg.norm_eps)
-        h = h + qmlp(hn, wl["w13"], wl["w2"])
+        h = h + qmlp(hn, wl["w13"], wl["w2"], fused=fused_mlp)
     return rms_norm(h, params["final_norm"], cfg.norm_eps), cache
 
 

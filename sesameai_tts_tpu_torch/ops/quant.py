@@ -1,17 +1,24 @@
-"""Weight-only int8 quantization and the int8 dequant-matmul kernel
-(port of ``sesameai_tts_tpu/ops/quant.py``).
+"""Weight-only int8 and int4 quantization and their CUDA kernels (port of
+``sesameai_tts_tpu/ops/quant.py``).
 
-A quantized weight is the dict ``{"q": int8 (in, out), "scale": f32
-(out,)}``, a drop-in leaf of the per-layer trunk dicts.  Single-stream AR
-decode streams every trunk weight once per step, so int8 halves the bytes
-the decode moves; ``quant_matmul`` reads the int8 weight straight from
-device memory and never materializes a bf16 copy of it.
+An int8 weight is the dict ``{"q": int8 (in, out), "scale": f32 (out,)}``;
+an int4 weight is ``{"q4": int8 (in/2, out), "scale": f32 (G, out)}``, two
+nibbles per byte in the split-half layout (byte ``[d, f]`` holds row ``d``
+in its low nibble and row ``d + in/2`` in its high nibble) with one scale
+per group of ``in/G`` rows.  Either is a drop-in leaf of the per-layer
+trunk dicts.  Single-stream AR decode streams every trunk weight once per
+step, so the kernels read the quantized weight straight from device memory
+and never materialize a bf16 copy of it:
 
-``quant_matmul`` launches the CUDA kernel in ``csrc/quant_matmul.cu`` for
-a CUDA tensor and runs ``quant_matmul_plain`` (the same arithmetic as
-torch ops) for a CPU tensor.  The library is built with ``nvcc`` into the
-checkout's ``build/`` directory at first use, so importing this module
-needs neither ``nvcc`` nor a card.
+- ``quant_matmul`` (``csrc/quant_matmul.cu``): x @ int8 weight;
+- ``quant4_matmul`` (``csrc/quant4_matmul.cu``): x @ int4 weight;
+- ``quant_mlp`` (``csrc/quant_mlp.cu``): the whole int8 SwiGLU MLP in one
+  launch, taken by ``qmlp`` when the caller asks for the fused MLP.
+
+Each wrapper launches its kernel for a CUDA tensor and runs its plain
+version (the same arithmetic as torch ops) for a CPU tensor.  The kernels
+are built with ``nvcc`` into the checkout's ``build/`` directory at first
+use, so importing this module needs neither ``nvcc`` nor a card.
 """
 
 from __future__ import annotations
@@ -21,21 +28,33 @@ import math
 import os
 import subprocess
 import threading
+import time
 from pathlib import Path
-from typing import Union
+from typing import Dict, Optional, Union
 
 import torch
 import torch.nn.functional as F_
 
-_SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "quant_matmul.cu"
+_CSRC = Path(__file__).resolve().parents[1] / "csrc"
 _BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
-_LIBRARY = _BUILD_DIR / "quant_matmul.so"
-_COLS_PER_BLOCK = 512  # csrc/quant_matmul.cu COLS_PER_BLOCK
+_COLS_PER_BLOCK = 512  # COLS_PER_BLOCK of quant_matmul.cu and quant4_matmul.cu
 _MIN_SPLIT_ROWS = 32  # fewest weight rows one block reduces over
 _BLOCKS_PER_SM = 8  # blocks of the partial-sum kernel aimed at per SM
+_MLP_THREADS = 512  # THREADS of quant_mlp.cu
+_MLP_MAX_SMEM = 232448  # shared memory one block may use (227 KB)
 
-_lib = None
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# kernel name → the C entry point's argument types (pointers, ints, stream)
+_SIGNATURES = {
+    "quant_matmul": [_P] * 5 + [_I] * 7 + [_P],
+    "quant4_matmul": [_P] * 5 + [_I] * 7 + [_P],
+    "quant_mlp": [_P] * 7 + [_I] * 6 + [_P],
+}
+
+_libs: Dict[str, ctypes.CDLL] = {}
 _lib_lock = threading.Lock()
+# seconds each kernel's nvcc took in this process (kernels built from source)
+build_seconds: Dict[str, float] = {}
 
 
 def quantize_weight(w: torch.Tensor) -> dict:
@@ -51,51 +70,116 @@ def is_quantized(w) -> bool:
     return isinstance(w, dict) and "q" in w
 
 
+def is_quantized4(w) -> bool:
+    return isinstance(w, dict) and "q4" in w
+
+
 def _dequant(w: dict, dtype=torch.bfloat16) -> torch.Tensor:
     return (w["q"].float() * w["scale"][..., None, :]).to(dtype)
 
 
+def quantize_weight_int4(w: torch.Tensor, group: int = 128) -> dict:
+    """(in, out) float → {"q4": int8 (in/2, out) packed nibbles, "scale":
+    f32 (in/group, out)}: ``clip(round(w / s), -8, 7)`` per group of
+    ``group`` input rows, packed split-half."""
+    wf = w.float()
+    D, F = wf.shape
+    if D % (2 * group) != 0:
+        raise ValueError(f"in-dim {D} not divisible by 2*group={2 * group}")
+    G = D // group
+    gw = wf.reshape(G, group, F)
+    scale = torch.clamp_min(gw.abs().amax(dim=1) / 7.0, 1e-8)  # (G, F)
+    q = torch.clamp(torch.round(gw / scale[:, None, :]), -8, 7).to(torch.int8).reshape(D, F)
+    lo, hi = q[: D // 2], q[D // 2:]
+    packed = torch.bitwise_or(torch.bitwise_and(lo, 0x0F), torch.bitwise_left_shift(hi, 4))
+    return {"q4": packed, "scale": scale}
+
+
+def _unpack_int4(packed: torch.Tensor):
+    """(D/2, F) packed → (lo (D/2, F), hi (D/2, F)) int8 in [-8, 7]."""
+    lo = torch.bitwise_xor(torch.bitwise_and(packed, 0x0F), 8) - 8  # sign-extend
+    hi = torch.bitwise_right_shift(packed, 4)  # arithmetic shift on int8
+    return lo, hi
+
+
+def _dequant4(w: dict, dtype=torch.bfloat16) -> torch.Tensor:
+    lo, hi = _unpack_int4(w["q4"])
+    q = torch.cat([lo, hi], dim=0).float()  # (D, F)
+    G, F = w["scale"].shape
+    D = q.shape[0]
+    return (q.reshape(G, D // G, F) * w["scale"][:, None, :]).reshape(D, F).to(dtype)
+
+
 # ---------------------------------------------------------------------------
-# The kernel: build, bind, launch
+# The kernels: build, bind
 # ---------------------------------------------------------------------------
 
 
-def build_kernel() -> ctypes.CDLL:
-    """Compile ``csrc/quant_matmul.cu`` for sm_90a (once) and load it."""
-    global _lib
+def _library(name: str) -> Path:
+    return _BUILD_DIR / f"{name}.so"
+
+
+def build_kernels(force: bool = False) -> Dict[str, ctypes.CDLL]:
+    """Compile every ``csrc/*.cu`` for sm_90a (once; ``force`` rebuilds
+    from the checkout's sources) and load them.  The ``nvcc`` runs start
+    together, one per source.  → {kernel name: library}."""
     with _lib_lock:
-        if _lib is not None:
-            return _lib
-        stale = (
-            not _LIBRARY.exists()
-            or _LIBRARY.stat().st_mtime < _SOURCE.stat().st_mtime
-        )
+        if _libs and not force:
+            return _libs
+        stale = [
+            name for name in _SIGNATURES
+            if force or not _library(name).exists()
+            or _library(name).stat().st_mtime < (_CSRC / f"{name}.cu").stat().st_mtime
+        ]
         if stale:
             from torch.utils.cpp_extension import CUDA_HOME
 
             if CUDA_HOME is None:
                 raise RuntimeError("nvcc not found: set CUDA_HOME to the CUDA toolkit")
             _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            tmp = _LIBRARY.with_suffix(f".{os.getpid()}.tmp")
-            cmd = [
-                os.path.join(CUDA_HOME, "bin", "nvcc"),
-                "-gencode", "arch=compute_90a,code=sm_90a",
-                "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-                "-o", str(tmp), str(_SOURCE),
-            ]
-            proc = subprocess.run(cmd, capture_output=True, text=True)
-            if proc.returncode != 0:
-                raise RuntimeError(
-                    f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}"
-                )
-            os.replace(tmp, _LIBRARY)  # atomic: a concurrent loader sees old or new
-        lib = ctypes.CDLL(str(_LIBRARY))
-        lib.quant_matmul.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [
-            ctypes.c_void_p
-        ]
-        lib.quant_matmul.restype = ctypes.c_int
-        _lib = lib
-        return lib
+            jobs = {}
+            for name in stale:
+                tmp = _library(name).with_suffix(f".{os.getpid()}.tmp")
+                cmd = [
+                    os.path.join(CUDA_HOME, "bin", "nvcc"),
+                    "-gencode", "arch=compute_90a,code=sm_90a",
+                    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+                    "-o", str(tmp), str(_CSRC / f"{name}.cu"),
+                ]
+                proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                        text=True)
+                jobs[name] = (proc, tmp, time.perf_counter())
+            failed = []
+            for name, (proc, tmp, t0) in jobs.items():
+                out, err = proc.communicate()
+                build_seconds[name] = time.perf_counter() - t0
+                if proc.returncode != 0:
+                    failed.append(f"{name}: nvcc failed ({proc.returncode}):\n{out}\n{err}")
+                else:
+                    os.replace(tmp, _library(name))  # atomic: a loader sees old or new
+            if failed:
+                raise RuntimeError("\n".join(failed))
+        for name, argtypes in _SIGNATURES.items():
+            lib = ctypes.CDLL(str(_library(name)))
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+            _libs[name] = lib
+        return _libs
+
+
+def _launch(name: str, *args) -> None:
+    err = getattr(build_kernels()[name], name)(*args)
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+
+
+def _check_operands(name: str, tensors: dict, device: torch.device) -> None:
+    for key, t in tensors.items():
+        if t.device != device:
+            raise ValueError(f"{name}: {key} is on {t.device}, x on {device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: {key} must be contiguous")
 
 
 def _s_tile(S: int) -> int:
@@ -113,6 +197,15 @@ def _splits(S: int, D: int, F: int, sms: int):
     rows = math.ceil(D / splits)
     rows = math.ceil(rows / 8) * 8
     return math.ceil(D / rows), rows
+
+
+def _sms(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+# ---------------------------------------------------------------------------
+# quant_matmul: x @ int8 weight
+# ---------------------------------------------------------------------------
 
 
 def quant_matmul_plain(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
@@ -150,29 +243,181 @@ def quant_matmul(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor) -> torch
             f"quant_matmul: want x bf16|f32, q int8, scale f32; got "
             f"{x.dtype}, {q.dtype}, {scale.dtype}"
         )
-    if q.device != x.device or scale.device != x.device:
-        raise ValueError("quant_matmul: x, q and scale must be on one device")
-    if not (x.is_contiguous() and q.is_contiguous() and scale.is_contiguous()):
-        raise ValueError("quant_matmul: x, q and scale must be contiguous")
+    _check_operands("quant_matmul", {"x": x, "q": q, "scale": scale}, x.device)
     if F % 8 != 0 or S * F >= 2**31:
         raise ValueError(f"quant_matmul: need F % 8 == 0 and S*F < 2^31 (S={S}, F={F})")
-    lib = build_kernel()
-    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-    splits, rows = _splits(S, D, F, sms)
+    splits, rows = _splits(S, D, F, _sms(x.device))
     y = torch.empty((S, F), dtype=x.dtype, device=x.device)
     ws = torch.empty((splits, S, F), dtype=torch.float32, device=x.device)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    err = lib.quant_matmul(
-        x.data_ptr(), q.data_ptr(), scale.data_ptr(), y.data_ptr(), ws.data_ptr(),
-        S, D, F, splits, rows, _s_tile(S), int(x.dtype == torch.bfloat16), stream,
-    )
-    if err != 0:
-        raise RuntimeError(f"quant_matmul kernel launch failed: CUDA error {err}")
+    _launch("quant_matmul", x.data_ptr(), q.data_ptr(), scale.data_ptr(), y.data_ptr(),
+            ws.data_ptr(), S, D, F, splits, rows, _s_tile(S),
+            int(x.dtype == torch.bfloat16), torch.cuda.current_stream(x.device).cuda_stream)
     quant_matmul.launches += 1
     return y
 
 
 quant_matmul.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# quant4_matmul: x @ int4 weight
+# ---------------------------------------------------------------------------
+
+
+def _q4_splits(S: int, D: int, F: int, G: int, sms: int):
+    """(parts, rows_per_split): every one of the G/2 scale groups of D/G
+    packed rows is cut into ``parts`` splits, so that no split crosses a
+    group boundary and the grid has about ``_BLOCKS_PER_SM`` blocks per SM.
+    Every split is non-empty."""
+    group = D // G
+    tiles = math.ceil(F / _COLS_PER_BLOCK) * math.ceil(S / _s_tile(S))
+    want = math.ceil(sms * _BLOCKS_PER_SM / tiles)
+    parts = max(1, min(math.ceil(want / (G // 2)), group // _MIN_SPLIT_ROWS))
+    rows = math.ceil(math.ceil(group / parts) / 8) * 8
+    return math.ceil(group / rows), rows
+
+
+def quant4_matmul_plain(x: torch.Tensor, q4: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """The kernel's arithmetic as torch ops: per scale group, the partial
+    dots of bf16(x)'s low half with the low nibbles and of its high half
+    with the high nibbles, in f32; each times its group's scale, summed in
+    f32 and cast to x.dtype.  For the CPU tests and the on-card comparison."""
+    S, D = x.shape
+    G, F = scale.shape
+    G2, group = G // 2, D // G
+    lo, hi = _unpack_int4(q4)
+    xb = x.to(torch.bfloat16).float()
+    p_lo = torch.einsum("sgk,gkf->sgf", xb[:, : D // 2].reshape(S, G2, group),
+                        lo.float().reshape(G2, group, F))
+    p_hi = torch.einsum("sgk,gkf->sgf", xb[:, D // 2:].reshape(S, G2, group),
+                        hi.float().reshape(G2, group, F))
+    acc = (p_lo * scale[:G2].float() + p_hi * scale[G2:].float()).sum(dim=1)
+    return acc.to(x.dtype)
+
+
+def quant4_matmul(x: torch.Tensor, q4: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """x (S, D) bf16 @ dequant4(q4 (D/2, F) int8, scale (G, F) f32) → (S, F)
+    bf16.  CUDA tensors launch the kernel (or raise); CPU tensors run
+    ``quant4_matmul_plain``.  ``quant4_matmul.launches`` counts launches."""
+    if x.device.type == "cpu":
+        return quant4_matmul_plain(x, q4, scale)
+    if x.device.type != "cuda":
+        raise ValueError(f"quant4_matmul: unsupported device {x.device}")
+    if x.dim() != 2 or q4.dim() != 2 or scale.dim() != 2:
+        raise ValueError(
+            f"quant4_matmul: want x (S, D), q4 (D/2, F), scale (G, F); got "
+            f"{tuple(x.shape)}, {tuple(q4.shape)}, {tuple(scale.shape)}"
+        )
+    S, D = x.shape
+    D2, F = q4.shape
+    G = scale.shape[0]
+    if D != 2 * D2 or scale.shape[1] != F or G % 2 != 0 or D % G != 0:
+        raise ValueError(
+            f"quant4_matmul: shape mismatch x {tuple(x.shape)}, q4 {tuple(q4.shape)}, "
+            f"scale {tuple(scale.shape)} (want D = 2*D/2, G even, D % G == 0)"
+        )
+    if x.dtype != torch.bfloat16 or q4.dtype != torch.int8 or scale.dtype != torch.float32:
+        raise TypeError(
+            f"quant4_matmul: want x bf16, q4 int8, scale f32; got "
+            f"{x.dtype}, {q4.dtype}, {scale.dtype}"
+        )
+    _check_operands("quant4_matmul", {"x": x, "q4": q4, "scale": scale}, x.device)
+    if F % 8 != 0 or S * F >= 2**31:
+        raise ValueError(f"quant4_matmul: need F % 8 == 0 and S*F < 2^31 (S={S}, F={F})")
+    parts, rows = _q4_splits(S, D, F, G, _sms(x.device))
+    y = torch.empty((S, F), dtype=torch.bfloat16, device=x.device)
+    ws = torch.empty(((G // 2) * parts, S, F), dtype=torch.float32, device=x.device)
+    _launch("quant4_matmul", x.data_ptr(), q4.data_ptr(), scale.data_ptr(), y.data_ptr(),
+            ws.data_ptr(), S, D, F, G, parts, rows, _s_tile(S),
+            torch.cuda.current_stream(x.device).cuda_stream)
+    quant4_matmul.launches += 1
+    return y
+
+
+quant4_matmul.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# quant_mlp: the fused int8 SwiGLU MLP
+# ---------------------------------------------------------------------------
+
+
+def _mlp_block_i(S: int) -> int:
+    """Intermediate-tile width.  Each tile writes and the second pass reads
+    an (S, Dout) f32 partial, so a wide S takes wider tiles (fewer
+    partials); a narrow S takes 64 so that F = 8192 still gives 128 blocks."""
+    return 64 if S <= 8 else 256
+
+
+def _mlp_smem_bytes(S: int, D: int, block_i: int) -> int:
+    s_tile = _s_tile(S)
+    return 4 * (max(s_tile * D, _MLP_THREADS * 8 * s_tile) + s_tile * block_i)
+
+
+def quant_mlp_plain(x: torch.Tensor, q13: torch.Tensor, s13: torch.Tensor, q2: torch.Tensor,
+                    s2: torch.Tensor, block_i: Optional[int] = None) -> torch.Tensor:
+    """The kernel's arithmetic as torch ops: a1, a3 = (bf16(x) @ q13) × s13
+    in f32; h = bf16(bf16(silu(f32(bf16(a1)))) · bf16(a3)); each
+    intermediate tile of ``block_i`` (default: the kernel's) rows gives an
+    f32 partial h_tile @ q2_tile, the partials are summed in f32, × s2,
+    cast to x.dtype.  For the CPU tests and the on-card comparison."""
+    S = x.shape[0]
+    F = q13.shape[1] // 2
+    Dout = q2.shape[1]
+    bi = block_i or _mlp_block_i(S)
+    a = (x.to(torch.bfloat16).float() @ q13.to(torch.bfloat16).float()) * s13.float()
+    gate = F_.silu(a[:, :F].to(torch.bfloat16).float()).to(torch.bfloat16)
+    h = (gate * a[:, F:].to(torch.bfloat16)).float()
+    parts = torch.einsum("stb,tbo->tso", h.reshape(S, F // bi, bi),
+                         q2.to(torch.bfloat16).float().reshape(F // bi, bi, Dout))
+    return (parts.sum(dim=0) * s2.float()).to(x.dtype)
+
+
+def quant_mlp(x: torch.Tensor, q13: torch.Tensor, s13: torch.Tensor, q2: torch.Tensor,
+              s2: torch.Tensor) -> torch.Tensor:
+    """silu(x@W1)·(x@W3) @ W2 with all three weights int8, one kernel:
+    x (S, D) bf16; q13 (D, 2F) int8 (w1 columns [:F], w3 [F:]); s13 (2F,)
+    f32; q2 (F, Dout) int8; s2 (Dout,) f32 → (S, Dout) bf16.  CUDA tensors
+    launch the kernel (or raise); CPU tensors run ``quant_mlp_plain``.
+    ``quant_mlp.launches`` counts launches."""
+    if x.device.type == "cpu":
+        return quant_mlp_plain(x, q13, s13, q2, s2)
+    if x.device.type != "cuda":
+        raise ValueError(f"quant_mlp: unsupported device {x.device}")
+    if x.dim() != 2 or q13.dim() != 2 or s13.dim() != 1 or q2.dim() != 2 or s2.dim() != 1:
+        raise ValueError("quant_mlp: want x (S, D), q13 (D, 2F), s13 (2F,), q2 (F, Dout), "
+                         "s2 (Dout,)")
+    S, D = x.shape
+    F = q13.shape[1] // 2
+    Dout = q2.shape[1]
+    if (q13.shape != (D, 2 * F) or s13.shape[0] != 2 * F or q2.shape[0] != F
+            or s2.shape[0] != Dout):
+        raise ValueError(
+            f"quant_mlp: shape mismatch x {tuple(x.shape)}, q13 {tuple(q13.shape)}, "
+            f"s13 {tuple(s13.shape)}, q2 {tuple(q2.shape)}, s2 {tuple(s2.shape)}"
+        )
+    if x.dtype != torch.bfloat16 or q13.dtype != torch.int8 or q2.dtype != torch.int8 or (
+        s13.dtype != torch.float32 or s2.dtype != torch.float32
+    ):
+        raise TypeError("quant_mlp: want x bf16, q13 and q2 int8, s13 and s2 f32")
+    _check_operands("quant_mlp", {"x": x, "q13": q13, "s13": s13, "q2": q2, "s2": s2},
+                    x.device)
+    bi = _mlp_block_i(S)
+    if D % 16 != 0 or Dout % 8 != 0 or F % bi != 0 or S > 64:
+        raise ValueError(f"quant_mlp: need D % 16 == 0, Dout % 8 == 0, F % {bi} == 0 and "
+                         f"S <= 64 (S={S}, D={D}, F={F}, Dout={Dout})")
+    if _mlp_smem_bytes(S, D, bi) > _MLP_MAX_SMEM:
+        raise ValueError(f"quant_mlp: D={D} needs more shared memory than a block has")
+    y = torch.empty((S, Dout), dtype=torch.bfloat16, device=x.device)
+    ws = torch.empty((F // bi, S, Dout), dtype=torch.float32, device=x.device)
+    _launch("quant_mlp", x.data_ptr(), q13.data_ptr(), s13.data_ptr(), q2.data_ptr(),
+            s2.data_ptr(), y.data_ptr(), ws.data_ptr(), S, D, F, Dout, bi, _s_tile(S),
+            torch.cuda.current_stream(x.device).cuda_stream)
+    quant_mlp.launches += 1
+    return y
+
+
+quant_mlp.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -182,30 +427,47 @@ quant_matmul.launches = 0
 
 def qdot(x: torch.Tensor, w: Union[torch.Tensor, dict]) -> torch.Tensor:
     """Matmul against a maybe-quantized weight. x: (..., in); w: (in, out)
-    tensor or int8 dict.
+    tensor, int8 dict or int4 dict.
 
-    On the card every quantized product goes to the ``quant_matmul``
-    kernel.  On the CPU it is the JAX package's CPU branch, ``x @
-    dequant(w, x.dtype)``, so the CPU tests compare like with like.
+    On the card every quantized product goes to its kernel (an int4 one
+    with x cast to bf16 and the result cast back).  On the CPU it is the
+    JAX package's CPU branch, ``x @ dequant(w, x.dtype)``, so the CPU tests
+    compare like with like.
 
-    Precision contract (as in the JAX package): the kernel computes bf16
+    Precision contract (as in the JAX package): the kernels compute bf16
     activations × bf16-dequantized weights with f32 accumulation; an f32
     caller gets f32 back, not f32 dot precision.
     """
+    if is_quantized4(w):
+        if x.device.type == "cuda":
+            lead, D = x.shape[:-1], x.shape[-1]
+            out = quant4_matmul(x.reshape(-1, D).to(torch.bfloat16).contiguous(),
+                                w["q4"], w["scale"])
+            return out.reshape(*lead, out.shape[-1]).to(x.dtype)
+        return x @ _dequant4(w, x.dtype)
     if not is_quantized(w):
         return x @ w
     if x.device.type == "cuda":
-        lead = x.shape[:-1]
-        D = x.shape[-1]
-        F = w["q"].shape[-1]
+        lead, D = x.shape[:-1], x.shape[-1]
         out = quant_matmul(x.reshape(-1, D).contiguous(), w["q"], w["scale"])
-        return out.reshape(*lead, F)
+        return out.reshape(*lead, out.shape[-1])
     return x @ _dequant(w, x.dtype)
 
 
-def qmlp(x: torch.Tensor, w13, w2) -> torch.Tensor:
-    """SwiGLU MLP against maybe-quantized weights: silu(x@W1)·(x@W3) @ W2,
-    as two ``qdot``s (the JAX package's default, unfused sequence)."""
+def qmlp(x: torch.Tensor, w13, w2, fused: bool = False) -> torch.Tensor:
+    """SwiGLU MLP against maybe-quantized weights: silu(x@W1)·(x@W3) @ W2.
+
+    ``fused`` (the fused-MLP configuration) with both weights int8, x on
+    the card and at most 64 rows sends the MLP to the ``quant_mlp`` kernel
+    in one launch, x cast to bf16 and the result cast back.  Otherwise it
+    is the unfused sequence of two ``qdot``s, the JAX package's default.
+    """
+    S = x.numel() // x.shape[-1]
+    if fused and is_quantized(w13) and is_quantized(w2) and x.device.type == "cuda" and S <= 64:
+        lead, D = x.shape[:-1], x.shape[-1]
+        out = quant_mlp(x.reshape(S, D).to(torch.bfloat16).contiguous(), w13["q"],
+                        w13["scale"], w2["q"], w2["scale"])
+        return out.reshape(*lead, out.shape[-1]).to(x.dtype)
     a = qdot(x, w13)
     F = a.shape[-1] // 2
     gate = F_.silu(a[..., :F].float()).to(x.dtype)
@@ -220,11 +482,13 @@ _TRUNK_QUANT_KEYS = ("qkv", "o_proj", "w13", "w2")
 
 
 def dequantize_csm(params: dict, dtype=torch.bfloat16) -> dict:
-    """Materialize dense trunks from a quantized tree once (the prefill
+    """Materialize dense trunks from an int8 or int4 tree once (the prefill
     shadow: long prefills are compute-bound and run as a plain forward).
     Non-trunk leaves are shared by reference."""
 
     def deq_leaf(w):
+        if is_quantized4(w):
+            return _dequant4(w, dtype)
         return _dequant(w, dtype) if is_quantized(w) else w
 
     def deq_trunk(trunk):
@@ -239,15 +503,19 @@ def dequantize_csm(params: dict, dtype=torch.bfloat16) -> dict:
     return out
 
 
-def quantize_trunk(trunk_params: dict, bits: int = 8) -> dict:
-    """Quantize qkv, o_proj, w13 and w2 of every layer to int8."""
-    if bits != 8:
-        raise ValueError("only per-channel int8 (bits=8) is ported")
+def quantize_trunk(trunk_params: dict, bits: int = 8, group: Optional[int] = None) -> dict:
+    """Quantize qkv, o_proj, w13 and w2 of every layer: per-channel int8
+    (``bits=8``) or group-wise int4 (``bits=4``) with half-matrix groups
+    (``group = in_dim // 2``) unless ``group`` is given."""
+    if bits not in (4, 8):
+        raise ValueError(f"bits={bits}: only int8 (8) and int4 (4) are supported")
     layers = []
     for wl in trunk_params["layers"]:
         wl = dict(wl)
         for k in _TRUNK_QUANT_KEYS:
-            wl[k] = quantize_weight(wl[k])
+            w = wl[k]
+            wl[k] = (quantize_weight_int4(w, group or w.shape[-2] // 2) if bits == 4
+                     else quantize_weight(w))
         layers.append(wl)
     return {"layers": tuple(layers), "final_norm": trunk_params["final_norm"]}
 
@@ -255,7 +523,8 @@ def quantize_trunk(trunk_params: dict, bits: int = 8) -> dict:
 def quantize_csm(params: dict, backbone: bool = True, decoder: bool = True,
                  bits: int = 8) -> dict:
     """Quantize the trunks; embeddings and the small per-frame heads stay
-    in the model dtype."""
+    in the model dtype.  ``bits=4`` packs nibbles with half-matrix scale
+    groups (see ``quantize_trunk``)."""
     out = dict(params)
     if backbone:
         out["backbone"] = quantize_trunk(params["backbone"], bits)

@@ -2,7 +2,7 @@
 ``sesameai_tts_tpu/runtime/generator.py``).
 
 Text (and optional voice-context segments) → bucketed prefill through the
-dense shadow of the int8 trunks → chunks of ``decode_frames`` on the
+dense shadow of the quantized trunks → chunks of ``decode_frames`` on the
 device with one host EOS check per chunk → Mimi decode to 24 kHz PCM,
 offline or streamed with carried codec state.
 
@@ -26,7 +26,7 @@ from sesameai_tts_tpu_torch.codec.mimi import Mimi
 from sesameai_tts_tpu_torch.core.config import CSMConfig
 from sesameai_tts_tpu_torch.models import csm as csm_model
 from sesameai_tts_tpu_torch.models.transformer import precompute_rope
-from sesameai_tts_tpu_torch.ops.quant import dequantize_csm, is_quantized
+from sesameai_tts_tpu_torch.ops.quant import dequantize_csm, is_quantized, is_quantized4
 from sesameai_tts_tpu_torch.runtime.frames import (
     FrameTokenizer,
     Segment,
@@ -76,15 +76,25 @@ class Generator:
         decode_chunk_frames: int = 10,
         seed: int = 0,
         device="cuda",
+        fused_mlp: bool = False,
     ):
         self.device = resolve_device(device)
         self._params = csm_params
+        # the decode sends int8 MLPs to the fused quant_mlp kernel
+        self._fused_mlp = fused_mlp
         # quantized trunks: a persistent dense shadow serves prefill (and
         # the voice-context extend), which is compute-bound; the decode
-        # streams the int8 weights through the quant_matmul kernel
+        # streams the int8 or int4 weights through their kernels
         trunk_layers = csm_params["backbone"]["layers"] + csm_params["decoder"]["layers"]
-        if any(is_quantized(w) for wl in trunk_layers for w in wl.values()):
-            self._prefill_params = dequantize_csm(csm_params, csm_params["projection"].dtype)
+        if any(is_quantized(w) or is_quantized4(w) for wl in trunk_layers for w in wl.values()):
+            # the shadow is bf16, as the JAX package's; a model of another
+            # dtype multiplies by its exact upcast, as JAX's type promotion does
+            dtype = csm_params["projection"].dtype
+            shadow = dequantize_csm(csm_params, torch.bfloat16)
+            for trunk in ("backbone", "decoder"):
+                shadow[trunk]["layers"] = tuple({k: w.to(dtype) for k, w in wl.items()}
+                                                for wl in shadow[trunk]["layers"])
+            self._prefill_params = shadow
         else:
             self._prefill_params = csm_params
         self._cfg = csm_cfg
@@ -219,7 +229,7 @@ class Generator:
         t0 = time.perf_counter()
         frames, valid, done, state = csm_model.decode_frames(
             self._params, self._cfg, state, frame, done, seed, n, temperature, topk,
-            rope_cs=self._rope, start_index=start,
+            rope_cs=self._rope, start_index=start, fused_mlp=self._fused_mlp,
         )
         n_valid = int(valid[:, 0].sum())  # host EOS check; valid frames are a prefix
         self.metrics.record("decode_s", time.perf_counter() - t0)

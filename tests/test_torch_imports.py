@@ -20,6 +20,7 @@ for name in names:
 bad = sorted(k for k in sys.modules
              if k == "jax" or k.startswith("jax.") or k == "jaxlib"
              or k == "sesameai_tts_tpu" or k.startswith("sesameai_tts_tpu."))
+assert "sesameai_tts_tpu_torch.runtime.qa" in names, names
 print(len(names), bad)
 """
 
@@ -44,3 +45,16 @@ def test_entry_points_default_to_cuda():
     with pytest.raises(RuntimeError, match="CUDA"):
         resolve_device("cuda")
     assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_fused_mlp_needs_int8_trunks():
+    import dataclasses
+
+    from sesameai_tts_tpu_torch.runtime.loader import build_generator, test_tiny_spec
+
+    for quantize in ("int4", None):
+        spec = dataclasses.replace(test_tiny_spec(), quantize=quantize, fused_mlp=True)
+        with pytest.raises(ValueError, match="fused_mlp"):
+            build_generator(spec, device="cpu")
+    with pytest.raises(ValueError, match="quantize"):
+        build_generator(dataclasses.replace(test_tiny_spec(), quantize="int2"), device="cpu")

@@ -1,8 +1,11 @@
-"""Port int8 quantization vs the JAX package, and the kernel's plain version.
+"""Port int8 and int4 quantization vs the JAX package, and the kernels'
+plain versions.
 
-The JAX ``qdot`` on the CPU takes its dense-dequant branch (the Pallas
-kernel has no interpret mode); the port's CPU ``qdot`` takes the same
-branch.  The kernel itself runs only on the card: its test is in
+The JAX ``qdot`` on the CPU takes its dense-dequant branch; the port's CPU
+``qdot`` takes the same branch.  ``quant4_matmul_plain`` and
+``quant_mlp_plain`` are held against the JAX kernel bodies run by
+``pl.pallas_call(..., interpret=True)`` on the CPU.  The kernels
+themselves run only on the card: their tests are in
 ``test_torch_kernels.py``, which imports no JAX so that it runs on a
 machine with a card.
 """
@@ -113,5 +116,222 @@ def test_quantize_and_dequantize_csm_match_jax():
             assert torch.equal(got_l[k], want_l[k])
     assert td["text_embeddings"] is tqp["text_embeddings"]  # shared, not copied
     with pytest.raises(ValueError):
-        tq.quantize_csm(tqp, bits=4)
+        tq.quantize_csm(tqp, bits=3)
 
+
+
+# -- int4 -----------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("group", [16, 64, 128])  # 128 = in/2, the trunk default
+def test_quantize_weight_int4_bytes_equal(group):
+    w = np.random.default_rng(group).standard_normal((256, 48)).astype(np.float32) / 16
+    jw = jq.quantize_weight_int4(jnp.asarray(w), group)
+    tw = tq.quantize_weight_int4(torch.from_numpy(w), group)
+    assert tw["q4"].dtype == torch.int8 and tw["q4"].shape == (128, 48)
+    assert tw["scale"].shape == (256 // group, 48)
+    np.testing.assert_array_equal(tw["q4"].numpy(), np.asarray(jw["q4"]))
+    np.testing.assert_array_equal(tw["scale"].numpy(), np.asarray(jw["scale"]))
+    lo, hi = tq._unpack_int4(tw["q4"])
+    jlo, jhi = jq._unpack_int4(jw["q4"])
+    np.testing.assert_array_equal(lo.numpy(), np.asarray(jlo))
+    np.testing.assert_array_equal(hi.numpy(), np.asarray(jhi))
+    np.testing.assert_array_equal(
+        tq._dequant4(tw, torch.float32).numpy(), np.asarray(jq._dequant4(jw, jnp.float32))
+    )
+    assert tq.is_quantized4(tw) and not tq.is_quantized(tw)
+
+
+def test_quantize_weight_int4_rejects_ragged_groups():
+    with pytest.raises(ValueError):
+        tq.quantize_weight_int4(torch.zeros(96, 8), group=32)  # 96 % 64 != 0
+
+
+@pytest.fixture(scope="module")
+def q4weight():
+    """int4 weight (256 → 256) at G = 2 (half-matrix groups) and G = 16."""
+    w = np.random.default_rng(2).standard_normal((256, 256)).astype(np.float32) / 16
+    out = {}
+    for G in (2, 16):
+        jw = jq.quantize_weight_int4(jnp.asarray(w), 256 // G)
+        out[G] = (jw, {k: torch.from_numpy(np.array(v)) for k, v in jw.items()})
+    return out
+
+
+def _q4_kernel_body(x, jw, block_f=128, out_dtype=jnp.float32):
+    """The JAX kernel body, run by ``pallas_call`` in interpret mode on the
+    CPU, with ``quant4_matmul_pallas``'s BlockSpecs (without the TPU memory
+    space)."""
+    import jax
+    from jax.experimental import pallas as pl
+
+    S, D = x.shape
+    D2, F = jw["q4"].shape
+    G = jw["scale"].shape[0]
+    return pl.pallas_call(
+        jq._q4mv_kernel_factory(D, G),
+        grid=(F // block_f,),
+        in_specs=[
+            pl.BlockSpec((S, D), lambda i: (0, 0)),
+            pl.BlockSpec((D2, block_f), lambda i: (0, i)),
+            pl.BlockSpec((G, block_f), lambda i: (0, i)),
+        ],
+        out_specs=pl.BlockSpec((S, block_f), lambda i: (0, i)),
+        out_shape=jax.ShapeDtypeStruct((S, F), out_dtype),
+        interpret=True,
+    )(x, jw["q4"], jw["scale"])
+
+
+@pytest.mark.parametrize("G", [2, 16])
+@pytest.mark.parametrize("S", [1, 3, 64])
+def test_quant4_matmul_plain_matches_jax_kernel_body(q4weight, S, G):
+    """Both take exact bf16 × nibble products in f32, scale each group's
+    partial sums and add them in f32: they agree up to the order of f32
+    sums (an f32 output, so no final rounding hides a difference)."""
+    jw, tw = q4weight[G]
+    x = np.random.default_rng(20 + S).standard_normal((S, 256)).astype(np.float32)
+    xb = jnp.asarray(x).astype(jnp.bfloat16)
+    want = np.asarray(_q4_kernel_body(xb, jw))
+    x_bf16_valued = torch.from_numpy(np.array(xb.astype(jnp.float32)))
+    got = tq.quant4_matmul_plain(x_bf16_valued, tw["q4"], tw["scale"])
+    assert got.dtype == torch.float32 and got.shape == (S, 256)
+    _close(got.numpy(), want)
+    # bf16 in, bf16 out: one rounding of the same sum
+    got_bf16 = tq.quant4_matmul_plain(x_bf16_valued.to(torch.bfloat16), tw["q4"], tw["scale"])
+    assert got_bf16.dtype == torch.bfloat16
+    _close(got_bf16.float().numpy(), want, rtol=2**-8)
+
+
+@pytest.mark.parametrize("G", [2, 16])
+@pytest.mark.parametrize("S", [1, 3, 64])
+def test_qdot_int4_matches_jax(q4weight, S, G):
+    jw, tw = q4weight[G]
+    x = np.random.default_rng(40 + S).standard_normal((S, 256)).astype(np.float32)
+    want = np.asarray(jq.qdot(jnp.asarray(x), jw))
+    _close(tq.qdot(torch.from_numpy(x), tw).numpy(), want)
+    assert tq.qdot(torch.from_numpy(x)[None], tw).shape == (1, S, 256)
+
+
+def test_quant4_matmul_cpu_runs_plain_without_launching(q4weight):
+    _, tw = q4weight[2]
+    x = torch.randn(5, 256, generator=torch.Generator().manual_seed(0)).to(torch.bfloat16)
+    before = tq.quant4_matmul.launches
+    got = tq.quant4_matmul(x, tw["q4"], tw["scale"])
+    assert torch.equal(got, tq.quant4_matmul_plain(x, tw["q4"], tw["scale"]))
+    assert tq.quant4_matmul.launches == before
+
+
+@pytest.mark.parametrize("S", [1, 8, 64])
+@pytest.mark.parametrize("D,F,G", [(2048, 3072, 2), (2048, 16384, 16), (8192, 2048, 2),
+                                   (8192, 1024, 64), (1024, 1024, 2), (96, 24, 6)])
+def test_q4_split_plan_stays_inside_groups(S, D, F, G):
+    parts, rows = tq._q4_splits(S, D, F, G, sms=132)
+    group = D // G
+    assert rows % 8 == 0 and 1 <= (G // 2) * parts <= 65535
+    assert parts * rows >= group and (parts - 1) * rows < group  # every split non-empty
+
+
+def test_quantize_and_dequantize_csm_int4_match_jax():
+    """A stacked JAX int4 tree converts to the port's per-layer leaves,
+    equals the port's own ``quantize_csm(bits=4)``, and dequantizes alike."""
+    import jax
+
+    from sesameai_tts_tpu.core.config import csm_test_tiny as j_tiny
+    from sesameai_tts_tpu.models.csm import init_csm_params
+    from sesameai_tts_tpu_torch.convert import from_jax_params
+
+    jp = init_csm_params(jax.random.PRNGKey(0), j_tiny(), jnp.float32)
+    jqp = jq.quantize_csm(jp, bits=4)
+    assert jqp["backbone"]["layers"]["qkv"]["q4"].ndim == 3  # stacked on L
+    want = from_jax_params(jax.tree.map(np.asarray, jqp))
+    tqp = tq.quantize_csm(from_jax_params(jax.tree.map(np.asarray, jp)), bits=4)
+    for trunk in ("backbone", "decoder"):
+        assert len(want[trunk]["layers"]) == len(tqp[trunk]["layers"]) == 2
+        for got_l, want_l in zip(tqp[trunk]["layers"], want[trunk]["layers"]):
+            for k in ("qkv", "o_proj", "w13", "w2"):
+                assert torch.equal(got_l[k]["q4"], want_l[k]["q4"])
+                assert torch.equal(got_l[k]["scale"], want_l[k]["scale"])
+                assert want_l[k]["scale"].shape[0] == 2  # half-matrix groups
+    jd = from_jax_params(jax.tree.map(np.asarray, jq.dequantize_csm(jqp, jnp.float32)))
+    td = tq.dequantize_csm(tqp, torch.float32)
+    for trunk in ("backbone", "decoder"):
+        for got_l, want_l in zip(td[trunk]["layers"], jd[trunk]["layers"]):
+            for k in got_l:
+                assert torch.equal(got_l[k], want_l[k])
+
+
+# -- the fused MLP ----------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def mlp_weights():
+    D, F, Dout = 128, 512, 128
+    rng = np.random.default_rng(7)
+    jw13 = jq.quantize_weight(jnp.asarray(rng.standard_normal((D, 2 * F)) * 0.05, jnp.float32))
+    jw2 = jq.quantize_weight(jnp.asarray(rng.standard_normal((F, Dout)) * 0.05, jnp.float32))
+
+    def torch_w(jw):
+        return {k: torch.from_numpy(np.array(v)) for k, v in jw.items()}
+
+    return jw13, jw2, torch_w(jw13), torch_w(jw2)
+
+
+def _bf16_x(S, seed):
+    x = (np.random.default_rng(seed).standard_normal((S, 128)) * 0.3).astype(np.float32)
+    xb = jnp.asarray(x).astype(jnp.bfloat16)
+    return xb, torch.from_numpy(np.array(xb.astype(jnp.float32))).to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("S", [1, 2, 8])
+def test_quant_mlp_plain_matches_jax_kernel(mlp_weights, S):
+    """quant_mlp_plain vs quant_mlp_pallas in interpret mode, bf16 x, at the
+    same intermediate tile.  The w13 sums run in another order, so a few
+    a1, a3 or h values may round to the neighbouring bf16 value; the bf16
+    outputs then differ by a small fraction of their peak (2e-2 of it, the
+    bound the JAX package's own fused-vs-unfused test uses)."""
+    jw13, jw2, tw13, tw2 = mlp_weights
+    xb, xt = _bf16_x(S, 30 + S)
+    want = np.asarray(jq.quant_mlp_pallas(xb, jw13["q"], jw13["scale"], jw2["q"], jw2["scale"],
+                                          block_i=256, interpret=True), np.float32)
+    got = tq.quant_mlp_plain(xt, tw13["q"], tw13["scale"], tw2["q"], tw2["scale"], block_i=256)
+    assert got.dtype == torch.bfloat16 and got.shape == (S, 128)
+    np.testing.assert_allclose(got.float().numpy(), want, rtol=0,
+                               atol=2e-2 * np.abs(want).max() + 1e-6)
+
+
+@pytest.mark.parametrize("block_i", [64, 256, 512])
+def test_quant_mlp_plain_matches_the_unfused_sequence(mlp_weights, block_i):
+    """The fused arithmetic against the unfused kernels' (quant_matmul_plain
+    for w13, the bf16 silu·gate walk, quant_matmul_plain for w2): the
+    hidden h is the same, only the w2 sum is split into tiles, so the bf16
+    outputs differ by at most one rounding (2^-7 relative) plus f32 noise."""
+    _, _, tw13, tw2 = mlp_weights
+    _, xt = _bf16_x(4, 3)
+    a = tq.quant_matmul_plain(xt, tw13["q"], tw13["scale"])
+    gate = torch.nn.functional.silu(a[:, :512].float()).to(torch.bfloat16)
+    want = tq.quant_matmul_plain(gate * a[:, 512:], tw2["q"], tw2["scale"]).float()
+    got = tq.quant_mlp_plain(xt, tw13["q"], tw13["scale"], tw2["q"], tw2["scale"],
+                             block_i=block_i).float()
+    assert bool(((got - want).abs() <= 2**-7 * want.abs() + 1e-5 * want.abs().max()).all())
+
+
+def test_quant_mlp_cpu_runs_plain_without_launching(mlp_weights):
+    _, _, tw13, tw2 = mlp_weights
+    _, xt = _bf16_x(3, 5)
+    before = tq.quant_mlp.launches
+    got = tq.quant_mlp(xt, tw13["q"], tw13["scale"], tw2["q"], tw2["scale"])
+    assert torch.equal(got, tq.quant_mlp_plain(xt, tw13["q"], tw13["scale"], tw2["q"],
+                                               tw2["scale"]))
+    assert tq.quant_mlp.launches == before
+
+
+@pytest.mark.parametrize("fused", [False, True])
+def test_qmlp_on_the_cpu_is_the_unfused_sequence(mlp_weights, fused):
+    """On the CPU the fused configuration changes nothing: qmlp runs the
+    JAX package's unfused sequence of two dense-dequant products."""
+    jw13, jw2, tw13, tw2 = mlp_weights
+    x = np.random.default_rng(9).standard_normal((2, 3, 128)).astype(np.float32)
+    want = np.asarray(jq.qmlp(jnp.asarray(x), jw13, jw2))
+    before = tq.quant_mlp.launches
+    _close(tq.qmlp(torch.from_numpy(x), tw13, tw2, fused=fused).numpy(), want)
+    assert tq.quant_mlp.launches == before
