@@ -9,16 +9,20 @@ Phases, each of which fails the run if it fails:
 1. device: the card's name and power limit (``nvidia-smi``);
 2. build: compile every kernel in ``csrc/`` (one ``nvcc`` per source, all
    started together) and print each build's time;
-3. kernels vs plain: ``quant_matmul``, ``quant4_matmul`` and ``quant_mlp``
-   against their plain PyTorch versions at the main paths' shapes, each
-   timed beside its plain version, a library yardstick and the card's
-   bound;
+3. kernels vs plain: ``quant_matmul``, ``quant4_matmul``, ``quant_mlp``
+   and ``flash_attention`` against their plain PyTorch versions at the
+   main paths' shapes, each timed beside its plain version, a library
+   yardstick and the card's bound;
 4. main paths, CSM-1B at full width with a bf16 Mimi and random weights
    from a seed, one configuration at a time: int8 trunks (offline,
    streamed and voice-context requests), int4 trunks and the fused int8
-   MLP (offline and streamed each).  Exact launch counts per decoded frame
-   show that each path went through its kernels.  Then each
-   configuration's profiled window (device busy share, kernel mix);
+   MLP (offline and streamed each), and the voice-preload path (int8: two
+   ~16 s 44.1 kHz stereo reference clips through the voice registry and
+   ``prepare_voice_context`` into a 512-row context prefill, offline and
+   streamed requests from the cached context, one rolling-context turn).
+   Exact launch counts show that each path went through its kernels.
+   Then each configuration's profiled window (device busy share, kernel
+   mix);
 5. QA at full width: teacher-forced agreement of the int4 generator with
    the dense twin of its own tree, and of the fused generator with the
    unfused one, against thresholds; the int8 and int4 acceptance reports
@@ -92,7 +96,34 @@ _PATHS = (
     ("fused", {"fused_mlp": True}, {"quant_matmul": 288, "quant4_matmul": 0, "quant_mlp": 144},
      False),
 )
-_KERNELS = ("quant_matmul", "quant4_matmul", "quant_mlp")
+
+# flash_attention phase: (label, B, H, KV, hd, T, S, pos0 per row, valid_len
+# per row).  Backbone H 32 / KV 8 / hd 64 over its 2048-slot cache, decoder
+# H 8 / KV 2 / hd 128 over its fresh 32-slot cache of each frame
+_ATTN_CASES = (
+    ("backbone prefill S=512 (context)", 1, 32, 8, 64, 2048, 512, (0,), (500,)),
+    ("backbone prefill S=64 (utterance)", 1, 32, 8, 64, 2048, 64, (500,), (64,)),
+    ("backbone decode pos 600", 1, 32, 8, 64, 2048, 1, (600,), (1,)),
+    ("backbone decode pos 2047", 1, 32, 8, 64, 2048, 1, (2047,), (1,)),
+    ("decoder step pos 0", 1, 8, 2, 128, 32, 1, (0,), (1,)),
+    ("decoder step pos 31", 1, 8, 2, 128, 32, 1, (31,), (1,)),
+    ("backbone prefill S=64, row 1 valid_len 0", 2, 32, 8, 64, 2048, 64, (0, 0), (40, 0)),
+)
+_FRAME_CACHE_FILL = 600  # the backbone cache fill of the per-frame sum
+# flash_attention vs plain, bf16: the kernel rounds exp(s - m) at its
+# running max to bf16 before the PV product (as the TPU kernel does), the
+# plain version rounds the normalized probability.  Either moves a weight
+# by at most 2^-9 of itself, so the outputs, convex combinations of v's
+# rows, differ by at most 2^-8 max|v|; one bf16 rounding of the output is
+# inside the 1e-2 relative term
+_ATTN_ATOL_OF_VMAX = 2.0 ** -8
+
+VOICE_CLIP_S = 16.0  # two reference clips of this length at 44.1 kHz stereo
+VOICE_TRANSCRIPTS = (
+    "The first reference clip holds a calm voice.",
+    "A second clip adds more of the same speaker.",
+)
+TEXT_3 = "The rolling context keeps the voice and the dialog."
 
 QA_TEXT = "Teacher forcing holds two generators to one trajectory of frames."
 QA_STEPS = 32  # the gated pairs
@@ -138,11 +169,11 @@ def phase_device(torch):
     return name, card
 
 
-def phase_build(quant):
+def phase_build(kernels):
     t0 = time.perf_counter()
-    quant.build_kernels(force=True)  # always build from the checkout's sources
-    for name in _KERNELS:
-        print(f"build: {name} in {quant.build_seconds[name]:.2f} s", flush=True)
+    kernels.build_kernels(force=True)  # always build from the checkout's sources
+    for name in kernels.KERNELS:
+        print(f"build: {name} in {kernels.build_seconds[name]:.2f} s", flush=True)
     print(f"build: all kernels in {time.perf_counter() - t0:.2f} s (in parallel)", flush=True)
 
 
@@ -191,21 +222,25 @@ def _copies(nbytes: int) -> int:
 
 
 def _measure(torch, label: str, row: dict, got, want, kernel, plain, library, copies: int,
-             nbytes: float, flops: float, peak_bw: float, peak_flops: float) -> dict:
-    """Check got against want within the stated tolerance, time the kernel,
-    its plain version and the library yardstick, and add the bound."""
+             nbytes: float, flops: float, peak_bw: float, peak_flops: float,
+             atol: float = None) -> dict:
+    """Check got against want within the stated tolerance (``atol``
+    replaces the default absolute term), time the kernel, its plain
+    version and the library yardstick (None: not timed), and add the
+    bound."""
     torch.cuda.synchronize()
     diff = (got.float() - want.float()).abs()
     peak = want.float().abs().max().item()
-    ok = bool((diff <= _RTOL * want.float().abs() + _ATOL_OF_PEAK * peak).all())
+    atol = _ATOL_OF_PEAK * peak if atol is None else atol
+    ok = bool((diff <= _RTOL * want.float().abs() + atol).all())
     reps = max(copies, 20)
     t_bytes, t_ops = nbytes / peak_bw, flops / peak_flops
     row.update({
-        "max_abs_err": diff.max().item(), "peak_abs": peak, "ok": ok,
+        "max_abs_err": diff.max().item(), "peak_abs": peak, "atol": atol, "ok": ok,
         "kernel_ms": _device_ms(torch, kernel, reps),
         "kernel_eager_ms": _eager_ms(torch, kernel, reps),
         "plain_ms": _device_ms(torch, plain, min(reps, 8)),
-        "library_ms": _device_ms(torch, library, reps),
+        "library_ms": None if library is None else _device_ms(torch, library, reps),
         "bound_ms": max(t_bytes, t_ops) * 1e3,
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
     })
@@ -324,23 +359,96 @@ def phase_quant_mlp(torch, quant, peak_bw, peak_flops):
     return rows
 
 
-def _reset_counts(quant):
-    for name in _KERNELS:
-        getattr(quant, name).launches = 0
+def _attn_work(B, H, KV, hd, S, pos0, valid_len, elem: int):
+    """(bytes, operations) one flash_attention call must move and do: q and
+    the output once, k and v of every slot some row sees once, 4*hd
+    operations per visible (query, slot) pair and head."""
+    nbytes, pairs = 2 * B * H * S * hd * elem, 0
+    for p0, n in zip(pos0, valid_len):
+        end = p0 + n
+        nbytes += 2 * KV * min(end, p0 + S) * hd * elem
+        pairs += sum(max(0, min(p0 + i + 1, end)) for i in range(S))
+    return nbytes, 4 * hd * H * pairs
 
 
-def _counts(quant) -> dict:
-    return {name: getattr(quant, name).launches for name in _KERNELS}
+def phase_flash_attention(torch, attention, peak_bw, peak_flops):
+    """flash_attention vs flash_attention_plain at the trunks' shapes, in
+    bf16.  The backbone's cache is cycled through copies past the 50 MB L2
+    (on the decode path it is read after a frame's GBs of weights); the
+    decoder's 32-slot cache is fresh and hot every frame, as on the path.
+    The library yardstick is one scaled_dot_product_attention call with the
+    same boolean mask (enable_gqa), not timed on the row that sees no key,
+    where it gives NaN."""
+    F_ = torch.nn.functional
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    rows = []
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+
+    for label, B, H, KV, hd, T, S, pos0, valid_len in _ATTN_CASES:
+        q = randn(B, S, H, hd).transpose(1, 2)  # as the trunk hands it over
+        cache_bytes = 2 * B * KV * T * hd * 2
+        copies = _copies(cache_bytes) if T > 32 else 2
+        kvs = [(randn(B, KV, T, hd), randn(B, KV, T, hd)) for _ in range(copies)]
+        p0 = torch.tensor(pos0, device="cuda")
+        ve = p0 + torch.tensor(valid_len, device="cuda")
+        k, v = kvs[0]
+        got = attention.flash_attention(q, k, v, p0, ve)
+        want = attention.flash_attention_plain(q, k, v, p0, ve)
+        empty = [b for b, n in enumerate(valid_len) if pos0[b] == 0 and n == 0]
+        torch.cuda.synchronize()
+        for b in empty:
+            _check(not bool(got[b].any()), f"flash_attention: {label}: row {b} is not 0")
+        library = None
+        if not empty:
+            positions = p0[:, None] + torch.arange(S, device="cuda")[None, :]
+            key_pos = torch.arange(T, device="cuda")
+            mask = ((key_pos[None, None, :] <= positions[:, :, None])
+                    & (key_pos[None, None, :] < ve[:, None, None]))[:, None]
+
+            def library(i):
+                kc, vc = kvs[i % copies]
+                return F_.scaled_dot_product_attention(q, kc, vc, attn_mask=mask,
+                                                       enable_gqa=True)
+
+        nbytes, flops = _attn_work(B, H, KV, hd, S, pos0, valid_len, 2)
+        rows.append(_measure(
+            torch, "flash_attention",
+            {"shape": label, "B": B, "H": H, "KV": KV, "hd": hd, "T": T, "S": S,
+             "pos0": list(pos0), "valid_len": list(valid_len), "copies": copies},
+            got, want,
+            lambda i: attention.flash_attention(q, *kvs[i % copies], p0, ve),
+            lambda i: attention.flash_attention_plain(q, *kvs[i % copies], p0, ve),
+            library, copies, nbytes, flops, peak_bw, peak_flops,
+            atol=_ATTN_ATOL_OF_VMAX * v.float().abs().max().item()))
+        del kvs
+        torch.cuda.empty_cache()
+    return rows
 
 
-def phase_main_path(torch, quant, path: str, spec_fields: dict, per_frame: dict,
-                    voice: bool):
-    """One configuration of the serving path at CSM-1B width: offline and
-    streamed requests (and a voice-context one), launch counts per decoded
-    frame checked exactly."""
-    import numpy as np
+def _reset_counts(wrappers):
+    for fn in wrappers.values():
+        fn.launches = 0
 
-    from sesameai_tts_tpu_torch.runtime.frames import Segment
+
+def _counts(wrappers) -> dict:
+    return {name: fn.launches for name, fn in wrappers.items()}
+
+
+def _attention_launches(cfg, decoded: int, prefills: int, extends: int) -> int:
+    """flash_attention launches of a run, from the code: a decoded frame
+    runs the backbone once (one per backbone layer) and the decoder once
+    per codebook (position 0 takes the projected backbone state), one per
+    decoder layer each; an utterance prefill samples a frame the same way;
+    a voice-context prefill (extend_state) runs the backbone only."""
+    per_frame = cfg.backbone.num_layers + cfg.audio_num_codebooks * cfg.decoder.num_layers
+    return per_frame * (decoded + prefills) + cfg.backbone.num_layers * extends
+
+
+def _build_generator(torch, path: str, spec_fields: dict):
+    """Build one configuration at CSM-1B width and warm it up (cuBLAS and
+    cuDNN handles, allocator; not counted)."""
     from sesameai_tts_tpu_torch.runtime.loader import build_generator, csm_1b_spec
 
     t0 = time.perf_counter()
@@ -349,43 +457,41 @@ def phase_main_path(torch, quant, path: str, spec_fields: dict, per_frame: dict,
     torch.cuda.reset_peak_memory_stats()
     print(f"main[{path}]: built CSM-1B + bf16 Mimi in {time.perf_counter() - t0:.1f} s",
           flush=True)
-    # warm-up (cuBLAS/cuDNN handles, allocator): not counted
     gen.generate("warm up", 0, [], max_audio_length_ms=240, temperature=0.8, topk=40, seed=7)
     torch.cuda.synchronize()
+    return gen
 
-    sr = gen.sample_rate
-    gen.metrics.reset()
-    _reset_counts(quant)
-    t0 = time.perf_counter()
-    offline = gen.generate(TEXT_1, 0, [], max_audio_length_ms=AUDIO_MS, temperature=0.8,
-                           topk=40, seed=0)
-    t_offline = time.perf_counter() - t0
+
+def _stream(gen, text, context, **kw):
+    """→ (PCM, wall seconds, seconds to the first chunk) of generate_stream."""
+    import numpy as np
 
     t0 = time.perf_counter()
     first_chunk_s, chunks = None, []
-    for chunk in gen.generate_stream(TEXT_1, 0, [], max_audio_length_ms=AUDIO_MS,
-                                     temperature=0.8, topk=40, seed=0):
+    for chunk in gen.generate_stream(text, 0, context, max_audio_length_ms=AUDIO_MS,
+                                     temperature=0.8, topk=40, seed=0, **kw):
         if first_chunk_s is None:
             first_chunk_s = time.perf_counter() - t0
         chunks.append(chunk)
-    t_stream = time.perf_counter() - t0
-    streamed = np.concatenate(chunks)
-    outputs = {"offline": (offline, t_offline), "stream": (streamed, t_stream)}
+    return np.concatenate(chunks), time.perf_counter() - t0, first_chunk_s
 
-    if voice:
-        t0 = time.perf_counter()
-        ctx = gen.precompute_context_state([Segment(0, TEXT_1, offline)])
-        voiced = gen.generate(TEXT_2, 0, [], max_audio_length_ms=AUDIO_MS, temperature=0.8,
-                              topk=40, cached_context=ctx, seed=1)
-        outputs["voice"] = (voiced, time.perf_counter() - t0)
-    torch.cuda.synchronize()
-    launches = _counts(quant)
 
+def _report(torch, gen, path: str, outputs: dict, first_chunk_s: float, launches: dict,
+            per_frame: dict, extends: int, extra: dict = None) -> dict:
+    """Print a path's result line and check it: PCM finite, the quant
+    kernels' exact launches per decoded frame, flash_attention's exact
+    launches (``_attention_launches``), streamed == offline."""
+    import numpy as np
+
+    sr = gen.sample_rate
     summary = gen.metrics.summary()
     decoded = int(summary["decoded_frames"]["total"])
+    prefills = summary["prefill_s"]["count"]
     decode_s = summary["decode_s"]["total"]
+    offline, streamed = outputs["offline"][0], outputs["stream"][0]
     rel = float(np.abs(streamed - offline).max() / max(np.abs(offline).max(), 1e-12)) \
         if streamed.shape == offline.shape else float("inf")
+    want_attention = _attention_launches(gen._cfg, decoded, prefills, extends)
     result = {
         "path": path,
         "frames": {**{k: pcm.size // gen._hop for k, (pcm, _) in outputs.items()},
@@ -399,24 +505,152 @@ def phase_main_path(torch, quant, path: str, spec_fields: dict, per_frame: dict,
         "wall_s": sum(t for _, t in outputs.values()),
         "breakdown_s": {k: summary[k]["total"] for k in ("prefill_s", "decode_s", "codec_s",
                                                          "encode_s") if k in summary},
+        "prefills": prefills,
+        "context_prefills": extends,
         "launches": launches,
         "launches_per_decoded_frame": {k: v / decoded for k, v in launches.items()},
+        "flash_attention_expected": want_attention,
         "stream_vs_offline_rel_err": rel,
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+        **(extra or {}),
     }
     print(f"main[{path}] " + json.dumps(result), flush=True)
     for name, (pcm, _) in outputs.items():
         _check(pcm.size > 0 and bool(np.isfinite(pcm).all()),
                f"{path}: {name} PCM empty or not finite")
+    _check(prefills == len(outputs), f"{path}: {prefills} prefills for {len(outputs)} requests")
     for kernel, n in per_frame.items():
         _check(launches[kernel] == n * decoded,
                f"{path}: {kernel} launched {launches[kernel]} times for {decoded} decoded "
                f"frames (want {n} per frame)")
+    _check(launches["flash_attention"] == want_attention,
+           f"{path}: flash_attention launched {launches['flash_attention']} times, want "
+           f"{want_attention} ({decoded} decoded frames, {prefills} prefills, {extends} "
+           f"context prefills)")
     # same seed ⇒ same frames; the PCM then differs only by the bf16
     # rounding of chunked vs whole-utterance codec convolutions
     _check(streamed.shape == offline.shape and rel < 5e-2,
            f"{path}: streamed != offline: shapes {streamed.shape} vs {offline.shape}, "
            f"rel err {rel}")
+    return result
+
+
+def phase_main_path(torch, wrappers, path: str, spec_fields: dict, per_frame: dict,
+                    voice: bool):
+    """One configuration of the serving path at CSM-1B width: offline and
+    streamed requests (and a 2 s voice-context one), launch counts checked
+    exactly."""
+    from sesameai_tts_tpu_torch.runtime.frames import Segment
+
+    gen = _build_generator(torch, path, spec_fields)
+    gen.metrics.reset()
+    _reset_counts(wrappers)
+    t0 = time.perf_counter()
+    offline = gen.generate(TEXT_1, 0, [], max_audio_length_ms=AUDIO_MS, temperature=0.8,
+                           topk=40, seed=0)
+    outputs = {"offline": (offline, time.perf_counter() - t0)}
+    streamed, t_stream, first_chunk_s = _stream(gen, TEXT_1, [])
+    outputs["stream"] = (streamed, t_stream)
+    if voice:
+        t0 = time.perf_counter()
+        ctx = gen.precompute_context_state([Segment(0, TEXT_1, offline)])
+        voiced = gen.generate(TEXT_2, 0, [], max_audio_length_ms=AUDIO_MS, temperature=0.8,
+                              topk=40, cached_context=ctx, seed=1)
+        outputs["voice"] = (voiced, time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    launches = _counts(wrappers)
+    result = _report(torch, gen, path, outputs, first_chunk_s, launches, per_frame,
+                     extends=int(voice))
+    del gen
+    _collect(torch)
+    return result
+
+
+def _write_voice(root: str) -> str:
+    """Two ~16 s 44.1 kHz stereo clips, synthesized from a seed (a gliding
+    harmonic tone under a syllable-rate envelope, plus noise), with their
+    transcripts in a voices.json → its path."""
+    import numpy as np
+
+    from sesameai_tts_tpu_torch.audio.io import write_wav
+
+    rate = 44_100
+    rng = np.random.default_rng(0)
+    t = np.arange(int(VOICE_CLIP_S * rate)) / rate
+    clips = {}
+    for i, text in enumerate(VOICE_TRANSCRIPTS):
+        f0 = 120.0 + 25.0 * np.sin(2 * np.pi * 0.3 * t + i)
+        phase = 2 * np.pi * np.cumsum(f0) / rate
+        tone = sum(np.sin(h * phase) / h for h in range(1, 9))
+        env = np.clip(np.sin(2 * np.pi * 2.5 * t + rng.uniform(0, 6)), 0.0, None)
+        left = 0.25 * env * tone + 0.01 * rng.standard_normal(t.size)
+        name = f"clip{i}.wav"
+        write_wav(os.path.join(root, name), np.stack([left, 0.9 * left]), rate)
+        clips[name] = text
+    path = os.path.join(root, "voices.json")
+    with open(path, "w") as f:
+        json.dump({"clone": clips}, f)
+    return path
+
+
+def phase_voice_path(torch, wrappers, per_frame: dict):
+    """The voice-preload path on CSM-1B int8: a voice registry on disk →
+    ``prepare_voice_context`` (read_wav_mono → resample → Mimi encode) →
+    one context prefill at the 512-row bucket (flash_attention at S=512,
+    T=2048) → offline and streamed requests from the cached context → one
+    RollingContext turn (voice prefix pinned, the first utterance appended
+    as a dialog segment) whose prompt exceeds 512 rows."""
+    import tempfile
+
+    from sesameai_tts_tpu_torch.runtime.context import RollingContext
+    from sesameai_tts_tpu_torch.runtime.frames import Segment
+    from sesameai_tts_tpu_torch.runtime.generator import _next_bucket
+    from sesameai_tts_tpu_torch.service.tts import prepare_voice_context
+    from sesameai_tts_tpu_torch.service.voices import load_registry
+
+    gen = _build_generator(torch, "voice", {})
+    with tempfile.TemporaryDirectory() as tmp:
+        registry = load_registry(_write_voice(tmp))
+        gen.metrics.reset()
+        _reset_counts(wrappers)
+        t0 = time.perf_counter()
+        segments, rows, trimmed = prepare_voice_context(gen, registry["clone"], "clone")
+        prepare_s = time.perf_counter() - t0
+    bucket = _next_bucket(rows, gen._prefill_buckets, room=gen.max_seq_len)
+    t0 = time.perf_counter()
+    ctx = gen.precompute_context_state(segments)
+    torch.cuda.synchronize()
+    context_prefill_s = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    offline = gen.generate(TEXT_2, 0, [], max_audio_length_ms=AUDIO_MS, temperature=0.8,
+                           topk=40, cached_context=ctx, seed=0)
+    outputs = {"offline": (offline, time.perf_counter() - t0)}
+    streamed, t_stream, first_chunk_s = _stream(gen, TEXT_2, [], cached_context=ctx)
+    outputs["stream"] = (streamed, t_stream)
+
+    rolling = RollingContext(max_positions=gen.max_seq_len)
+    rolling.pin_prefix(segments)
+    t0 = time.perf_counter()
+    rolling.append(gen.frame_tokenizer.segment(Segment(0, TEXT_2, offline)))
+    turn_rows = rolling.total_rows + gen.frame_tokenizer.text_segment(TEXT_3, 1)[0].shape[0]
+    turn = gen.generate(TEXT_3, 1, rolling.pairs(), max_audio_length_ms=AUDIO_MS,
+                        temperature=0.8, topk=40, seed=2)
+    outputs["rolling_turn"] = (turn, time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    launches = _counts(wrappers)
+    result = _report(torch, gen, "voice", outputs, first_chunk_s, launches, per_frame,
+                     extends=1, extra={
+                         "context_rows": rows, "context_bucket": bucket,
+                         "context_trimmed": trimmed, "prepare_voice_s": prepare_s,
+                         "context_prefill_ms": context_prefill_s * 1e3,
+                         "rolling_turn_prompt_rows": turn_rows,
+                         "rolling_turn_bucket": _next_bucket(turn_rows, gen._prefill_buckets,
+                                                             room=gen.max_seq_len)})
+    _check(385 <= rows <= 512 and bucket == 512 and not trimmed,
+           f"voice: context of {rows} rows (bucket {bucket}, trimmed {trimmed}); want 385-512 "
+           f"rows in the 512-row bucket")
+    _check(turn_rows > 512, f"voice: the rolling turn's prompt is {turn_rows} rows, not > 512")
     del gen
     _collect(torch)
     return result
@@ -469,7 +703,7 @@ def _profile_decode(torch, gen) -> dict:
     device_ms = sum(dev_us(e) for e in kernels) / 1e3
     top = sorted(kernels, key=dev_us, reverse=True)[:8]
     ours = {prefix: sum(dev_us(e) for e in kernels if prefix in e.key) / 1e3
-            for prefix in ("qmm_", "q4mm_", "qmlp_")}
+            for prefix in ("qmm_", "q4mm_", "qmlp_", "flash_fwd")}
     return {
         "window": "prefill + 4 decoded frames, profiled",
         "wall_ms_profiled": wall_ms,
@@ -539,7 +773,9 @@ def phase_qa(torch):
     return result
 
 
-def phase_parity(torch):
+def phase_parity(torch, attention):
+    """The tiny f32 model, greedy, on the card (its attention through the
+    f32 hd-16 kernel) against the CPU (the plain version)."""
     import numpy as np
 
     from sesameai_tts_tpu_torch.runtime.loader import build_generator, test_tiny_spec
@@ -547,15 +783,18 @@ def phase_parity(torch):
     outs = {}
     for device in ("cpu", "cuda"):
         gen = build_generator(test_tiny_spec(), device=device, decode_chunk_frames=4)
+        before = attention.flash_attention.launches
         frames = gen.generate_frames("the quick brown fox jumps", 0, [],
                                      max_audio_length_ms=1200, temperature=1.0, topk=1)
+        launched = attention.flash_attention.launches - before
         outs[device] = (frames, gen.decode_audio(frames))
     (f_cpu, a_cpu), (f_gpu, a_gpu) = outs["cpu"], outs["cuda"]
     err = float(np.abs(a_cpu - a_gpu).max()) if a_cpu.shape == a_gpu.shape else float("inf")
     peak = float(np.abs(a_cpu).max())
     result = {"frames": int(f_cpu.shape[0]), "frames_equal": bool(np.array_equal(f_cpu, f_gpu)),
-              "pcm_max_abs_err": err, "pcm_peak": peak}
+              "pcm_max_abs_err": err, "pcm_peak": peak, "flash_attention_launches": launched}
     print("parity " + json.dumps(result), flush=True)
+    _check(launched > 0, "tiny model on the card did not launch flash_attention")
     _check(result["frames_equal"], "tiny greedy frames differ between cuda and cpu")
     # f32 with TF32 off: only the order of sums differs
     _check(err <= 1e-4 * max(peak, 1.0), f"tiny PCM differs between cuda and cpu: {err}")
@@ -597,6 +836,53 @@ def _entry(name: str, source: str, replaces: str, rows, launches: dict, path: st
     return entry
 
 
+def _flash_entry(rows, launches: dict, cfg, peak_bw: float) -> dict:
+    """flash_attention's line: times summed over one decoded frame's
+    launches (the backbone's layers at a ``_FRAME_CACHE_FILL``-row cache,
+    the decoder's layers at each of its codebook steps, each decoder call
+    taken as the mean of its first and last positions), shape rows beside.
+    The bound is summed exactly over the frame's calls."""
+    bb, dec = cfg.backbone, cfg.decoder
+    backbone = next(r for r in rows if r["S"] == 1 and r["pos0"] == [_FRAME_CACHE_FILL])
+    decoder = [r for r in rows if r["hd"] == dec.head_dim]
+    n_bb, n_dec = bb.num_layers, cfg.audio_num_codebooks * dec.num_layers
+
+    def per_frame(key):
+        return backbone[key] * n_bb + sum(r[key] for r in decoder) / len(decoder) * n_dec
+
+    t_bound = backbone["bound_ms"] * n_bb
+    for p in range(cfg.audio_num_codebooks):
+        nbytes, _ = _attn_work(1, dec.num_heads, dec.num_kv_heads, dec.head_dim, 1, (p,), (1,),
+                               2)
+        t_bound += dec.num_layers * nbytes / peak_bw * 1e3
+    entry = {
+        "name": "flash_attention",
+        "route": "cuda",
+        "source": "sesameai_tts_tpu_torch/csrc/flash_attention.cu",
+        "replaces": "sesameai_tts_tpu/ops/attention.py:86",
+        "launches": launches["voice"]["flash_attention"],
+        "launches_by_path": {p: c["flash_attention"] for p, c in launches.items()},
+        "max_abs_err": max(r["max_abs_err"] for r in rows),
+        "ms": per_frame("kernel_ms"),
+        "plain_ms": per_frame("plain_ms"),
+        "bound_ms": t_bound,
+        "bound_by": "bytes",
+        "library_ms": per_frame("library_ms"),
+        "library": "torch.nn.functional.scaled_dot_product_attention, boolean mask, "
+                   "enable_gqa=True",
+        "timed_as": f"device time (CUDA graph replay; the backbone cache cycled past L2) summed "
+                    f"over one decoded frame's {n_bb} backbone calls at a "
+                    f"{_FRAME_CACHE_FILL}-row cache and {n_dec} decoder calls",
+        "shapes": [{k: r[k] for k in ("shape", "S", "pos0", "valid_len", "kernel_ms",
+                                      "kernel_eager_ms", "plain_ms", "library_ms", "bound_ms",
+                                      "bound_by", "max_abs_err", "atol")}
+                   for r in rows],
+    }
+    entry["max_err"] = entry["max_abs_err"]
+    entry["kernel_ms"] = entry["ms"]
+    return entry
+
+
 def main() -> int:
     try:
         import torch
@@ -608,7 +894,8 @@ def main() -> int:
         return 1
     sys.path.insert(0, HERE)
     try:
-        from sesameai_tts_tpu_torch.ops import quant
+        from sesameai_tts_tpu_torch.core.config import csm_1b
+        from sesameai_tts_tpu_torch.ops import attention, kernels, quant
     except ImportError as e:
         print(f"chip_smoke: the port package is missing beside this script: {e}", file=sys.stderr)
         return 1
@@ -627,20 +914,26 @@ def main() -> int:
         phase_s[label] = round(time.perf_counter() - t0, 1)
         return out
 
+    wrappers = {name: getattr(attention if name == "flash_attention" else quant, name)
+                for name in kernels.KERNELS}
     try:
         name, card = phase_device(torch)
         peak_bw, peak_flops = _peaks(name)
-        timed("build", phase_build, quant)
-        rows = {k: timed(k, fn, torch, quant, peak_bw, peak_flops) for k, fn in (
-            ("quant_matmul", phase_quant_matmul), ("quant4_matmul", phase_quant4_matmul),
-            ("quant_mlp", phase_quant_mlp))}
+        timed("build", phase_build, kernels)
+        rows = {k: timed(k, fn, torch, mod, peak_bw, peak_flops) for k, fn, mod in (
+            ("quant_matmul", phase_quant_matmul, quant),
+            ("quant4_matmul", phase_quant4_matmul, quant),
+            ("quant_mlp", phase_quant_mlp, quant),
+            ("flash_attention", phase_flash_attention, attention))}
         launches = {}
         for path, fields, per_frame, voice in _PATHS:
-            launches[path] = timed(f"main[{path}]", phase_main_path, torch, quant, path,
+            launches[path] = timed(f"main[{path}]", phase_main_path, torch, wrappers, path,
                                    fields, per_frame, voice)["launches"]
+        launches["voice"] = timed("main[voice]", phase_voice_path, torch, wrappers,
+                                  _PATHS[0][2])["launches"]
         timed("profile", phase_profile, torch)
         timed("qa", phase_qa, torch)
-        timed("parity", phase_parity, torch)
+        timed("parity", phase_parity, torch, attention)
     except Exception as e:  # any phase failing fails the run
         import traceback
 
@@ -658,7 +951,11 @@ def main() -> int:
         _entry("quant_mlp", "sesameai_tts_tpu_torch/csrc/quant_mlp.cu",
                "sesameai_tts_tpu/ops/quant.py:286", rows["quant_mlp"], launches, "fused",
                "several calls: torch.matmul x3, silu and a product on dense bf16 weights"),
+        _flash_entry(rows["flash_attention"], launches, csm_1b(), peak_bw),
     ]
+    print("kernel flash_attention per decoded frame " + json.dumps(
+        {k: entries[-1][k] for k in ("ms", "plain_ms", "library_ms", "bound_ms", "timed_as")}),
+        flush=True)
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s "
           f"{json.dumps(phase_s)}", flush=True)
     print(card, flush=True)

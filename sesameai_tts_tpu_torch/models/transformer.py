@@ -5,7 +5,9 @@ GQA attention with llama3-scaled RoPE in the interleaved (meta) pairing,
 RMSNorm, SwiGLU MLP and a static KV cache, embeddings in / hidden states
 out.  Weights are stored ``(in, out)`` with fused ``qkv`` and ``w13``;
 the trunk is per-layer: ``{"layers": (L × {name: tensor}), "final_norm"}``.
-RMSNorm, RoPE and the attention softmax run in f32 islands.
+RMSNorm, RoPE and the attention softmax run in f32 islands.  Every
+attention goes to ``ops/attention.py::flash_attention``: the CUDA kernel
+for tensors on the card, its plain version on the CPU.
 
 The KV cache is ``KVCache(k, v)`` of L per-layer ``(B, KV, T, hd)``
 buffers, written IN PLACE by ``transformer_forward``.
@@ -19,6 +21,7 @@ from typing import List, NamedTuple, Optional, Tuple
 import torch
 
 from sesameai_tts_tpu_torch.core.config import RoPEConfig, TransformerConfig
+from sesameai_tts_tpu_torch.ops.attention import flash_attention
 from sesameai_tts_tpu_torch.ops.quant import qdot, qmlp
 
 
@@ -102,28 +105,6 @@ def _update_cache(cache_k: torch.Tensor, new_k: torch.Tensor,
     cache_k[b, :, positions] = new_k.transpose(1, 2).to(cache_k.dtype)
 
 
-def _attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-               mask: torch.Tensor) -> torch.Tensor:
-    """GQA attention, f32 logits and softmax; a fully masked row gives 0.
-
-    q (B, H, S, hd); k, v (B, KV, T, hd); mask (B, S, T) bool, True = attend.
-    Operands are upcast to f32 before each product: exact for bf16 inputs,
-    so this is bf16 × bf16 with f32 accumulation, as in the JAX package."""
-    B, H, S, hd = q.shape
-    KV = k.shape[1]
-    G = H // KV
-    qf = q.reshape(B, KV, G, S, hd).float()
-    logits = torch.einsum("bkgsh,bkth->bkgst", qf, k.float()) * (1.0 / math.sqrt(hd))
-    m = mask[:, None, None, :, :]
-    logits = logits.masked_fill(~m, float("-inf"))
-    probs = torch.softmax(logits, dim=-1)
-    # a fully masked row (a batched prefill row with valid_len=0) softmaxes
-    # to NaN; zero it so an idle row stays finite
-    probs = torch.where(m.any(dim=-1, keepdim=True), probs, 0.0)
-    out = torch.einsum("bkgst,bkth->bkgsh", probs.to(v.dtype).float(), v.float())
-    return out.reshape(B, H, S, hd).to(v.dtype)
-
-
 def transformer_forward(
     params: dict,
     cfg: TransformerConfig,
@@ -139,14 +120,9 @@ def transformer_forward(
     B, S, D = x.shape
     positions = pos0[:, None] + torch.arange(S, device=x.device)[None, :]  # (B, S)
     rope_win = rope_cs[positions]  # (B, S, hd/2, 2)
-
-    T = cache.k[0].shape[2]
-    key_pos = torch.arange(T, device=x.device)
-    mask = key_pos[None, None, :] <= positions[:, :, None]  # (B, S, T)
-    if valid_len is not None:
-        # right-padded prefill: padded rows must not become attendable keys
-        abs_valid = pos0 + valid_len
-        mask = mask & (key_pos[None, None, :] < abs_valid[:, None, None])
+    # keys at or past valid_end are masked: a right-padded prefill's padded
+    # rows never become attendable; without valid_len this is the causal mask
+    valid_end = pos0 + (valid_len if valid_len is not None else S)
 
     H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     h = x
@@ -161,7 +137,7 @@ def transformer_forward(
         v = v.transpose(1, 2)
         _update_cache(lk, k, positions)
         _update_cache(lv, v, positions)
-        attn = _attention(q, lk, lv, mask)
+        attn = flash_attention(q, lk, lv, pos0, valid_end)
         h = h + qdot(attn.transpose(1, 2).reshape(B, S, H * hd), wl["o_proj"])
         hn = rms_norm(h, wl["mlp_norm"], cfg.norm_eps)
         h = h + qmlp(hn, wl["w13"], wl["w2"], fused=fused_mlp)

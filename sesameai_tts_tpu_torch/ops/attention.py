@@ -1,0 +1,124 @@
+"""Causal GQA attention over the KV cache and its CUDA kernel (port of
+``sesameai_tts_tpu/ops/attention.py``).
+
+q ``(B, H, S, hd)``; cache k, v ``(B, KV, T, hd)`` with ``G = H / KV``
+query heads per KV head; ``pos0`` and ``valid_end`` ``(B,)`` integer
+tensors on q's device.  Query row i of batch row b sits at position
+``pos0[b] + i`` and sees cache slot t when ``t <= pos0[b] + i`` and
+``t < valid_end[b]``.  Logits and softmax are f32, products are of the
+operands' values with f32 accumulation, and a row that sees no slot gives
+0 (not NaN).
+
+- ``flash_attention_plain``: the function as torch ops, the trunk's
+  attention on the CPU and the kernel's reference on the card;
+- ``flash_attention``: for CUDA tensors it launches
+  ``csrc/flash_attention.cu`` (or raises); for CPU tensors it runs the
+  plain version.  ``flash_attention.launches`` counts launches.
+
+The two differ only in where the softmax weights are rounded to v's
+dtype before the PV product: the plain version rounds the normalized
+probabilities, the kernel (like the TPU kernel) rounds ``exp(s - m)`` at
+its running max and divides by the f32 sum at the end.  In f32 neither
+rounds; in bf16 each weight moves by at most 2^-9 of itself in either.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from sesameai_tts_tpu_torch.ops.kernels import check_operands, launch
+
+_HEAD_DIMS = (16, 64, 128)  # the head dims flash_attention.cu is built for
+_QUERIES_PER_BLOCK = 16  # WARPS * Tile::QPW of flash_attention.cu: G may not exceed it
+
+
+def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          pos0: torch.Tensor, valid_end: torch.Tensor) -> torch.Tensor:
+    """The function as torch ops: the positional mask, f32 logits over
+    every cache slot, softmax, the probabilities rounded to v's dtype,
+    then the PV product in f32 → (B, H, S, hd) in v's dtype.  Operands are
+    upcast to f32 before each product: exact for bf16 inputs, so this is
+    bf16 × bf16 with f32 accumulation, as in the JAX package's
+    ``models/transformer.py::_attention``."""
+    B, H, S, hd = q.shape
+    KV, T = k.shape[1], k.shape[2]
+    G = H // KV
+    positions = pos0[:, None] + torch.arange(S, device=q.device)[None, :]  # (B, S)
+    key_pos = torch.arange(T, device=q.device)
+    mask = key_pos[None, None, :] <= positions[:, :, None]  # (B, S, T)
+    mask = mask & (key_pos[None, None, :] < valid_end[:, None, None])
+    qf = q.reshape(B, KV, G, S, hd).float()
+    logits = torch.einsum("bkgsh,bkth->bkgst", qf, k.float()) * (1.0 / math.sqrt(hd))
+    m = mask[:, None, None, :, :]
+    logits = logits.masked_fill(~m, float("-inf"))
+    probs = torch.softmax(logits, dim=-1)
+    # a fully masked row (a batched prefill row with valid_len=0) softmaxes
+    # to NaN; zero it so an idle row stays finite
+    probs = torch.where(m.any(dim=-1, keepdim=True), probs, 0.0)
+    out = torch.einsum("bkgst,bkth->bkgsh", probs.to(v.dtype).float(), v.float())
+    return out.reshape(B, H, S, hd).to(v.dtype)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, pos0: torch.Tensor,
+                    valid_end: torch.Tensor) -> torch.Tensor:
+    """Causal GQA attention of q (B, H, S, hd) over the cache k, v (B, KV,
+    T, hd) → (B, H, S, hd) in q's dtype.  CUDA tensors launch the kernel
+    (or raise); CPU tensors run ``flash_attention_plain``.
+
+    On the card q, k and v are all bf16 or all f32, hd is 16, 64 or 128,
+    at most 16 heads share a KV head, k and v are contiguous and 16-byte
+    aligned, and q's last dim is contiguous (q may be a transposed view).
+    ``pos0`` and ``valid_end`` stay on the card: the kernel reads them
+    itself, so a call never waits for the host.  The result is a
+    (B, H, S, hd) view of a (B, S, H, hd) buffer, so that the caller's
+    merge of the heads is free."""
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v, pos0, valid_end)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention: unsupported device {q.device}")
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4 or pos0.dim() != 1 or valid_end.dim() != 1:
+        raise ValueError("flash_attention: want q (B, H, S, hd), k and v (B, KV, T, hd), "
+                         "pos0 and valid_end (B,)")
+    B, H, S, hd = q.shape
+    KV, T = k.shape[1], k.shape[2]
+    if (k.shape != v.shape or k.shape[0] != B or k.shape[3] != hd or H % KV != 0
+            or pos0.shape[0] != B or valid_end.shape[0] != B or min(B, S, T) < 1):
+        raise ValueError(
+            f"flash_attention: shape mismatch q {tuple(q.shape)}, k {tuple(k.shape)}, "
+            f"v {tuple(v.shape)}, pos0 {tuple(pos0.shape)}, valid_end {tuple(valid_end.shape)}"
+        )
+    if q.dtype not in (torch.bfloat16, torch.float32) or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"flash_attention: want q, k, v all bf16 or all f32; got "
+                        f"{q.dtype}, {k.dtype}, {v.dtype}")
+    if pos0.dtype.is_floating_point or valid_end.dtype.is_floating_point or (
+        torch.bool in (pos0.dtype, valid_end.dtype)
+    ):
+        raise TypeError("flash_attention: pos0 and valid_end must be integer tensors")
+    if hd not in _HEAD_DIMS:
+        raise ValueError(f"flash_attention: head dim {hd} not in {_HEAD_DIMS}")
+    if H // KV > _QUERIES_PER_BLOCK:
+        raise ValueError(f"flash_attention: {H // KV} heads per KV head exceed "
+                         f"{_QUERIES_PER_BLOCK}")
+    check_operands("flash_attention", {"k": k, "v": v}, q.device)
+    if k.data_ptr() % 16 or v.data_ptr() % 16:  # the kernel reads k and v as 16-byte vectors
+        raise ValueError("flash_attention: k and v must start on a 16-byte boundary")
+    for key, t in (("pos0", pos0), ("valid_end", valid_end)):
+        if t.device != q.device:
+            raise ValueError(f"flash_attention: {key} is on {t.device}, not {q.device}")
+    if q.stride(3) != 1 or max(q.stride()) >= 2**31 or B * H * S * hd >= 2**31:
+        raise ValueError("flash_attention: q's last dim must be contiguous and its strides "
+                         "below 2^31")
+    pos0 = pos0.to(torch.int64).contiguous()  # no-ops for the trunk's int64 positions
+    valid_end = valid_end.to(torch.int64).contiguous()
+    out = torch.empty((B, S, H, hd), dtype=q.dtype, device=q.device).transpose(1, 2)
+    launch("flash_attention", q.data_ptr(), k.data_ptr(), v.data_ptr(), pos0.data_ptr(),
+           valid_end.data_ptr(), out.data_ptr(), B, H, KV, S, T, hd, q.stride(0),
+           q.stride(1), q.stride(2), out.stride(0), out.stride(1), out.stride(2),
+           int(q.dtype == torch.bfloat16), torch.cuda.current_stream(q.device).cuda_stream)
+    flash_attention.launches += 1
+    return out
+
+
+flash_attention.launches = 0

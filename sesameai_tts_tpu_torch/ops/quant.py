@@ -17,44 +17,25 @@ and never materialize a bf16 copy of it:
 
 Each wrapper launches its kernel for a CUDA tensor and runs its plain
 version (the same arithmetic as torch ops) for a CPU tensor.  The kernels
-are built with ``nvcc`` into the checkout's ``build/`` directory at first
-use, so importing this module needs neither ``nvcc`` nor a card.
+are built at first use by ``ops/kernels.py``, so importing this module
+needs neither ``nvcc`` nor a card.
 """
 
 from __future__ import annotations
 
-import ctypes
 import math
-import os
-import subprocess
-import threading
-import time
-from pathlib import Path
-from typing import Dict, Optional, Union
+from typing import Optional, Union
 
 import torch
 import torch.nn.functional as F_
 
-_CSRC = Path(__file__).resolve().parents[1] / "csrc"
-_BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
+from sesameai_tts_tpu_torch.ops.kernels import check_operands, launch
+
 _COLS_PER_BLOCK = 512  # COLS_PER_BLOCK of quant_matmul.cu and quant4_matmul.cu
 _MIN_SPLIT_ROWS = 32  # fewest weight rows one block reduces over
 _BLOCKS_PER_SM = 8  # blocks of the partial-sum kernel aimed at per SM
 _MLP_THREADS = 512  # THREADS of quant_mlp.cu
 _MLP_MAX_SMEM = 232448  # shared memory one block may use (227 KB)
-
-_P, _I = ctypes.c_void_p, ctypes.c_int
-# kernel name → the C entry point's argument types (pointers, ints, stream)
-_SIGNATURES = {
-    "quant_matmul": [_P] * 5 + [_I] * 7 + [_P],
-    "quant4_matmul": [_P] * 5 + [_I] * 7 + [_P],
-    "quant_mlp": [_P] * 7 + [_I] * 6 + [_P],
-}
-
-_libs: Dict[str, ctypes.CDLL] = {}
-_lib_lock = threading.Lock()
-# seconds each kernel's nvcc took in this process (kernels built from source)
-build_seconds: Dict[str, float] = {}
 
 
 def quantize_weight(w: torch.Tensor) -> dict:
@@ -111,75 +92,8 @@ def _dequant4(w: dict, dtype=torch.bfloat16) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# The kernels: build, bind
+# Launch geometry
 # ---------------------------------------------------------------------------
-
-
-def _library(name: str) -> Path:
-    return _BUILD_DIR / f"{name}.so"
-
-
-def build_kernels(force: bool = False) -> Dict[str, ctypes.CDLL]:
-    """Compile every ``csrc/*.cu`` for sm_90a (once; ``force`` rebuilds
-    from the checkout's sources) and load them.  The ``nvcc`` runs start
-    together, one per source.  → {kernel name: library}."""
-    with _lib_lock:
-        if _libs and not force:
-            return _libs
-        stale = [
-            name for name in _SIGNATURES
-            if force or not _library(name).exists()
-            or _library(name).stat().st_mtime < (_CSRC / f"{name}.cu").stat().st_mtime
-        ]
-        if stale:
-            from torch.utils.cpp_extension import CUDA_HOME
-
-            if CUDA_HOME is None:
-                raise RuntimeError("nvcc not found: set CUDA_HOME to the CUDA toolkit")
-            _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            jobs = {}
-            for name in stale:
-                tmp = _library(name).with_suffix(f".{os.getpid()}.tmp")
-                cmd = [
-                    os.path.join(CUDA_HOME, "bin", "nvcc"),
-                    "-gencode", "arch=compute_90a,code=sm_90a",
-                    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-                    "-o", str(tmp), str(_CSRC / f"{name}.cu"),
-                ]
-                proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-                                        text=True)
-                jobs[name] = (proc, tmp, time.perf_counter())
-            failed = []
-            for name, (proc, tmp, t0) in jobs.items():
-                out, err = proc.communicate()
-                build_seconds[name] = time.perf_counter() - t0
-                if proc.returncode != 0:
-                    failed.append(f"{name}: nvcc failed ({proc.returncode}):\n{out}\n{err}")
-                else:
-                    os.replace(tmp, _library(name))  # atomic: a loader sees old or new
-            if failed:
-                raise RuntimeError("\n".join(failed))
-        for name, argtypes in _SIGNATURES.items():
-            lib = ctypes.CDLL(str(_library(name)))
-            fn = getattr(lib, name)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
-            _libs[name] = lib
-        return _libs
-
-
-def _launch(name: str, *args) -> None:
-    err = getattr(build_kernels()[name], name)(*args)
-    if err != 0:
-        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
-
-
-def _check_operands(name: str, tensors: dict, device: torch.device) -> None:
-    for key, t in tensors.items():
-        if t.device != device:
-            raise ValueError(f"{name}: {key} is on {t.device}, x on {device}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name}: {key} must be contiguous")
 
 
 def _s_tile(S: int) -> int:
@@ -243,15 +157,15 @@ def quant_matmul(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor) -> torch
             f"quant_matmul: want x bf16|f32, q int8, scale f32; got "
             f"{x.dtype}, {q.dtype}, {scale.dtype}"
         )
-    _check_operands("quant_matmul", {"x": x, "q": q, "scale": scale}, x.device)
+    check_operands("quant_matmul", {"x": x, "q": q, "scale": scale}, x.device)
     if F % 8 != 0 or S * F >= 2**31:
         raise ValueError(f"quant_matmul: need F % 8 == 0 and S*F < 2^31 (S={S}, F={F})")
     splits, rows = _splits(S, D, F, _sms(x.device))
     y = torch.empty((S, F), dtype=x.dtype, device=x.device)
     ws = torch.empty((splits, S, F), dtype=torch.float32, device=x.device)
-    _launch("quant_matmul", x.data_ptr(), q.data_ptr(), scale.data_ptr(), y.data_ptr(),
-            ws.data_ptr(), S, D, F, splits, rows, _s_tile(S),
-            int(x.dtype == torch.bfloat16), torch.cuda.current_stream(x.device).cuda_stream)
+    launch("quant_matmul", x.data_ptr(), q.data_ptr(), scale.data_ptr(), y.data_ptr(),
+           ws.data_ptr(), S, D, F, splits, rows, _s_tile(S),
+           int(x.dtype == torch.bfloat16), torch.cuda.current_stream(x.device).cuda_stream)
     quant_matmul.launches += 1
     return y
 
@@ -321,15 +235,15 @@ def quant4_matmul(x: torch.Tensor, q4: torch.Tensor, scale: torch.Tensor) -> tor
             f"quant4_matmul: want x bf16, q4 int8, scale f32; got "
             f"{x.dtype}, {q4.dtype}, {scale.dtype}"
         )
-    _check_operands("quant4_matmul", {"x": x, "q4": q4, "scale": scale}, x.device)
+    check_operands("quant4_matmul", {"x": x, "q4": q4, "scale": scale}, x.device)
     if F % 8 != 0 or S * F >= 2**31:
         raise ValueError(f"quant4_matmul: need F % 8 == 0 and S*F < 2^31 (S={S}, F={F})")
     parts, rows = _q4_splits(S, D, F, G, _sms(x.device))
     y = torch.empty((S, F), dtype=torch.bfloat16, device=x.device)
     ws = torch.empty(((G // 2) * parts, S, F), dtype=torch.float32, device=x.device)
-    _launch("quant4_matmul", x.data_ptr(), q4.data_ptr(), scale.data_ptr(), y.data_ptr(),
-            ws.data_ptr(), S, D, F, G, parts, rows, _s_tile(S),
-            torch.cuda.current_stream(x.device).cuda_stream)
+    launch("quant4_matmul", x.data_ptr(), q4.data_ptr(), scale.data_ptr(), y.data_ptr(),
+           ws.data_ptr(), S, D, F, G, parts, rows, _s_tile(S),
+           torch.cuda.current_stream(x.device).cuda_stream)
     quant4_matmul.launches += 1
     return y
 
@@ -400,7 +314,7 @@ def quant_mlp(x: torch.Tensor, q13: torch.Tensor, s13: torch.Tensor, q2: torch.T
         s13.dtype != torch.float32 or s2.dtype != torch.float32
     ):
         raise TypeError("quant_mlp: want x bf16, q13 and q2 int8, s13 and s2 f32")
-    _check_operands("quant_mlp", {"x": x, "q13": q13, "s13": s13, "q2": q2, "s2": s2},
+    check_operands("quant_mlp", {"x": x, "q13": q13, "s13": s13, "q2": q2, "s2": s2},
                     x.device)
     bi = _mlp_block_i(S)
     if D % 16 != 0 or Dout % 8 != 0 or F % bi != 0 or S > 64:
@@ -410,9 +324,9 @@ def quant_mlp(x: torch.Tensor, q13: torch.Tensor, s13: torch.Tensor, q2: torch.T
         raise ValueError(f"quant_mlp: D={D} needs more shared memory than a block has")
     y = torch.empty((S, Dout), dtype=torch.bfloat16, device=x.device)
     ws = torch.empty((F // bi, S, Dout), dtype=torch.float32, device=x.device)
-    _launch("quant_mlp", x.data_ptr(), q13.data_ptr(), s13.data_ptr(), q2.data_ptr(),
-            s2.data_ptr(), y.data_ptr(), ws.data_ptr(), S, D, F, Dout, bi, _s_tile(S),
-            torch.cuda.current_stream(x.device).cuda_stream)
+    launch("quant_mlp", x.data_ptr(), q13.data_ptr(), s13.data_ptr(), q2.data_ptr(),
+           s2.data_ptr(), y.data_ptr(), ws.data_ptr(), S, D, F, Dout, bi, _s_tile(S),
+           torch.cuda.current_stream(x.device).cuda_stream)
     quant_mlp.launches += 1
     return y
 

@@ -159,6 +159,37 @@ class Generator:
         return (torch.from_numpy(tok_pad).to(self.device),
                 torch.from_numpy(msk_pad).to(self.device), valid)
 
+    # -- what the voice-preload path reads -------------------------------------
+
+    @property
+    def max_seq_len(self) -> int:
+        """KV-cache capacity in rows (context + utterance + frames)."""
+        return self._max_seq_len
+
+    @property
+    def context_budget(self) -> int:
+        """Rows a precomputed voice context may occupy: the KV capacity less
+        a reserve (an eighth, at least 64) for the utterance's text and
+        frames."""
+        return max(16, self._max_seq_len - max(64, self._max_seq_len // 8))
+
+    @property
+    def max_clip_samples(self) -> int:
+        """Longest context clip (in samples) worth encoding: the largest
+        power-of-2 frame bucket (``frames.pad_audio_to_frame_bucket``) that
+        stays inside the codec's RoPE window and is not strictly beyond
+        ``context_budget`` rows, whose frames would be tail-trimmed before
+        prefill anyway.  Longer clips are trimmed by the caller."""
+        cfg = self._mimi.cfg
+        frames_window = cfg.max_latent_positions // cfg.downsample_stride
+        codec_cap = 1 << (frames_window.bit_length() - 1)
+        budget_cap = 1 << (self.context_budget - 1).bit_length()  # pow2 ceil
+        return min(codec_cap, budget_cap) * self._hop
+
+    @property
+    def frame_tokenizer(self) -> FrameTokenizer:
+        return self._tokenizer
+
     # -- cached voice context --------------------------------------------------
 
     def precompute_context_state(self, context: Sequence) -> Tuple:

@@ -10,6 +10,7 @@ run on a machine without JAX:
 import pytest
 import torch
 
+from sesameai_tts_tpu_torch.ops import attention as ta
 from sesameai_tts_tpu_torch.ops import quant as tq
 
 
@@ -184,3 +185,100 @@ def test_quant_mlp_rejects_bad_inputs(cuda):
                      q2, s2)  # S > 64
     with pytest.raises(ValueError):
         tq.quant_mlp(x, q13, s13, q2.cpu(), s2)
+
+
+# -- flash_attention ----------------------------------------------------------
+
+
+def _attn_inputs(gen, B, H, KV, S, T, hd, dtype):
+    # q as the trunk hands it over: a (B, H, S, hd) view of (B, S, H, hd)
+    q = torch.randn((B, S, H, hd), generator=gen, device="cuda").to(dtype).transpose(1, 2)
+    k = torch.randn((B, KV, T, hd), generator=gen, device="cuda").to(dtype)
+    v = torch.randn((B, KV, T, hd), generator=gen, device="cuda").to(dtype)
+    return q, k, v
+
+
+def _assert_attention_close(got, want, v):
+    # bf16: the kernel rounds exp(s - m) at its running max to bf16, the
+    # plain version the normalized probability; either moves a weight by at
+    # most 2^-9 of itself, so the outputs, convex combinations of v's rows,
+    # differ by at most 2^-8 max|v|, plus one bf16 rounding of the output
+    # (< 1e-2 relative).  f32: only the order of the f32 sums differs.
+    bf16 = v.dtype == torch.bfloat16
+    want = want.float()
+    tol = (1e-2 if bf16 else 1e-5) * want.abs() + (2**-8 if bf16 else 1e-5) * v.float().abs().max()
+    assert bool(((got.float() - want).abs() <= tol).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,H,KV,S,T,hd,pos0,valid_end", [
+    (1, 32, 8, 512, 2048, 64, 0, 500),  # backbone prefill, right-padded
+    (1, 32, 8, 64, 2048, 64, 500, 564),  # utterance prefill after a cached context
+    (1, 32, 8, 1, 2048, 64, 600, 601),  # backbone decode
+    (1, 32, 8, 1, 2048, 64, 2047, 2048),
+    (1, 8, 2, 1, 32, 128, 0, 1),  # decoder steps
+    (1, 8, 2, 1, 32, 128, 31, 32),
+    (2, 4, 2, 37, 100, 16, 5, 30),  # tiny flavor, ragged tiles
+])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_attention_matches_plain(cuda, B, H, KV, S, T, hd, pos0, valid_end, dtype):
+    q, k, v = _attn_inputs(cuda, B, H, KV, S, T, hd, dtype)
+    p0 = torch.full((B,), pos0, device="cuda")
+    ve = torch.full((B,), valid_end, device="cuda")
+    before = ta.flash_attention.launches
+    got = ta.flash_attention(q, k, v, p0, ve)
+    assert ta.flash_attention.launches == before + 1
+    assert got.dtype == dtype and got.shape == (B, H, S, hd)
+    _assert_attention_close(got, ta.flash_attention_plain(q, k, v, p0, ve), v)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_attention_row_without_keys_is_zero(cuda, dtype):
+    q, k, v = _attn_inputs(cuda, 2, 32, 8, 64, 2048, 64, dtype)
+    p0 = torch.tensor([0, 0], device="cuda")
+    ve = torch.tensor([40, 0], device="cuda")  # row 1 has valid_len 0
+    got = ta.flash_attention(q, k, v, p0, ve)
+    torch.cuda.synchronize()
+    assert torch.equal(got[1], torch.zeros_like(got[1]))
+    _assert_attention_close(got[0], ta.flash_attention_plain(q, k, v, p0, ve)[0], v)
+
+
+@pytest.mark.gpu
+def test_transformer_forward_sends_every_attention_to_the_kernel(cuda):
+    from sesameai_tts_tpu_torch.convert import to_device
+    from sesameai_tts_tpu_torch.core.config import test_tiny
+    from sesameai_tts_tpu_torch.models import transformer as tt
+
+    cfg = test_tiny()
+    params = tt.init_transformer_params(cfg, torch.Generator().manual_seed(0), torch.float32)
+    x = torch.randn((2, 7, cfg.embed_dim), generator=torch.Generator().manual_seed(1))
+    pos0, valid = torch.tensor([0, 3]), torch.tensor([7, 4])
+    outs = []
+    for dev in ("cpu", "cuda"):
+        cache = tt.init_kv_cache(cfg, 2, torch.float32, device=dev)
+        rope = tt.precompute_rope(cfg, device=dev)
+        before = ta.flash_attention.launches
+        h, _ = tt.transformer_forward(to_device(params, dev), cfg, x.to(dev), pos0.to(dev), cache,
+                                      rope, valid_len=valid.to(dev))
+        outs.append(h.cpu())
+        assert ta.flash_attention.launches - before == (cfg.num_layers if dev == "cuda" else 0)
+    torch.testing.assert_close(outs[1], outs[0], rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.gpu
+def test_flash_attention_rejects_bad_inputs(cuda):
+    q, k, v = _attn_inputs(cuda, 1, 8, 2, 4, 64, 64, torch.bfloat16)
+    p0, ve = torch.tensor([0], device="cuda"), torch.tensor([4], device="cuda")
+    with pytest.raises(ValueError):
+        ta.flash_attention(*_attn_inputs(cuda, 1, 8, 2, 4, 64, 32, torch.bfloat16), p0, ve)
+    with pytest.raises(TypeError):
+        ta.flash_attention(q.half(), k.half(), v.half(), p0, ve)
+    with pytest.raises(TypeError):
+        ta.flash_attention(q, k, v, p0.float(), ve)
+    with pytest.raises(ValueError):
+        ta.flash_attention(q, k.transpose(2, 3).contiguous().transpose(2, 3), v, p0, ve)
+    with pytest.raises(ValueError):
+        ta.flash_attention(q, k, v, p0.cpu(), ve)
+    with pytest.raises(ValueError):  # 64 heads on one KV head: more than a block holds
+        ta.flash_attention(*_attn_inputs(cuda, 1, 64, 1, 1, 64, 128, torch.bfloat16), p0, ve)

@@ -14,6 +14,7 @@ from sesameai_tts_tpu.models import transformer as jt
 from sesameai_tts_tpu_torch.convert import from_jax_params
 from sesameai_tts_tpu_torch.core.config import test_tiny as t_tiny
 from sesameai_tts_tpu_torch.models import transformer as tt
+from sesameai_tts_tpu_torch.ops.attention import flash_attention_plain
 
 # f32 module outputs: the same arithmetic summed in another order
 RTOL = 1e-5
@@ -55,14 +56,17 @@ def test_rms_norm_matches_jax():
 
 def test_fully_masked_row_is_zero():
     rng = np.random.default_rng(2)
-    q = rng.standard_normal((1, 4, 2, 16)).astype(np.float32)
-    k = rng.standard_normal((1, 2, 6, 16)).astype(np.float32)
-    v = rng.standard_normal((1, 2, 6, 16)).astype(np.float32)
-    mask = np.zeros((1, 2, 6), bool)
-    mask[0, 1, :3] = True  # row 0 sees nothing, row 1 sees three keys
-    got = tt._attention(*(torch.from_numpy(a) for a in (q, k, v, mask)))
+    q = rng.standard_normal((2, 4, 2, 16)).astype(np.float32)
+    k = rng.standard_normal((2, 2, 6, 16)).astype(np.float32)
+    v = rng.standard_normal((2, 2, 6, 16)).astype(np.float32)
+    # batch row 0 has valid_len 0 and sees nothing; the two query rows of
+    # batch row 1, at positions 2 and 3, see the three slots below valid_end 3
+    pos0, valid_end = np.array([0, 2]), np.array([0, 3])
+    mask = np.zeros((2, 2, 6), bool)
+    mask[1, :, :3] = True
+    got = flash_attention_plain(*(torch.from_numpy(a) for a in (q, k, v, pos0, valid_end)))
     assert torch.isfinite(got).all()
-    assert torch.equal(got[:, :, 0], torch.zeros_like(got[:, :, 0]))
+    assert torch.equal(got[0], torch.zeros_like(got[0]))
     _close(got, jt._attention(*(jnp.asarray(a) for a in (q, k, v, mask))))
 
 
@@ -105,3 +109,34 @@ def test_cache_write_past_the_end_raises(trunk):
     rope = tt.precompute_rope(cfg)
     with pytest.raises((IndexError, RuntimeError)):
         tt.transformer_forward(tp, cfg, torch.zeros(1, 4, 64), torch.tensor([6]), cache, rope)
+
+
+def test_forward_with_cache_matches_hf_llama(trunk):
+    """The trunk with its cache and routed attention against an independent
+    implementation: HF ``LlamaModel`` (tests/oracles.py) runs each row's
+    whole sequence without a cache.  A right-padded prefill from position 0
+    is compared on its real rows, then one S=1 decode step per row with the
+    last row of HF's run over the extended sequence."""
+    from oracles import build_hf_llama
+
+    jp, tp = trunk
+    cfg = t_tiny()
+    hf = build_hf_llama(jp, j_tiny())
+    rng = np.random.default_rng(4)
+    B, S = 2, 9
+    valid = np.array([9, 5])
+    x = rng.standard_normal((B, S, cfg.embed_dim)).astype(np.float32)
+    x_new = rng.standard_normal((B, 1, cfg.embed_dim)).astype(np.float32)
+    cache = tt.init_kv_cache(cfg, B, torch.float32)
+    rope = tt.precompute_rope(cfg)
+    h, _ = tt.transformer_forward(tp, cfg, torch.from_numpy(x), torch.zeros(B, dtype=torch.int64),
+                                  cache, rope, valid_len=torch.from_numpy(valid))
+    step, _ = tt.transformer_forward(tp, cfg, torch.from_numpy(x_new), torch.from_numpy(valid),
+                                     cache, rope)
+    for b, n in enumerate(valid):
+        seq = np.concatenate([x[b, :n], x_new[b]])[None]
+        with torch.no_grad():
+            want = hf(inputs_embeds=torch.from_numpy(seq)).last_hidden_state[0].numpy()
+        # as tests/test_transformer.py holds the JAX trunk to the same oracle
+        np.testing.assert_allclose(h[b, :n].numpy(), want[:n], rtol=2e-4, atol=2e-4)
+        np.testing.assert_allclose(step[b, 0].numpy(), want[n], rtol=2e-4, atol=2e-4)
