@@ -11,8 +11,9 @@ Phases, each of which fails the run if it fails:
    started together) and print each build's time;
 3. kernels vs plain: ``quant_matmul``, ``quant4_matmul``, ``quant_mlp``
    and ``flash_attention`` against their plain PyTorch versions at the
-   main paths' shapes, each timed beside its plain version, a library
-   yardstick and the card's bound;
+   main paths' shapes, eagerly and from a CUDA-graph replay, a repeated
+   call and the replay bit-equal to the first call, each timed beside its
+   plain version, a library yardstick and the card's bound;
 4. main paths, CSM-1B at full width with a bf16 Mimi and random weights
    from a seed, one configuration at a time: int8 trunks (offline,
    streamed and voice-context requests), int4 trunks and the fused int8
@@ -103,8 +104,14 @@ _PATHS = (
 _ATTN_CASES = (
     ("backbone prefill S=512 (context)", 1, 32, 8, 64, 2048, 512, (0,), (500,)),
     ("backbone prefill S=64 (utterance)", 1, 32, 8, 64, 2048, 64, (500,), (64,)),
+    ("backbone decode pos 0", 1, 32, 8, 64, 2048, 1, (0,), (1,)),
+    ("backbone decode pos 63", 1, 32, 8, 64, 2048, 1, (63,), (1,)),
+    ("backbone decode pos 64", 1, 32, 8, 64, 2048, 1, (64,), (1,)),
     ("backbone decode pos 600", 1, 32, 8, 64, 2048, 1, (600,), (1,)),
+    ("backbone decode pos 1023", 1, 32, 8, 64, 2048, 1, (1023,), (1,)),
     ("backbone decode pos 2047", 1, 32, 8, 64, 2048, 1, (2047,), (1,)),
+    ("backbone decode B=2 pos 100 / 1900", 2, 32, 8, 64, 2048, 1, (100, 1900), (1, 1)),
+    ("backbone decode B=2, row 0 valid_len 0", 2, 32, 8, 64, 2048, 1, (0, 900), (0, 1)),
     ("decoder step pos 0", 1, 8, 2, 128, 32, 1, (0,), (1,)),
     ("decoder step pos 31", 1, 8, 2, 128, 32, 1, (31,), (1,)),
     ("backbone prefill S=64, row 1 valid_len 0", 2, 32, 8, 64, 2048, 64, (0, 0), (40, 0)),
@@ -221,22 +228,48 @@ def _copies(nbytes: int) -> int:
     return max(2, math.ceil(160e6 / nbytes))
 
 
+def _replayed(torch, fn):
+    """fn(0)'s output from a CUDA-graph replay: a fault in a cluster's
+    combine, or state that a launch leaves behind, shows only there."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn(0)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fn(0)
+    out.zero_()
+    graph.replay()
+    torch.cuda.synchronize()
+    out = out.clone()
+    del graph
+    return out
+
+
 def _measure(torch, label: str, row: dict, got, want, kernel, plain, library, copies: int,
              nbytes: float, flops: float, peak_bw: float, peak_flops: float,
              atol: float = None) -> dict:
-    """Check got against want within the stated tolerance (``atol``
-    replaces the default absolute term), time the kernel, its plain
-    version and the library yardstick (None: not timed), and add the
-    bound."""
+    """Check got (and the output of a CUDA-graph replay of the same call)
+    against want within the stated tolerance (``atol`` replaces the default
+    absolute term), check that a second call and the replay give got's
+    bits, time the kernel, its plain version and the library yardstick
+    (None: not timed), and add the bound.  kernel(0) is got's call."""
+    again = kernel(0)
+    replayed = _replayed(torch, kernel)
     torch.cuda.synchronize()
-    diff = (got.float() - want.float()).abs()
     peak = want.float().abs().max().item()
     atol = _ATOL_OF_PEAK * peak if atol is None else atol
-    ok = bool((diff <= _RTOL * want.float().abs() + atol).all())
+    tol = _RTOL * want.float().abs() + atol
+    diff = (got.float() - want.float()).abs()
+    replay_diff = (replayed.float() - want.float()).abs()
+    ok = bool((diff <= tol).all()) and bool((replay_diff <= tol).all())
+    deterministic = bool(torch.equal(again, got)) and bool(torch.equal(replayed, got))
     reps = max(copies, 20)
     t_bytes, t_ops = nbytes / peak_bw, flops / peak_flops
     row.update({
-        "max_abs_err": diff.max().item(), "peak_abs": peak, "atol": atol, "ok": ok,
+        "max_abs_err": diff.max().item(), "replay_max_abs_err": replay_diff.max().item(),
+        "peak_abs": peak, "atol": atol, "ok": ok, "bit_equal_repeat_and_replay": deterministic,
         "kernel_ms": _device_ms(torch, kernel, reps),
         "kernel_eager_ms": _eager_ms(torch, kernel, reps),
         "plain_ms": _device_ms(torch, plain, min(reps, 8)),
@@ -246,6 +279,7 @@ def _measure(torch, label: str, row: dict, got, want, kernel, plain, library, co
     })
     print(f"kernel {label} " + json.dumps(row), flush=True)
     _check(ok, f"{label} disagrees with its plain version at {row}")
+    _check(deterministic, f"{label}: a repeated or graph-replayed call changed the bits at {row}")
     return row
 
 
@@ -262,9 +296,12 @@ def phase_quant_matmul(torch, quant, peak_bw, peak_flops):
         ws = [w] + [w.clone() for _ in range(copies - 1)]
         for S in _S_VALUES:
             x = torch.randn((S, D), generator=gen, device="cuda").to(torch.bfloat16)
+            vec, tpr, splits, _, s_tile = quant._qmm_geometry(S, D, F, quant._sms(x.device))
+            blocks = splits * math.ceil(F / (vec * tpr)) * math.ceil(S / s_tile)
             rows.append(_measure(
                 torch, "quant_matmul",
-                {"shape": name, "S": S, "D": D, "F": F, "per_frame": per_frame},
+                {"shape": name, "S": S, "D": D, "F": F, "per_frame": per_frame,
+                 "cluster": splits, "blocks": blocks},
                 quant.quant_matmul(x, q, scale), quant.quant_matmul_plain(x, q, scale),
                 lambda i: quant.quant_matmul(x, qs[i % copies], scale),
                 lambda i: quant.quant_matmul_plain(x, qs[i % copies], scale),
@@ -663,7 +700,7 @@ def _collect(torch) -> None:
     torch.cuda.empty_cache()
 
 
-def phase_profile(torch):
+def phase_profile(torch, wrappers):
     """Each configuration's profiled window, after every counted request:
     a torch.profiler session leaves the host slower at issuing kernels for
     the rest of the process, so no counted request may follow one."""
@@ -673,29 +710,33 @@ def phase_profile(torch):
         gen = build_generator(csm_1b_spec(**fields), device="cuda")
         gen.generate("warm up", 0, [], max_audio_length_ms=240, temperature=0.8, topk=40,
                      seed=7)
-        print(f"profile[{path}] " + json.dumps(_profile_decode(torch, gen)), flush=True)
+        print(f"profile[{path}] " + json.dumps(_profile_decode(torch, gen, wrappers)),
+              flush=True)
         del gen
         _collect(torch)
 
 
-def _profile_decode(torch, gen) -> dict:
+def _profile_decode(torch, gen, wrappers) -> dict:
     """Device busy share and kernel mix of one short request (prefill + 4
     decoded frames) under torch.profiler, device activity only (host-side
-    events make the trace's processing take minutes)."""
+    events make the trace's processing take minutes), with the port
+    kernels' launches in the window beside the profiler's count."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
+    before = _counts(wrappers)
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         gen.generate_frames(TEXT_2, 0, [], max_audio_length_ms=400, temperature=0.8, topk=40,
                             seed=2)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+    port_launches = {k: n - before[k] for k, n in _counts(wrappers).items()}
     cuda = torch.autograd.DeviceType.CUDA
     kernels = [e for e in prof.key_averages() if getattr(e, "device_type", None) == cuda]
     if not kernels:
         return {"window": "prefill + 4 decoded frames", "device_time": "not measured",
-                "wall_ms_profiled": wall_ms}
+                "wall_ms_profiled": wall_ms, "port_launches": port_launches}
 
     def dev_us(e):
         return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
@@ -710,6 +751,8 @@ def _profile_decode(torch, gen) -> dict:
         "device_kernel_ms": device_ms,
         "device_busy_share": device_ms / wall_ms,
         "kernel_launches": sum(e.count for e in kernels),
+        "quant_matmul_launches": port_launches["quant_matmul"],
+        "port_launches": port_launches,
         "port_kernel_device_ms": ours,
         "top": [[e.key[:70], dev_us(e) / 1e3, e.count] for e in top],
     }
@@ -828,7 +871,8 @@ def _entry(name: str, source: str, replaces: str, rows, launches: dict, path: st
                     f"decoded frame's launches on the {path} path at S=1",
         "shapes": [{k: r[k] for k in ("shape", "S", "D", "F", "G", "Dout", "kernel_ms",
                                       "kernel_eager_ms", "plain_ms", "library_ms", "bound_ms",
-                                      "bound_with_workspace_ms", "max_abs_err") if k in r}
+                                      "bound_with_workspace_ms", "cluster", "blocks", "max_abs_err",
+                                      "replay_max_abs_err") if k in r}
                    for r in rows],
     }
     entry["max_err"] = entry["max_abs_err"]
@@ -875,7 +919,7 @@ def _flash_entry(rows, launches: dict, cfg, peak_bw: float) -> dict:
                     f"{_FRAME_CACHE_FILL}-row cache and {n_dec} decoder calls",
         "shapes": [{k: r[k] for k in ("shape", "S", "pos0", "valid_len", "kernel_ms",
                                       "kernel_eager_ms", "plain_ms", "library_ms", "bound_ms",
-                                      "bound_by", "max_abs_err", "atol")}
+                                      "bound_by", "max_abs_err", "replay_max_abs_err", "atol")}
                    for r in rows],
     }
     entry["max_err"] = entry["max_abs_err"]
@@ -931,7 +975,7 @@ def main() -> int:
                                    fields, per_frame, voice)["launches"]
         launches["voice"] = timed("main[voice]", phase_voice_path, torch, wrappers,
                                   _PATHS[0][2])["launches"]
-        timed("profile", phase_profile, torch)
+        timed("profile", phase_profile, torch, wrappers)
         timed("qa", phase_qa, torch)
         timed("parity", phase_parity, torch, attention)
     except Exception as e:  # any phase failing fails the run
@@ -953,9 +997,11 @@ def main() -> int:
                "several calls: torch.matmul x3, silu and a product on dense bf16 weights"),
         _flash_entry(rows["flash_attention"], launches, csm_1b(), peak_bw),
     ]
+    decode_ms = {r["pos0"][0]: r["kernel_ms"] for r in rows["flash_attention"]
+                 if r["S"] == 1 and r["B"] == 1 and r["hd"] == 64}
     print("kernel flash_attention per decoded frame " + json.dumps(
-        {k: entries[-1][k] for k in ("ms", "plain_ms", "library_ms", "bound_ms", "timed_as")}),
-        flush=True)
+        {**{k: entries[-1][k] for k in ("ms", "plain_ms", "library_ms", "bound_ms", "timed_as")},
+         "backbone_decode_2047_over_600": decode_ms[2047] / decode_ms[600]}), flush=True)
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s "
           f"{json.dumps(phase_s)}", flush=True)
     print(card, flush=True)

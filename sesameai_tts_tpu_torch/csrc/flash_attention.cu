@@ -17,7 +17,51 @@
 // tensor cores become the limit; a decode step (S = 1) reads every
 // visible slot once for G = 4 queries per KV head.
 //
-// What the design does about it:
+// Two kernels.  A decode call (G * S <= RQ = 4 query vectors per KV head:
+// every S = 1 step of both trunks) runs flash_fwd_split; a prefill runs
+// flash_fwd.
+//
+// flash_fwd_split, split-K over the cache (flash decoding).  A decode step
+// moves a few KB to a few hundred KB, so it is bound by its chain of
+// dependent latencies (launch, the position load, one DRAM round trip for
+// K and V, the reductions), not by the bytes; the design shortens that
+// chain and spreads the keys over many SMs:
+//  * grid (splits, KV, B) in clusters of the `splits` blocks along x, four
+//    warps each.  The host does not know the visible length (pos0 and
+//    valid_end stay on the card), so the wrapper fixes `splits`, a power of
+//    two up to 16, from T and the SM count (ops/attention.py::
+//    _decode_splits); every block reads kend on the card and each of the
+//    splits * 4 warps takes an even, contiguous share of the visible keys
+//    [0, kend).  A warp whose share is empty contributes m = -inf, l = 0,
+//    acc = 0;
+//  * q is loaded beside the positions, before anything waits on them; a
+//    warp's K tile (WK consecutive cache rows) moves as coalesced 16-byte
+//    loads through its padded rows of shared memory, where LPK = 32 / WK
+//    lanes read back KD dims of their key each; V moves straight into
+//    registers, DPL output dims of every key of the tile per lane.  The
+//    next tile's K is in flight while the current one is computed;
+//  * the four queries are padded to RQ and every loop over them is
+//    unrolled and unguarded, so their chains (dot, max, exp) interleave;
+//    each query's p goes through the warp's row of shared memory and is
+//    read back as one broadcast float4 per key: no serial shuffle chain
+//    per key; l is summed per lane and reduced once, after the keys;
+//  * warp r combines query r over the block's four warps in shared memory;
+//    then a reduce-scatter over the cluster: each block leaves its (m, l)
+//    in every block and its acc of each output in the output's owner block
+//    (distributed shared memory), one cluster barrier, and the owner
+//    combines its outputs over the blocks by butterflies over `splits`
+//    lanes.  Every order is fixed: no workspace, no atomics,
+//    bit-deterministic, graph-safe.
+//  Rounding: each warp rounds exp(s - m_j) to v's dtype at its own running
+//  max m_j before the PV product, as the TPU kernel does at its own, and l
+//  sums the unrounded values.  The combines multiply by exp(m_j - m) in
+//  f32, so every weight still moves by at most 2^-9 of itself (plus f32
+//  rounding), and the outputs, convex combinations of v's rows, stay
+//  within 2^-8 max|v| of the plain version's (chip_smoke.py's tolerance).
+//  A row that sees no key has m = -inf in every warp: l = acc = 0 and the
+//  output acc / max(l, 1e-30) is exactly 0.
+//
+// flash_fwd, one block per query tile (prefill):
 //  * one block per (query tile, KV head, batch row).  It stages the tile's
 //    G * BQ <= 16 query vectors in shared memory once and streams the visible
 //    cache slots through shared memory one BK-row K/V tile at a time, so
@@ -36,13 +80,16 @@
 //    product each lane owns hd / 32 output dims and takes p_t of key t from
 //    lane t by a shuffle;
 //  * every product is f32 FMA on CUDA cores of exact bf16 (or f32) values.
-// Tensor cores (mma / wgmma), TMA and split-K decoding are left for later.
+// Tensor cores (mma / wgmma) and TMA for the prefill are left for later.
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
 #include <algorithm>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -277,17 +324,395 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict_
   }
 }
 
+// -- split-K decode --------------------------------------------------------
+
+constexpr int RQ = 4;           // query vectors (G * S, padded) of a flash_fwd_split block
+constexpr int MAX_SPLITS = 16;  // blocks of a cluster (a power of two; non-portable above 8)
+static_assert(RQ == WARPS, "warp r combines query r of the block's warps");
+
+template <typename T, int HD>
+struct Split {
+  static constexpr int ELEM = static_cast<int>(sizeof(T));
+  // keys per warp tile: the tile's K and V are 8 KB of registers per warp
+  static constexpr int WK = 8192 / (2 * HD * ELEM) < 32 ? 8192 / (2 * HD * ELEM) : 32;
+  static constexpr int LPK = 32 / WK;           // lanes per key in the scores
+  static constexpr int KD = HD / LPK;           // dims of a key one lane scores
+  static constexpr int K16 = KD * ELEM / 16;    // ... as 16-byte vectors
+  static constexpr int ROW16 = HD * ELEM / 16;  // 16-byte vectors of a K row
+  static constexpr int KROW = HD * ELEM + 16;   // a K row in shared memory, padded
+  static constexpr int DPL = (HD + 31) / 32;    // output dims per lane
+};
+
+// N elements of a row, moved as one vector
+template <typename T, int N>
+struct alignas(N * sizeof(T)) Pack {
+  T v[N];
+};
+
+
+template <int N>
+__device__ __forceinline__ float dot_q(const float* a, const float* qv) {
+  float s[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+  for (int d = 0; d < N; ++d) s[d % 4] = fmaf(a[d], qv[d], s[d % 4]);
+  return (s[0] + s[1]) + (s[2] + s[3]);
+}
+
+template <int N>
+__device__ __forceinline__ float dot_q(const __nv_bfloat16* a, const float* qv) {
+  const __nv_bfloat162* a2 = reinterpret_cast<const __nv_bfloat162*>(a);
+  float s[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+  for (int j = 0; j < N / 2; ++j) {
+    const float2 x = __bfloat1622float2(a2[j]);
+    s[(2 * j) % 4] = fmaf(x.x, qv[2 * j], s[(2 * j) % 4]);
+    s[(2 * j + 1) % 4] = fmaf(x.y, qv[2 * j + 1], s[(2 * j + 1) % 4]);
+  }
+  return (s[0] + s[1]) + (s[2] + s[3]);
+}
+
+// The output row of query r: head kvh * G + r % G, row r / G.
+__device__ __forceinline__ size_t out_row(int r, int b, int kvh, int G, int o_sb, int o_sh,
+                                          int o_ss) {
+  return static_cast<size_t>(b) * o_sb + static_cast<size_t>(kvh * G + r % G) * o_sh +
+         static_cast<size_t>(r / G) * o_ss;
+}
+
+// grid (splits, KV, B), clusters of the `splits` blocks along x.  Query
+// vector r < R = G * S of the block is row r / G of head kvh * G + r % G;
+// vectors R..RQ-1 are zero padding whose results are dropped.  Every loop
+// over queries is unrolled and unguarded, so the four queries' dependent
+// chains (dot, max, exp) interleave: a decode step is bound by latency.
+template <typename T, int HD>
+__global__ void __launch_bounds__(THREADS)
+flash_fwd_split(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                const long long* __restrict__ pos0, const long long* __restrict__ valid_end,
+                T* __restrict__ out, int H, int KV, int S, int T_len, int q_sb, int q_sh,
+                int q_ss, int o_sb, int o_sh, int o_ss, float scale) {
+  using C = Split<T, HD>;
+  constexpr int WK = C::WK;
+  constexpr int LPK = C::LPK;
+  constexpr int KD = C::KD;
+  constexpr int K16 = C::K16;
+  constexpr int DPL = C::DPL;
+  constexpr int ROW16 = C::ROW16;
+  constexpr int KROW = C::KROW;
+  __shared__ __align__(16) float q_s[RQ][HD];
+  __shared__ __align__(16) unsigned char k_s[WARPS][WK * KROW];
+  __shared__ __align__(16) float p_s[WARPS][WK][RQ];
+  __shared__ float w_m[WARPS][RQ], w_l[WARPS][RQ];
+  __shared__ __align__(16) float w_acc[WARPS][RQ][HD];
+  // what the cluster's blocks leave here: their (m, l) of every query and
+  // their acc of the RQ * HD / splits outputs this block finishes
+  __shared__ float m_in[MAX_SPLITS][RQ], l_in[MAX_SPLITS][RQ];
+  __shared__ __align__(16) float a_in[RQ * HD];
+
+  cg::cluster_group cluster = cg::this_cluster();
+  const int splits = static_cast<int>(cluster.num_blocks());
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int G = H / KV;
+  const int R = G * S;
+  const int b = blockIdx.z;
+  const int kvh = blockIdx.y;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  // q first: its loads need no position, so they fly beside pos0's
+  float qv[RQ];  // dim threadIdx.x of each query
+  int row_of[RQ];
+#pragma unroll
+  for (int r = 0; r < RQ; ++r) {
+    row_of[r] = r / G;
+    qv[r] = r < R && threadIdx.x < HD
+                ? to_float(q[static_cast<size_t>(b) * q_sb +
+                             static_cast<size_t>(kvh * G + r - row_of[r] * G) * q_sh +
+                             static_cast<size_t>(row_of[r]) * q_ss + threadIdx.x])
+                : 0.f;
+  }
+  const long long p0 = pos0[b];
+  const long long ve = valid_end[b];
+  // slots below kend are visible to some row; the splits * WARPS warps
+  // take even, contiguous shares of them
+  const long long kend_ll = min(min(ve, p0 + S), static_cast<long long>(T_len));
+  const int kend = static_cast<int>(max(kend_ll, 0LL));
+  const int workers = splits * WARPS;
+  const int chunk = (kend + workers - 1) / workers;
+  const int lo = min(kend, (rank * WARPS + warp) * chunk);
+  const int hi = min(kend, lo + chunk);
+  const int p0c = static_cast<int>(min(p0, static_cast<long long>(T_len)));
+
+  const size_t head = (static_cast<size_t>(b) * KV + kvh) * T_len * HD;
+  const T* kb = k + head;
+  const T* vb = v + head;
+  const int key = lane / LPK;   // the tile's key this lane scores
+  const int part = lane % LPK;  // ... over dims [part * KD, +KD)
+  const int d0 = lane * DPL;    // the first output dim this lane owns
+  const bool owns = d0 < HD;
+
+  // A warp's K tile is WK consecutive cache rows: it moves as coalesced
+  // 16-byte loads (kg), is staged in the warp's padded rows of k_s, and
+  // each lane reads back the KD dims of its key it scores (kr).
+  uint4 kg[K16], kr[K16];
+  Pack<T, DPL> vr[WK];
+  auto fetch_k = [&](int kt) {
+#pragma unroll
+    for (int i = 0; i < K16; ++i) {
+      const int idx = i * 32 + lane;
+      kg[i] = make_uint4(0u, 0u, 0u, 0u);
+      if (kt + idx / ROW16 < hi) {
+        kg[i] = __ldg(reinterpret_cast<const uint4*>(kb + static_cast<size_t>(kt) * HD) + idx);
+      }
+    }
+  };
+  auto stage_k = [&]() {
+#pragma unroll
+    for (int i = 0; i < K16; ++i) {
+      const int idx = i * 32 + lane;
+      *reinterpret_cast<uint4*>(&k_s[warp][(idx / ROW16) * KROW + (idx % ROW16) * 16]) = kg[i];
+    }
+    __syncwarp();
+#pragma unroll
+    for (int i = 0; i < K16; ++i) {
+      kr[i] = *reinterpret_cast<const uint4*>(&k_s[warp][key * KROW + part * KD * C::ELEM + 16 * i]);
+    }
+  };
+  auto fetch_v = [&](int kt) {
+#pragma unroll
+    for (int j = 0; j < WK; ++j) {
+#pragma unroll
+      for (int e = 0; e < DPL; ++e) store(&vr[j].v[e], 0.f);  // 0 * garbage is not NaN
+      if (owns && kt + j < hi) {
+        vr[j] = *reinterpret_cast<const Pack<T, DPL>*>(vb + static_cast<size_t>(kt + j) * HD + d0);
+      }
+    }
+  };
+  int last[RQ];  // the last position query r sees
+#pragma unroll
+  for (int r = 0; r < RQ; ++r) {
+    last[r] = p0c + row_of[r];
+    if (threadIdx.x < HD) q_s[r][threadIdx.x] = qv[r];
+  }
+  __syncthreads();  // before the K and V loads, which would hold the stores back
+  if (lo < hi) {
+    fetch_k(lo);
+    fetch_v(lo);
+  }
+
+  // m is the warp's running max; l sums, per lane, the unrounded p of the
+  // keys this lane scores (reduced over the warp once, after the loop)
+  float m[RQ], l[RQ], acc[RQ][DPL];
+#pragma unroll
+  for (int r = 0; r < RQ; ++r) {
+    m[r] = -INFINITY;
+    l[r] = 0.f;
+#pragma unroll
+    for (int e = 0; e < DPL; ++e) acc[r][e] = 0.f;
+  }
+
+  for (int kt = lo; kt < hi; kt += WK) {
+    stage_k();
+    if (kt + WK < hi) fetch_k(kt + WK);  // in flight through the softmax and PV
+    const T* kvals = reinterpret_cast<const T*>(kr);
+    float s[RQ], tmax[RQ];
+#pragma unroll
+    for (int r = 0; r < RQ; ++r) s[r] = dot_q<KD>(kvals, &q_s[r][part * KD]);
+#pragma unroll
+    for (int o = LPK / 2; o > 0; o >>= 1) {
+#pragma unroll
+      for (int r = 0; r < RQ; ++r) s[r] += __shfl_xor_sync(FULL, s[r], o);
+    }
+#pragma unroll
+    for (int r = 0; r < RQ; ++r) {
+      const bool visible = kt + key < hi && kt + key <= last[r];
+      s[r] = visible ? s[r] * scale : -INFINITY;
+      tmax[r] = s[r];
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) {
+#pragma unroll
+      for (int r = 0; r < RQ; ++r) tmax[r] = fmaxf(tmax[r], __shfl_xor_sync(FULL, tmax[r], o));
+    }
+    float p[RQ];
+#pragma unroll
+    for (int r = 0; r < RQ; ++r) {
+      const float m_new = fmaxf(m[r], tmax[r]);
+      // a query that has seen no key yet keeps m = -inf
+      const float m_safe = isfinite(m_new) ? m_new : 0.f;
+      const float alpha = isfinite(m[r]) ? expf(m[r] - m_safe) : 0.f;
+      const float e = s[r] == -INFINITY ? 0.f : expf(s[r] - m_safe);
+      l[r] = l[r] * alpha + (part == 0 ? e : 0.f);
+#pragma unroll
+      for (int j = 0; j < DPL; ++j) acc[r][j] *= alpha;
+      p[r] = round_to(e, vb);
+      m[r] = m_new;
+    }
+    if (part == 0) *reinterpret_cast<float4*>(&p_s[warp][key][0]) = make_float4(p[0], p[1], p[2], p[3]);
+    __syncwarp();
+#pragma unroll
+    for (int j = 0; j < WK; ++j) {
+      const float4 pj = *reinterpret_cast<const float4*>(&p_s[warp][j][0]);
+      const float pr[RQ] = {pj.x, pj.y, pj.z, pj.w};
+#pragma unroll
+      for (int e = 0; e < DPL; ++e) {
+        const float vf = to_float(vr[j].v[e]);
+#pragma unroll
+        for (int r = 0; r < RQ; ++r) acc[r][e] = fmaf(pr[r], vf, acc[r][e]);
+      }
+    }
+    __syncwarp();  // p_s and k_s are read before the next tile writes them
+    if (kt + WK < hi) fetch_v(kt + WK);
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+#pragma unroll
+    for (int r = 0; r < RQ; ++r) l[r] += __shfl_xor_sync(FULL, l[r], o);
+  }
+
+  // the block's warps: warp r combines query r, in warp order; a warp that
+  // saw no key (m = -inf) adds 0
+  if (lane == 0) {
+#pragma unroll
+    for (int r = 0; r < RQ; ++r) {
+      w_m[warp][r] = m[r];
+      w_l[warp][r] = l[r];
+    }
+  }
+  if (owns) {
+#pragma unroll
+    for (int r = 0; r < RQ; ++r) {
+      Pack<float, DPL> a;
+#pragma unroll
+      for (int e = 0; e < DPL; ++e) a.v[e] = acc[r][e];
+      *reinterpret_cast<Pack<float, DPL>*>(&w_acc[warp][r][d0]) = a;
+    }
+  }
+  __syncthreads();
+  const int r = warp;
+  float mb = -INFINITY;
+#pragma unroll
+  for (int w = 0; w < WARPS; ++w) mb = fmaxf(mb, w_m[w][r]);
+  float lb = 0.f;
+  float ab[DPL];
+#pragma unroll
+  for (int e = 0; e < DPL; ++e) ab[e] = 0.f;
+#pragma unroll
+  for (int w = 0; w < WARPS; ++w) {
+    const float mw = w_m[w][r];
+    const float f = mw == -INFINITY ? 0.f : expf(mw - mb);
+    lb += w_l[w][r] * f;
+    if (owns) {
+      const Pack<float, DPL> a = *reinterpret_cast<const Pack<float, DPL>*>(&w_acc[w][r][d0]);
+#pragma unroll
+      for (int e = 0; e < DPL; ++e) ab[e] += a.v[e] * f;
+    }
+  }
+  if (splits == 1) {
+    if (r < R && owns) {
+      Pack<T, DPL> o;
+#pragma unroll
+      for (int e = 0; e < DPL; ++e) store(&o.v[e], ab[e] / fmaxf(lb, 1e-30f));
+      *reinterpret_cast<Pack<T, DPL>*>(out + out_row(r, b, kvh, G, o_sb, o_sh, o_ss) + d0) = o;
+    }
+    return;
+  }
+
+  // Reduce-scatter over the cluster: block `owner` finishes the outputs
+  // [owner * per, +per) of the RQ x HD grid.  Every block leaves its (m, l)
+  // of query r in every block and its acc of each output in the output's
+  // owner; then one cluster barrier, and nothing is read remotely after it.
+  const int per_shift = __ffs(RQ * HD / splits) - 1;  // splits is a power of two
+  const int per = 1 << per_shift;
+  if (owns) {
+    const int i = r * HD + d0;
+    const int owner = i >> per_shift;
+    Pack<float, DPL> a;
+#pragma unroll
+    for (int e = 0; e < DPL; ++e) a.v[e] = ab[e];
+    *reinterpret_cast<Pack<float, DPL>*>(
+        cluster.map_shared_rank(&a_in[rank * per + (i & (per - 1))], owner)) = a;
+  }
+  if (lane < splits) {
+    *cluster.map_shared_rank(&m_in[rank][r], lane) = mb;
+    *cluster.map_shared_rank(&l_in[rank][r], lane) = lb;
+  }
+  cluster.sync();
+
+  // this block's outputs: per / DPL groups of DPL dims, a thread for each
+  // (group, source block); the sources' max, weights and sums are taken by
+  // butterflies over the `splits` neighbouring lanes of a group, the same
+  // order on every call
+  const int src = static_cast<int>(threadIdx.x) & (splits - 1);
+  const int t0 = (static_cast<int>(threadIdx.x) / splits) * DPL;
+  if (t0 < per) {  // whole groups of `splits` lanes
+    const int i = rank * per + t0;
+    const int rq = i / HD;
+    const float mj = m_in[src][rq];
+    float mt = mj;
+    for (int o = 1; o < splits; o <<= 1) mt = fmaxf(mt, __shfl_xor_sync(FULL, mt, o, splits));
+    const float f = mj == -INFINITY ? 0.f : expf(mj - mt);
+    const Pack<float, DPL> a = *reinterpret_cast<const Pack<float, DPL>*>(&a_in[src * per + t0]);
+    float lt = l_in[src][rq] * f;
+    float at[DPL];
+#pragma unroll
+    for (int e = 0; e < DPL; ++e) at[e] = a.v[e] * f;
+    for (int o = 1; o < splits; o <<= 1) {
+      lt += __shfl_xor_sync(FULL, lt, o, splits);
+#pragma unroll
+      for (int e = 0; e < DPL; ++e) at[e] += __shfl_xor_sync(FULL, at[e], o, splits);
+    }
+    if (src == 0 && rq < R) {
+      Pack<T, DPL> o;
+#pragma unroll
+      for (int e = 0; e < DPL; ++e) store(&o.v[e], at[e] / fmaxf(lt, 1e-30f));
+      *reinterpret_cast<Pack<T, DPL>*>(out + out_row(rq, b, kvh, G, o_sb, o_sh, o_ss) + i % HD) = o;
+    }
+  }
+}
+
 template <typename T, int HD>
 cudaError_t run(const void* q, const void* k, const void* v, const void* pos0,
                 const void* valid_end, void* out, int B, int H, int KV, int S, int T_len,
-                int q_sb, int q_sh, int q_ss, int o_sb, int o_sh, int o_ss,
+                int q_sb, int q_sh, int q_ss, int o_sb, int o_sh, int o_ss, int splits,
                 cudaStream_t stream) {
   const int G = H / KV;
+  const float scale = static_cast<float>(1.0 / sqrt(static_cast<double>(HD)));
+  if (splits > 0) {
+    if (G * S > RQ || splits > MAX_SPLITS || (splits & (splits - 1)) != 0 ||
+        RQ * HD / splits < Split<T, HD>::DPL) {
+      return cudaErrorInvalidValue;
+    }
+    auto kernel = flash_fwd_split<T, HD>;
+    // clusters above 8 blocks must be allowed first; set once per
+    // instantiation (on its first call, before any graph capture)
+    static bool non_portable = false;
+    if (splits > 8 && !non_portable) {
+      const cudaError_t err =
+          cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+      if (err != cudaSuccess) return err;
+      non_portable = true;
+    }
+    cudaLaunchConfig_t config = {};
+    config.gridDim = dim3(splits, KV, B);
+    config.blockDim = dim3(THREADS);
+    config.stream = stream;
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = splits;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    config.attrs = attr;
+    config.numAttrs = 1;
+    const cudaError_t err = cudaLaunchKernelEx(
+        &config, kernel, static_cast<const T*>(q), static_cast<const T*>(k),
+        static_cast<const T*>(v), static_cast<const long long*>(pos0),
+        static_cast<const long long*>(valid_end), static_cast<T*>(out), H, KV, S, T_len, q_sb,
+        q_sh, q_ss, o_sb, o_sh, o_ss, scale);
+    const cudaError_t last = cudaGetLastError();  // read and clear
+    return err != cudaSuccess ? err : last;
+  }
   const int per_block = WARPS * Tile<T, HD>::QPW;
   if (G > per_block) return cudaErrorInvalidValue;
   const int BQ = std::max(1, std::min(S, per_block / G));
   const dim3 grid((S + BQ - 1) / BQ, KV, B);
-  const float scale = static_cast<float>(1.0 / sqrt(static_cast<double>(HD)));
   flash_fwd<T, HD><<<grid, THREADS, 0, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const long long*>(pos0), static_cast<const long long*>(valid_end),
@@ -298,18 +723,18 @@ cudaError_t run(const void* q, const void* k, const void* v, const void* pos0,
 template <typename T>
 cudaError_t dispatch(int hd, const void* q, const void* k, const void* v, const void* pos0,
                      const void* valid_end, void* out, int B, int H, int KV, int S, int T_len,
-                     int q_sb, int q_sh, int q_ss, int o_sb, int o_sh, int o_ss,
+                     int q_sb, int q_sh, int q_ss, int o_sb, int o_sh, int o_ss, int splits,
                      cudaStream_t stream) {
   switch (hd) {
     case 16:
       return run<T, 16>(q, k, v, pos0, valid_end, out, B, H, KV, S, T_len, q_sb, q_sh, q_ss,
-                        o_sb, o_sh, o_ss, stream);
+                        o_sb, o_sh, o_ss, splits, stream);
     case 64:
       return run<T, 64>(q, k, v, pos0, valid_end, out, B, H, KV, S, T_len, q_sb, q_sh, q_ss,
-                        o_sb, o_sh, o_ss, stream);
+                        o_sb, o_sh, o_ss, splits, stream);
     case 128:
       return run<T, 128>(q, k, v, pos0, valid_end, out, B, H, KV, S, T_len, q_sb, q_sh, q_ss,
-                         o_sb, o_sh, o_ss, stream);
+                         o_sb, o_sh, o_ss, splits, stream);
     default:
       return cudaErrorInvalidValue;
   }
@@ -320,21 +745,23 @@ cudaError_t dispatch(int hd, const void* q, const void* k, const void* v, const 
 // q (B, H, S, hd) with element strides q_sb, q_sh, q_ss (the last dim
 // contiguous); k, v (B, KV, T, hd) contiguous; pos0, valid_end (B,) int64
 // on the card; out (B, H, S, hd) with strides o_sb, o_sh, o_ss.  bf16 or
-// f32 (is_bf16), hd in {16, 64, 128}, H % KV == 0.  Launches on `stream`
-// and returns cudaGetLastError() (0 on success).
+// f32 (is_bf16), hd in {16, 64, 128}, H % KV == 0.  splits > 0 runs the
+// split-K decode kernel with clusters of that many blocks (1..16, and
+// H / KV * S <= 8); 0 runs the prefill kernel.  Launches on `stream` and
+// returns the launch's error (0 on success).
 extern "C" int flash_attention(const void* q, const void* k, const void* v, const void* pos0,
                                const void* valid_end, void* out, int B, int H, int KV, int S,
                                int T, int hd, int q_sb, int q_sh, int q_ss, int o_sb,
-                               int o_sh, int o_ss, int is_bf16, void* stream) {
+                               int o_sh, int o_ss, int splits, int is_bf16, void* stream) {
   if (B <= 0 || H <= 0 || KV <= 0 || S <= 0 || T <= 0 || H % KV != 0 || B > 65535 ||
-      KV > 65535) {
+      KV > 65535 || splits < 0) {
     return cudaErrorInvalidValue;
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (is_bf16) {
     return dispatch<__nv_bfloat16>(hd, q, k, v, pos0, valid_end, out, B, H, KV, S, T, q_sb,
-                                   q_sh, q_ss, o_sb, o_sh, o_ss, st);
+                                   q_sh, q_ss, o_sb, o_sh, o_ss, splits, st);
   }
   return dispatch<float>(hd, q, k, v, pos0, valid_end, out, B, H, KV, S, T, q_sb, q_sh, q_ss,
-                         o_sb, o_sh, o_ss, st);
+                         o_sb, o_sh, o_ss, splits, st);
 }

@@ -11,6 +11,8 @@ operands' values with f32 accumulation, and a row that sees no slot gives
 
 - ``flash_attention_plain``: the function as torch ops, the trunk's
   attention on the CPU and the kernel's reference on the card;
+- ``flash_attention_split_plain``: the decode kernel's arithmetic as
+  torch ops (per-split partials, a fixed-order combine);
 - ``flash_attention``: for CUDA tensors it launches
   ``csrc/flash_attention.cu`` (or raises); for CPU tensors it runs the
   plain version.  ``flash_attention.launches`` counts launches.
@@ -18,8 +20,10 @@ operands' values with f32 accumulation, and a row that sees no slot gives
 The two differ only in where the softmax weights are rounded to v's
 dtype before the PV product: the plain version rounds the normalized
 probabilities, the kernel (like the TPU kernel) rounds ``exp(s - m)`` at
-its running max and divides by the f32 sum at the end.  In f32 neither
-rounds; in bf16 each weight moves by at most 2^-9 of itself in either.
+its running max and divides by the f32 sum at the end; the decode kernel
+does so in each split of the keys at that split's own max, then combines
+the splits with weights ``exp(m_j - m)`` in f32.  In f32 none rounds; in
+bf16 each weight moves by at most 2^-9 of itself in every one.
 """
 
 from __future__ import annotations
@@ -32,6 +36,43 @@ from sesameai_tts_tpu_torch.ops.kernels import check_operands, launch
 
 _HEAD_DIMS = (16, 64, 128)  # the head dims flash_attention.cu is built for
 _QUERIES_PER_BLOCK = 16  # WARPS * Tile::QPW of flash_attention.cu: G may not exceed it
+# flash_fwd_split, the split-K decode kernel: the query vectors (G * S) a
+# block holds (RQ), its warps, the most blocks of a cluster (MAX_SPLITS)
+# and the blocks aimed at per SM
+_DECODE_QUERIES = 4
+_DECODE_WARPS = 4
+_DECODE_MAX_SPLITS = 16
+_DECODE_BLOCKS_PER_SM = 2
+
+
+def _decode_tile(hd: int, elem: int) -> int:
+    """Split<T, HD>::WK: keys per warp tile (its K and V in 8 KB)."""
+    return min(32, 8192 // (2 * hd * elem))
+
+
+def _decode_splits(B: int, KV: int, T: int, hd: int, elem: int, sms: int) -> int:
+    """Cluster size of a split-K decode call, a power of two: enough blocks
+    that each warp walks at most one tile of keys when the whole cache of T
+    slots is visible, at most ``_DECODE_MAX_SPLITS``, and no more than
+    ``_DECODE_BLOCKS_PER_SM`` blocks per SM over the B * KV clusters.  The
+    visible length is on the card, so only T and the card decide."""
+    tiles = math.ceil(T / (_DECODE_WARPS * _decode_tile(hd, elem)))
+    cap = min(_DECODE_MAX_SPLITS, 1 << (tiles - 1).bit_length(),
+              max(1, _DECODE_BLOCKS_PER_SM * sms // (B * KV)))
+    return 1 << (cap.bit_length() - 1)
+
+
+def _split_ranges(kend: int, workers: int):
+    """The decode kernel's key ranges: worker w of ``workers`` (a cluster's
+    blocks × their warps, in rank-then-warp order) takes the keys
+    ``[lo, hi)`` of an even, contiguous share of ``[0, kend)``; a share
+    past ``kend`` is empty (lo == hi)."""
+    chunk = -(-kend // workers)
+    out = []
+    for w in range(workers):
+        lo = min(kend, w * chunk)
+        out.append((lo, min(kend, lo + chunk)))
+    return out
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -58,6 +99,56 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     # to NaN; zero it so an idle row stays finite
     probs = torch.where(m.any(dim=-1, keepdim=True), probs, 0.0)
     out = torch.einsum("bkgst,bkth->bkgsh", probs.to(v.dtype).float(), v.float())
+    return out.reshape(B, H, S, hd).to(v.dtype)
+
+
+def flash_attention_split_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                                pos0: torch.Tensor, valid_end: torch.Tensor,
+                                splits: int) -> torch.Tensor:
+    """The split-K decode kernel's arithmetic as torch ops.  The visible
+    slots ``[0, kend)``, ``kend = min(valid_end, pos0 + S, T)``, are cut
+    into ``splits`` even, contiguous key ranges (``_split_ranges``; the
+    kernel at cluster size c has ``c * 4`` of them, one per warp).  Each
+    range j gives f32 logits, its max m_j (-inf when it sees nothing),
+    ``p = exp(s - m_j)`` summed unrounded into l_j and rounded to v's dtype
+    before the PV product into acc_j.  The ranges are combined in order
+    with weights ``exp(m_j - m)`` in f32, and the output is ``acc / max(l,
+    1e-30)``: exactly 0 for a row that sees no slot.  (The kernel rounds p
+    at a range's running max when the range spans several tiles; either
+    moves a weight by at most 2^-9 of itself.)"""
+    B, H, S, hd = q.shape
+    KV, T = k.shape[1], k.shape[2]
+    G = H // KV
+    dev = q.device
+    positions = pos0[:, None] + torch.arange(S, device=dev)[None, :]  # (B, S)
+    key_pos = torch.arange(T, device=dev)
+    causal = (key_pos[None, None, :] <= positions[:, :, None]) & (
+        key_pos[None, None, :] < valid_end[:, None, None])  # (B, S, T)
+    kend = torch.clamp(torch.minimum(torch.minimum(valid_end, pos0 + S),
+                                     torch.full_like(pos0, T)), min=0)
+    ranges = torch.tensor([_split_ranges(int(e), splits) for e in kend.tolist()],
+                          device=dev).reshape(B, splits, 2)
+    qf = q.reshape(B, KV, G, S, hd).float()
+    logits = torch.einsum("bkgsh,bkth->bkgst", qf, k.float()) * (1.0 / math.sqrt(hd))
+    parts = []
+    for j in range(splits):
+        lo, hi = ranges[:, j, 0], ranges[:, j, 1]
+        in_range = (key_pos[None, :] >= lo[:, None]) & (key_pos[None, :] < hi[:, None])
+        mask = (causal & in_range[:, None, :])[:, None, None]  # (B, 1, 1, S, T)
+        s = logits.masked_fill(~mask, float("-inf"))
+        m = s.amax(dim=-1, keepdim=True)
+        p = torch.where(mask, torch.exp(s - torch.where(torch.isfinite(m), m, 0.0)), 0.0)
+        acc = torch.einsum("bkgst,bkth->bkgsh", p.to(v.dtype).float(), v.float())
+        parts.append((m, p.sum(dim=-1, keepdim=True), acc))
+    m_all = torch.stack([m for m, _, _ in parts]).amax(dim=0)
+    l_tot = torch.zeros_like(m_all)
+    acc_tot = torch.zeros_like(parts[0][2])
+    for m, l, acc in parts:
+        w = torch.where(torch.isfinite(m), torch.exp(m - torch.where(torch.isfinite(m_all),
+                                                                     m_all, 0.0)), 0.0)
+        l_tot = l_tot + l * w
+        acc_tot = acc_tot + acc * w
+    out = acc_tot / torch.clamp_min(l_tot, 1e-30)
     return out.reshape(B, H, S, hd).to(v.dtype)
 
 
@@ -113,9 +204,15 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, pos0: tor
     pos0 = pos0.to(torch.int64).contiguous()  # no-ops for the trunk's int64 positions
     valid_end = valid_end.to(torch.int64).contiguous()
     out = torch.empty((B, S, H, hd), dtype=q.dtype, device=q.device).transpose(1, 2)
+    # a decode step (every head of a KV group, all S rows, in one block)
+    # runs split-K over the cache; anything wider the prefill kernel
+    splits = 0
+    if (H // KV) * S <= _DECODE_QUERIES:
+        splits = _decode_splits(B, KV, T, hd, q.element_size(),
+                                torch.cuda.get_device_properties(q.device).multi_processor_count)
     launch("flash_attention", q.data_ptr(), k.data_ptr(), v.data_ptr(), pos0.data_ptr(),
            valid_end.data_ptr(), out.data_ptr(), B, H, KV, S, T, hd, q.stride(0),
-           q.stride(1), q.stride(2), out.stride(0), out.stride(1), out.stride(2),
+           q.stride(1), q.stride(2), out.stride(0), out.stride(1), out.stride(2), splits,
            int(q.dtype == torch.bfloat16), torch.cuda.current_stream(q.device).cuda_stream)
     flash_attention.launches += 1
     return out

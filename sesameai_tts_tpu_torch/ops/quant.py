@@ -31,9 +31,15 @@ import torch.nn.functional as F_
 
 from sesameai_tts_tpu_torch.ops.kernels import check_operands, launch
 
-_COLS_PER_BLOCK = 512  # COLS_PER_BLOCK of quant_matmul.cu and quant4_matmul.cu
+_COLS_PER_BLOCK = 512  # COLS_PER_BLOCK of quant4_matmul.cu
 _MIN_SPLIT_ROWS = 32  # fewest weight rows one block reduces over
-_BLOCKS_PER_SM = 8  # blocks of the partial-sum kernel aimed at per SM
+_BLOCKS_PER_SM = 8  # blocks of quant4_matmul's partial-sum kernel aimed at per SM
+# quant_matmul.cu: threads per tile row, widest first (a tile is tpr * vec
+# columns, at most MAX_COLS = 256), the most blocks of a cluster
+# (MAX_CLUSTER), and the blocks aimed at per SM
+_QMM_TPRS = (16, 8, 4)
+_QMM_MAX_CLUSTER = 16
+_QMM_BLOCKS_PER_SM = 2
 _MLP_THREADS = 512  # THREADS of quant_mlp.cu
 _MLP_MAX_SMEM = 232448  # shared memory one block may use (227 KB)
 
@@ -100,17 +106,27 @@ def _s_tile(S: int) -> int:
     return 1 if S == 1 else 2 if S == 2 else 4 if S <= 4 else 8
 
 
-def _splits(S: int, D: int, F: int, sms: int):
-    """(splits, rows_per_split): split the reduction over D across blocks
-    until the partial-sum grid has about ``_BLOCKS_PER_SM`` blocks on each
-    of ``sms`` SMs, keeping at least ``_MIN_SPLIT_ROWS`` rows per block.
-    Every split is non-empty."""
-    tiles = math.ceil(F / _COLS_PER_BLOCK) * math.ceil(S / _s_tile(S))
-    want = math.ceil(sms * _BLOCKS_PER_SM / tiles)
-    splits = max(1, min(want, D // _MIN_SPLIT_ROWS))
-    rows = math.ceil(D / splits)
-    rows = math.ceil(rows / 8) * 8
-    return math.ceil(D / rows), rows
+def _qmm_geometry(S: int, D: int, F: int, sms: int):
+    """quant_matmul.cu's launch → (vec, tpr, splits, rows_per_split,
+    s_tile).  Each thread reads ``vec`` columns (16, or 8 when F % 16 != 0)
+    and ``tpr`` threads cover a tile row; the widest tile is taken whose
+    grid can still reach ``_QMM_BLOCKS_PER_SM`` blocks per SM with clusters
+    of at most ``_QMM_MAX_CLUSTER`` blocks, then the fewest splits of D
+    that reach it (or the most allowed), at least ``_MIN_SPLIT_ROWS`` rows
+    each.  One cluster is the ``splits`` blocks of a column tile; every
+    split is non-empty."""
+    vec = 16 if F % 16 == 0 else 8
+    s_tile = _s_tile(S)
+    s_tiles = math.ceil(S / s_tile)
+    max_splits = max(1, min(_QMM_MAX_CLUSTER, D // _MIN_SPLIT_ROWS))
+    want = _QMM_BLOCKS_PER_SM * sms
+    for tpr in _QMM_TPRS:
+        tiles = math.ceil(F / (vec * tpr)) * s_tiles
+        if tiles * max_splits >= want:
+            break
+    splits = max(1, min(max_splits, math.ceil(want / tiles)))
+    rows = math.ceil(math.ceil(D / splits) / 8) * 8
+    return vec, tpr, math.ceil(D / rows), rows, s_tile
 
 
 def _sms(device: torch.device) -> int:
@@ -160,12 +176,11 @@ def quant_matmul(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor) -> torch
     check_operands("quant_matmul", {"x": x, "q": q, "scale": scale}, x.device)
     if F % 8 != 0 or S * F >= 2**31:
         raise ValueError(f"quant_matmul: need F % 8 == 0 and S*F < 2^31 (S={S}, F={F})")
-    splits, rows = _splits(S, D, F, _sms(x.device))
+    vec, tpr, splits, rows, s_tile = _qmm_geometry(S, D, F, _sms(x.device))
     y = torch.empty((S, F), dtype=x.dtype, device=x.device)
-    ws = torch.empty((splits, S, F), dtype=torch.float32, device=x.device)
     launch("quant_matmul", x.data_ptr(), q.data_ptr(), scale.data_ptr(), y.data_ptr(),
-           ws.data_ptr(), S, D, F, splits, rows, _s_tile(S),
-           int(x.dtype == torch.bfloat16), torch.cuda.current_stream(x.device).cuda_stream)
+           S, D, F, splits, rows, tpr, vec, s_tile, int(x.dtype == torch.bfloat16),
+           torch.cuda.current_stream(x.device).cuda_stream)
     quant_matmul.launches += 1
     return y
 

@@ -28,9 +28,30 @@ def _int8_weight(gen, D, F):
     return q, scale
 
 
+def _replayed(fn):
+    """fn()'s output from a CUDA-graph replay (a fault in a cluster's
+    combine or in a self-reset shows only there)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()  # warm up outside the capture
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fn()
+    out.zero_()
+    graph.replay()
+    torch.cuda.synchronize()
+    return out
+
+
+# the flagship decode shapes at S = 1 (one cluster size each from 11 to 16),
+# S in {2, 8} in the same kernel, S tiles past 8, and a ragged tiny shape
 @pytest.mark.gpu
-@pytest.mark.parametrize("S,D,F", [(1, 2048, 3072), (2, 1024, 16384), (8, 1024, 1536),
-                                   (17, 8192, 2048), (64, 8192, 1024), (3, 100, 24)])
+@pytest.mark.parametrize("S,D,F", [(1, 2048, 3072), (1, 1024, 1024), (1, 8192, 1024),
+                                   (1, 2048, 16384), (2, 1024, 16384), (8, 1024, 1536),
+                                   (8, 8192, 2048), (17, 8192, 2048), (64, 8192, 1024),
+                                   (3, 100, 24)])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_quant_matmul_matches_plain(cuda, S, D, F, dtype):
     q, scale = _int8_weight(cuda, D, F)
@@ -43,6 +64,18 @@ def test_quant_matmul_matches_plain(cuda, S, D, F, dtype):
     # f32 sums in another order, then one rounding to x.dtype
     tol = 1e-2 * want.abs() + 1e-3 * want.abs().max()
     assert bool(((got.float() - want).abs() <= tol).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("S,D,F", [(1, 1024, 1024), (1, 8192, 2048), (8, 2048, 3072)])
+def test_quant_matmul_is_deterministic(cuda, S, D, F):
+    """Splits add in a fixed order: repeated calls and a CUDA-graph replay
+    give the same bits."""
+    q, scale = _int8_weight(cuda, D, F)
+    x = torch.randn((S, D), generator=cuda, device="cuda").to(torch.bfloat16)
+    first = tq.quant_matmul(x, q, scale)
+    assert torch.equal(tq.quant_matmul(x, q, scale), first)
+    assert torch.equal(_replayed(lambda: tq.quant_matmul(x, q, scale)), first)
 
 
 @pytest.mark.gpu
@@ -214,8 +247,14 @@ def _assert_attention_close(got, want, v):
 @pytest.mark.parametrize("B,H,KV,S,T,hd,pos0,valid_end", [
     (1, 32, 8, 512, 2048, 64, 0, 500),  # backbone prefill, right-padded
     (1, 32, 8, 64, 2048, 64, 500, 564),  # utterance prefill after a cached context
-    (1, 32, 8, 1, 2048, 64, 600, 601),  # backbone decode
+    (1, 32, 8, 1, 2048, 64, 0, 1),  # backbone decode: split-K over the cache
+    (1, 32, 8, 1, 2048, 64, 63, 64),
+    (1, 32, 8, 1, 2048, 64, 64, 65),
+    (1, 32, 8, 1, 2048, 64, 600, 601),
+    (1, 32, 8, 1, 2048, 64, 1023, 1024),
     (1, 32, 8, 1, 2048, 64, 2047, 2048),
+    (1, 32, 8, 2, 2048, 64, 700, 702),  # two rows (G * S = 8): the prefill kernel
+    (1, 8, 4, 2, 512, 128, 300, 302),  # two rows (G * S = 4): the decode kernel
     (1, 8, 2, 1, 32, 128, 0, 1),  # decoder steps
     (1, 8, 2, 1, 32, 128, 31, 32),
     (2, 4, 2, 37, 100, 16, 5, 30),  # tiny flavor, ragged tiles
@@ -230,6 +269,48 @@ def test_flash_attention_matches_plain(cuda, B, H, KV, S, T, hd, pos0, valid_end
     assert ta.flash_attention.launches == before + 1
     assert got.dtype == dtype and got.shape == (B, H, S, hd)
     _assert_attention_close(got, ta.flash_attention_plain(q, k, v, p0, ve), v)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("hd,T,pos", [(64, 2048, (100, 1900)), (128, 32, (3, 30)),
+                                      (16, 100, (0, 57))])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_attention_decode_rows_at_different_positions(cuda, hd, T, pos, dtype):
+    H, KV = (32, 8) if hd == 64 else (8, 2) if hd == 128 else (4, 2)
+    q, k, v = _attn_inputs(cuda, 2, H, KV, 1, T, hd, dtype)
+    p0 = torch.tensor(pos, device="cuda")
+    ve = p0 + 1
+    got = ta.flash_attention(q, k, v, p0, ve)
+    _assert_attention_close(got, ta.flash_attention_plain(q, k, v, p0, ve), v)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,H,KV,S,T,hd,pos0", [(1, 32, 8, 1, 2048, 64, 1500),
+                                                (1, 8, 2, 1, 32, 128, 31),
+                                                (1, 32, 8, 64, 2048, 64, 500)])
+def test_flash_attention_is_deterministic(cuda, B, H, KV, S, T, hd, pos0):
+    """The splits (and the prefill's single block per tile) combine in a
+    fixed order: repeated calls and a CUDA-graph replay give the same bits."""
+    q, k, v = _attn_inputs(cuda, B, H, KV, S, T, hd, torch.bfloat16)
+    p0 = torch.full((B,), pos0, device="cuda")
+    ve = p0 + S
+    first = ta.flash_attention(q, k, v, p0, ve)
+    assert torch.equal(ta.flash_attention(q, k, v, p0, ve), first)
+    assert torch.equal(_replayed(lambda: ta.flash_attention(q, k, v, p0, ve)), first)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_attention_decode_without_keys_is_zero(cuda, dtype):
+    """A decode row at position 0 with valid_len 0 sees no slot: every split
+    is empty and the output is exactly 0."""
+    q, k, v = _attn_inputs(cuda, 2, 32, 8, 1, 2048, 64, dtype)
+    p0 = torch.tensor([0, 900], device="cuda")
+    ve = torch.tensor([0, 901], device="cuda")
+    got = ta.flash_attention(q, k, v, p0, ve)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], torch.zeros_like(got[0]))
+    _assert_attention_close(got[1], ta.flash_attention_plain(q, k, v, p0, ve)[1], v)
 
 
 @pytest.mark.gpu

@@ -10,6 +10,8 @@ themselves run only on the card: their tests are in
 machine with a card.
 """
 
+import math
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -88,9 +90,26 @@ def test_quant_matmul_cpu_runs_plain_without_launching(qweight):
 @pytest.mark.parametrize("D,F", [(2048, 3072), (2048, 16384), (8192, 2048), (1024, 1024),
                                  (8192, 1024), (64, 128), (100, 8)])
 def test_split_plan_covers_the_reduction(S, D, F):
-    splits, rows = tq._splits(S, D, F, sms=132)
-    assert rows % 8 == 0 and 1 <= splits <= 65535
+    vec, tpr, splits, rows, s_tile = tq._qmm_geometry(S, D, F, sms=132)
+    assert rows % 8 == 0 and 1 <= splits <= 16  # one cluster, at most 16 blocks
     assert splits * rows >= D and (splits - 1) * rows < D  # every split non-empty
+    assert F % vec == 0 and 32 % tpr == 0 and tpr * vec <= 256  # the kernel's limits
+    assert s_tile in (1, 2, 4, 8) and (S <= 8) == (s_tile >= S)
+
+
+# quant_matmul's decode shapes (chip_smoke.py's flagship linears)
+_FLAGSHIP = [(2048, 3072), (2048, 2048), (2048, 16384), (8192, 2048),
+             (1024, 1536), (1024, 1024), (1024, 16384), (8192, 1024)]
+
+
+@pytest.mark.parametrize("D,F", _FLAGSHIP)
+def test_flagship_geometry_fills_the_card(D, F):
+    """At S = 1 every flagship shape puts at least one block on each of the
+    H100's 132 SMs, in clusters of at most 16 non-empty splits."""
+    vec, tpr, splits, rows, _ = tq._qmm_geometry(1, D, F, sms=132)
+    blocks = splits * math.ceil(F / (vec * tpr))
+    assert blocks >= 132 and splits <= 16
+    assert vec == 16 and (splits - 1) * rows < D <= splits * rows
 
 
 def test_quantize_and_dequantize_csm_match_jax():
