@@ -11,9 +11,10 @@ Phases, each of which fails the run if it fails:
    started together) and print each build's time;
 3. kernels vs plain: ``quant_matmul``, ``quant4_matmul``, ``quant_mlp``
    and ``flash_attention`` against their plain PyTorch versions at the
-   main paths' shapes, eagerly and from a CUDA-graph replay, a repeated
-   call and the replay bit-equal to the first call, each timed beside its
-   plain version, a library yardstick and the card's bound;
+   main paths' shapes (and the tensor-core prefill at hd 128), eagerly
+   and from a CUDA-graph replay, a repeated call and the replay bit-equal
+   to the first call, each timed beside its plain version, a library
+   yardstick and the card's bound;
 4. main paths, CSM-1B at full width with a bf16 Mimi and random weights
    from a seed, one configuration at a time: int8 trunks (offline,
    streamed and voice-context requests), int4 trunks and the fused int8
@@ -115,6 +116,9 @@ _ATTN_CASES = (
     ("decoder step pos 0", 1, 8, 2, 128, 32, 1, (0,), (1,)),
     ("decoder step pos 31", 1, 8, 2, 128, 32, 1, (31,), (1,)),
     ("backbone prefill S=64, row 1 valid_len 0", 2, 32, 8, 64, 2048, 64, (0, 0), (40, 0)),
+    ("backbone prefill S=768 (rolling turn)", 1, 32, 8, 64, 2048, 768, (0,), (628,)),
+    # not on a main path: the tensor-core prefill at hd 128
+    ("prefill hd 128", 1, 8, 2, 128, 32, 16, (0,), (16,)),
 )
 _FRAME_CACHE_FILL = 600  # the backbone cache fill of the per-frame sum
 # flash_attention vs plain, bf16: the kernel rounds exp(s - m) at its
@@ -331,9 +335,12 @@ def phase_quant4_matmul(torch, quant, peak_bw, peak_flops):
         ws = [w] + [w.clone() for _ in range(_copies(2 * D * F) - 1)]
         for S in _S_VALUES:
             x = torch.randn((S, D), generator=gen, device="cuda").to(torch.bfloat16)
+            vec, tpr, splits, _, s_tile = quant._q4mm_geometry(S, D, F, G, quant._sms(x.device))
+            blocks = splits * math.ceil(F / (vec * tpr)) * math.ceil(S / s_tile)
             rows.append(_measure(
                 torch, "quant4_matmul",
-                {"shape": name, "S": S, "D": D, "F": F, "G": G, "per_frame": per_frame},
+                {"shape": name, "S": S, "D": D, "F": F, "G": G, "per_frame": per_frame,
+                 "cluster": splits, "blocks": blocks},
                 quant.quant4_matmul(x, q4, scale), quant.quant4_matmul_plain(x, q4, scale),
                 lambda i: quant.quant4_matmul(x, q4s[i % copies], scale),
                 lambda i: quant.quant4_matmul_plain(x, q4s[i % copies], scale),
@@ -453,7 +460,8 @@ def phase_flash_attention(torch, attention, peak_bw, peak_flops):
         rows.append(_measure(
             torch, "flash_attention",
             {"shape": label, "B": B, "H": H, "KV": KV, "hd": hd, "T": T, "S": S,
-             "pos0": list(pos0), "valid_len": list(valid_len), "copies": copies},
+             "pos0": list(pos0), "valid_len": list(valid_len), "copies": copies,
+             "route": attention._route(q.dtype, hd, H // KV, S)},
             got, want,
             lambda i: attention.flash_attention(q, *kvs[i % copies], p0, ve),
             lambda i: attention.flash_attention_plain(q, *kvs[i % copies], p0, ve),
@@ -888,7 +896,7 @@ def _flash_entry(rows, launches: dict, cfg, peak_bw: float) -> dict:
     The bound is summed exactly over the frame's calls."""
     bb, dec = cfg.backbone, cfg.decoder
     backbone = next(r for r in rows if r["S"] == 1 and r["pos0"] == [_FRAME_CACHE_FILL])
-    decoder = [r for r in rows if r["hd"] == dec.head_dim]
+    decoder = [r for r in rows if r["hd"] == dec.head_dim and r["S"] == 1]
     n_bb, n_dec = bb.num_layers, cfg.audio_num_codebooks * dec.num_layers
 
     def per_frame(key):
@@ -917,7 +925,7 @@ def _flash_entry(rows, launches: dict, cfg, peak_bw: float) -> dict:
         "timed_as": f"device time (CUDA graph replay; the backbone cache cycled past L2) summed "
                     f"over one decoded frame's {n_bb} backbone calls at a "
                     f"{_FRAME_CACHE_FILL}-row cache and {n_dec} decoder calls",
-        "shapes": [{k: r[k] for k in ("shape", "S", "pos0", "valid_len", "kernel_ms",
+        "shapes": [{k: r[k] for k in ("shape", "S", "route", "pos0", "valid_len", "kernel_ms",
                                       "kernel_eager_ms", "plain_ms", "library_ms", "bound_ms",
                                       "bound_by", "max_abs_err", "replay_max_abs_err", "atol")}
                    for r in rows],
@@ -1002,6 +1010,10 @@ def main() -> int:
     print("kernel flash_attention per decoded frame " + json.dumps(
         {**{k: entries[-1][k] for k in ("ms", "plain_ms", "library_ms", "bound_ms", "timed_as")},
          "backbone_decode_2047_over_600": decode_ms[2047] / decode_ms[600]}), flush=True)
+    print("kernel flash_attention prefill per call (us) " + json.dumps(
+        {r["shape"]: {k: None if r[k] is None else r[k] * 1e3
+                      for k in ("kernel_ms", "library_ms", "bound_ms", "plain_ms")}
+         for r in rows["flash_attention"] if r["S"] > 1}), flush=True)
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s "
           f"{json.dumps(phase_s)}", flush=True)
     print(card, flush=True)

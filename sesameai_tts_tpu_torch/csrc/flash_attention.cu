@@ -17,9 +17,44 @@
 // tensor cores become the limit; a decode step (S = 1) reads every
 // visible slot once for G = 4 queries per KV head.
 //
-// Two kernels.  A decode call (G * S <= RQ = 4 query vectors per KV head:
-// every S = 1 step of both trunks) runs flash_fwd_split; a prefill runs
-// flash_fwd.
+// Three kernels, chosen by the caller (ops/attention.py::_route) from the
+// shape and the dtype, never by a failed launch.  A decode call (G * S <=
+// RQ = 4 query vectors per KV head: every S = 1 step of both trunks) runs
+// flash_fwd_split; a bf16 prefill at hd 64 or 128 (every prefill of the
+// CSM trunks) runs flash_fwd_mma on tensor cores; any other prefill (f32,
+// or hd 16: the tiny test flavor) runs flash_fwd on CUDA cores, whose f32
+// products keep the f32 model's card run equal to the CPU's.
+//
+// flash_fwd_mma, tensor cores (prefill, bf16, hd 64 / 128).  A prefill of
+// S rows over a 2048-slot cache does ~1 GFLOP in ~1 MB of K/V: tensor
+// cores do that in about a microsecond, so the kernel is bound by its
+// chain of latencies (the positions, one DRAM round trip per K/V tile, the
+// products and the softmax of each tile), and the design keeps that chain
+// short and the tensor cores fed:
+//  * one block per (64 query vectors of one KV head, batch row): BQ = 64 /
+//    G rows x the G heads of the group, so each K/V slot is read once per
+//    64 query vectors and serves all G heads.  Four warps, each one m16
+//    slice of the vectors;
+//  * K/V tiles of 64 keys move through a ring of STAGES (3 at hd 64, 2 at
+//    hd 128) shared-memory stages by 16-byte cp.async (rows past the
+//    visible end zero-filled), so the next tiles are in flight while the
+//    current one is computed; one barrier per tile.  Rows are padded by 16
+//    bytes, so the 8 rows an ldmatrix reads hit distinct banks;
+//  * S = Q K^T by mma.sync.m16n8k16 bf16 -> f32: Q's fragments are loaded
+//    once by ldmatrix, K's by ldmatrix from the ring; the scores stay in
+//    the accumulator fragments, where the online softmax runs (a row's max
+//    by two quad shuffles; l summed per thread and reduced once, after the
+//    keys).  p = exp(s - m) is rounded to bf16 in registers at the running
+//    max, exactly the TPU kernel's p.astype(v.dtype), and is the A operand
+//    of O += P V, with V's fragments by ldmatrix.trans; l sums the
+//    unrounded f32 p;
+//  * the block reads pos0 and valid_end itself, visits key tiles only below
+//    the visible end of its last row and masks only the tiles that straddle
+//    the causal diagonal or valid_end (ops/attention.py::_mma_tile_plan).
+//  At S = 64 (an utterance prefill) the grid is only S / BQ x KV = 32
+//  blocks, each over ~9 tiles; a tile's two products take a few hundred
+//  cycles on the tensor cores, so that stays well below SDPA's time
+//  without splitting the keys over a cluster, and no combine is needed.
 //
 // flash_fwd_split, split-K over the cache (flash decoding).  A decode step
 // moves a few KB to a few hundred KB, so it is bound by its chain of
@@ -61,7 +96,7 @@
 //  A row that sees no key has m = -inf in every warp: l = acc = 0 and the
 //  output acc / max(l, 1e-30) is exactly 0.
 //
-// flash_fwd, one block per query tile (prefill):
+// flash_fwd, one block per query tile (f32 or hd-16 prefill):
 //  * one block per (query tile, KV head, batch row).  It stages the tile's
 //    G * BQ <= 16 query vectors in shared memory once and streams the visible
 //    cache slots through shared memory one BK-row K/V tile at a time, so
@@ -80,14 +115,15 @@
 //    product each lane owns hd / 32 output dims and takes p_t of key t from
 //    lane t by a shuffle;
 //  * every product is f32 FMA on CUDA cores of exact bf16 (or f32) values.
-// Tensor cores (mma / wgmma) and TMA for the prefill are left for later.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
 
 #include <algorithm>
+#include <type_traits>
 
 namespace cg = cooperative_groups;
 
@@ -319,6 +355,281 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict_
       for (int e = 0; e < DPL; ++e) {
         const int d = lane + 32 * e;
         if (d < HD) store(o + d, acc[j][e] / denom);
+      }
+    }
+  }
+}
+
+// -- tensor-core prefill ---------------------------------------------------
+
+// the kernel a call runs (ops/attention.py::_ROUTES)
+constexpr int ROUTE_FMA = 0;    // flash_fwd
+constexpr int ROUTE_MMA = 1;    // flash_fwd_mma
+constexpr int ROUTE_SPLIT = 2;  // flash_fwd_split
+
+constexpr int MMA_VECS = 64;  // query vectors of a flash_fwd_mma block: 4 warps x m16
+constexpr int MMA_BK = 64;    // keys per K/V tile
+static_assert(MMA_VECS == 16 * WARPS, "each warp owns one m16 slice of the vectors");
+
+template <int HD>
+struct Mma {
+  static constexpr int STAGES = HD == 64 ? 3 : 2;  // K/V tiles in the ring
+  static constexpr int RS = HD + 8;                // row stride in shared memory, elements
+  static constexpr int CH = HD / 8;                // 16-byte chunks of a row
+  static constexpr int SMEM = (MMA_VECS + 2 * STAGES * MMA_BK) * RS * 2;  // bytes
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared, zero-filled when !valid (src is then not read)
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+               "r"(valid ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr)
+               : "memory");
+}
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr)
+               : "memory");
+}
+
+// d += a (16 x 16 bf16, row-major) b (16 x 8 bf16, column-major), in f32
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // lo in the low half
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// grid (ceil(S / BQ), KV, B), BQ = MMA_VECS / G.  Query vector r of the
+// block is row q0 + r / G of head kvh * G + r % G; vectors past the tile's
+// last row are zero and dropped.  Warp w owns vectors [16w, 16w + 16): in
+// the mma fragments, lane (g = lane / 4, t = lane % 4) holds rows g and
+// g + 8 of that slice and, of each 8-key score tile, keys 2t and 2t + 1.
+template <int HD>
+__global__ void __launch_bounds__(THREADS)
+flash_fwd_mma(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+              const __nv_bfloat16* __restrict__ v, const long long* __restrict__ pos0,
+              const long long* __restrict__ valid_end, __nv_bfloat16* __restrict__ out, int H,
+              int KV, int S, int T_len, int BQ, int q_sb, int q_sh, int q_ss, int o_sb, int o_sh,
+              int o_ss, float scale) {
+  using C = Mma<HD>;
+  constexpr int RS = C::RS;
+  constexpr int CH = C::CH;
+  constexpr int STAGES = C::STAGES;
+  extern __shared__ __align__(16) unsigned char smem[];
+  __nv_bfloat16* q_s = reinterpret_cast<__nv_bfloat16*>(smem);  // [MMA_VECS][RS]
+  __nv_bfloat16* k_s = q_s + MMA_VECS * RS;                      // [STAGES][MMA_BK][RS]
+  __nv_bfloat16* v_s = k_s + STAGES * MMA_BK * RS;               // [STAGES][MMA_BK][RS]
+
+  const int G = H / KV;
+  const int b = blockIdx.z;
+  const int kvh = blockIdx.y;
+  const int q0 = blockIdx.x * BQ;
+  const int R = min(BQ, S - q0) * G;  // the tile's real query vectors
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const long long p0 = pos0[b];
+  const long long ve = valid_end[b];
+  // slots below lim(r) are visible to vector r (a padding vector takes the
+  // last real one's); lim is nondecreasing in r
+  auto lim = [&](int r) {
+    const long long e = min(min(ve, p0 + q0 + min(r, R - 1) / G + 1), static_cast<long long>(T_len));
+    return static_cast<int>(max(e, 0LL));
+  };
+  const int kend = lim(MMA_VECS - 1);  // tiles at or above it are skipped
+  const int full = lim(0);             // tiles below it are seen whole by every vector
+  const int nt = (kend + MMA_BK - 1) / MMA_BK;
+
+  const size_t head = (static_cast<size_t>(b) * KV + kvh) * T_len * HD;
+  const __nv_bfloat16* kb = k + head;
+  const __nv_bfloat16* vb = v + head;
+  auto load_tile = [&](int tile) {
+    const int kt = tile * MMA_BK;
+    const int stage = tile % STAGES;
+    for (int i = threadIdx.x; i < MMA_BK * CH; i += THREADS) {
+      const int row = i / CH;
+      const int c = i % CH;
+      const bool ok = kt + row < kend;
+      const size_t off = static_cast<size_t>(ok ? kt + row : 0) * HD + c * 8;
+      const int dst = (stage * MMA_BK + row) * RS + c * 8;
+      cp_async16(smem_u32(k_s + dst), kb + off, ok);
+      cp_async16(smem_u32(v_s + dst), vb + off, ok);
+    }
+  };
+  // groups: q, then one per tile (empty past the last), so that before
+  // tile i is computed at most STAGES - 2 younger groups may be in flight
+  for (int i = threadIdx.x; i < MMA_VECS * CH; i += THREADS) {
+    const int r = i / CH;
+    const int c = i % CH;
+    const bool ok = r < R;
+    const __nv_bfloat16* src = q;
+    if (ok) {
+      src += static_cast<size_t>(b) * q_sb + static_cast<size_t>(kvh * G + r % G) * q_sh +
+             static_cast<size_t>(q0 + r / G) * q_ss + c * 8;
+    }
+    cp_async16(smem_u32(q_s + r * RS + c * 8), src, ok);
+  }
+  cp_async_commit();
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < nt) load_tile(s);
+    cp_async_commit();
+  }
+
+  const int g = lane / 4;
+  const int t = lane % 4;
+  const int lim0 = lim(warp * 16 + g);
+  const int lim1 = lim(warp * 16 + g + 8);
+  // ldmatrix row and column of this lane: matrix lane / 8 of an x4 load
+  const int lrow = (lane & 7) + ((lane >> 3) & 1) * 8;
+  const int lcol = (lane >> 4) * 8;
+
+  cp_async_wait<STAGES - 1>();  // q has arrived (the tiles may still fly)
+  __syncthreads();
+  uint32_t qf[HD / 16][4];
+#pragma unroll
+  for (int kk = 0; kk < HD / 16; ++kk) {
+    ldsm_x4(qf[kk], smem_u32(q_s + (warp * 16 + lrow) * RS + kk * 16 + lcol));
+  }
+
+  float o[HD / 8][4];
+#pragma unroll
+  for (int n = 0; n < HD / 8; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
+  float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
+
+  for (int i = 0; i < nt; ++i) {
+    cp_async_wait<STAGES - 2>();  // tile i has arrived, for this thread's copies
+    __syncthreads();              // ... for every thread's; tile i - 1 is consumed
+    if (i + STAGES - 1 < nt) load_tile(i + STAGES - 1);
+    cp_async_commit();
+    const int kt = i * MMA_BK;
+    const __nv_bfloat16* ks = k_s + (i % STAGES) * MMA_BK * RS;
+    const __nv_bfloat16* vs = v_s + (i % STAGES) * MMA_BK * RS;
+
+    // S = Q K^T: n-tile j holds keys kt + 8j .. kt + 8j + 7
+    float s[MMA_BK / 8][4];
+#pragma unroll
+    for (int j = 0; j < MMA_BK / 8; ++j) {
+      s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+#pragma unroll
+      for (int kp = 0; kp < HD / 32; ++kp) {
+        uint32_t kf[4];  // keys 8j.. x dims 32kp + 8 * (0, 1, 2, 3)
+        ldsm_x4(kf, smem_u32(ks + (8 * j + (lane & 7)) * RS + kp * 32 + (lane >> 3) * 8));
+        mma_bf16(s[j], qf[2 * kp], kf[0], kf[1]);
+        mma_bf16(s[j], qf[2 * kp + 1], kf[2], kf[3]);
+      }
+    }
+
+    // scale, mask (only a tile that straddles a vector's visible end), max
+    const bool masked = kt + MMA_BK > full;
+    float mx0 = -INFINITY, mx1 = -INFINITY;
+#pragma unroll
+    for (int j = 0; j < MMA_BK / 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int key = kt + 8 * j + 2 * t + e;
+        s[j][e] *= scale;
+        s[j][2 + e] *= scale;
+        if (masked) {
+          if (key >= lim0) s[j][e] = -INFINITY;
+          if (key >= lim1) s[j][2 + e] = -INFINITY;
+        }
+        mx0 = fmaxf(mx0, s[j][e]);
+        mx1 = fmaxf(mx1, s[j][2 + e]);
+      }
+    }
+    mx0 = fmaxf(mx0, __shfl_xor_sync(FULL, mx0, 1));
+    mx0 = fmaxf(mx0, __shfl_xor_sync(FULL, mx0, 2));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(FULL, mx1, 1));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(FULL, mx1, 2));
+    const float n0 = fmaxf(m0, mx0);
+    const float n1 = fmaxf(m1, mx1);
+    // a row that has seen no key yet keeps m = -inf; its p are exp(-inf) = 0
+    const float safe0 = isfinite(n0) ? n0 : 0.f;
+    const float safe1 = isfinite(n1) ? n1 : 0.f;
+    const float alpha0 = isfinite(m0) ? expf(m0 - safe0) : 0.f;
+    const float alpha1 = isfinite(m1) ? expf(m1 - safe1) : 0.f;
+    m0 = n0;
+    m1 = n1;
+    float sum0 = 0.f, sum1 = 0.f;
+#pragma unroll
+    for (int j = 0; j < MMA_BK / 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        s[j][e] = expf(s[j][e] - safe0);
+        s[j][2 + e] = expf(s[j][2 + e] - safe1);
+        sum0 += s[j][e];
+        sum1 += s[j][2 + e];
+      }
+    }
+    l0 = l0 * alpha0 + sum0;
+    l1 = l1 * alpha1 + sum1;
+#pragma unroll
+    for (int n = 0; n < HD / 8; ++n) {
+      o[n][0] *= alpha0;
+      o[n][1] *= alpha0;
+      o[n][2] *= alpha1;
+      o[n][3] *= alpha1;
+    }
+
+    // O += P V, P rounded to bf16: 16 keys per step, 16 dims per ldmatrix
+#pragma unroll
+    for (int kk = 0; kk < MMA_BK / 16; ++kk) {
+      const uint32_t pa[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
+                              pack_bf16(s[2 * kk][2], s[2 * kk][3]),
+                              pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
+                              pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+#pragma unroll
+      for (int dp = 0; dp < HD / 16; ++dp) {
+        uint32_t vf[4];  // keys 16kk + (0-7, 8-15) x dims 16dp + (0-7, 8-15)
+        ldsm_x4_trans(vf, smem_u32(vs + (16 * kk + lrow) * RS + dp * 16 + lcol));
+        mma_bf16(o[2 * dp], pa, vf[0], vf[1]);
+        mma_bf16(o[2 * dp + 1], pa, vf[2], vf[3]);
+      }
+    }
+  }
+
+  // l over the quad, then acc / max(l, 1e-30): exactly 0 for a row that saw no key
+  l0 += __shfl_xor_sync(FULL, l0, 1);
+  l0 += __shfl_xor_sync(FULL, l0, 2);
+  l1 += __shfl_xor_sync(FULL, l1, 1);
+  l1 += __shfl_xor_sync(FULL, l1, 2);
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int r = warp * 16 + g + 8 * half;
+    if (r < R) {
+      __nv_bfloat16* op = out + static_cast<size_t>(b) * o_sb +
+                          static_cast<size_t>(kvh * G + r % G) * o_sh +
+                          static_cast<size_t>(q0 + r / G) * o_ss;
+      const float denom = fmaxf(half ? l1 : l0, 1e-30f);
+#pragma unroll
+      for (int n = 0; n < HD / 8; ++n) {
+        *reinterpret_cast<uint32_t*>(op + 8 * n + 2 * t) =
+            pack_bf16(o[n][2 * half] / denom, o[n][2 * half + 1] / denom);
       }
     }
   }
@@ -671,12 +982,12 @@ flash_fwd_split(const T* __restrict__ q, const T* __restrict__ k, const T* __res
 template <typename T, int HD>
 cudaError_t run(const void* q, const void* k, const void* v, const void* pos0,
                 const void* valid_end, void* out, int B, int H, int KV, int S, int T_len,
-                int q_sb, int q_sh, int q_ss, int o_sb, int o_sh, int o_ss, int splits,
+                int q_sb, int q_sh, int q_ss, int o_sb, int o_sh, int o_ss, int route, int splits,
                 cudaStream_t stream) {
   const int G = H / KV;
   const float scale = static_cast<float>(1.0 / sqrt(static_cast<double>(HD)));
-  if (splits > 0) {
-    if (G * S > RQ || splits > MAX_SPLITS || (splits & (splits - 1)) != 0 ||
+  if (route == ROUTE_SPLIT) {
+    if (G * S > RQ || splits < 1 || splits > MAX_SPLITS || (splits & (splits - 1)) != 0 ||
         RQ * HD / splits < Split<T, HD>::DPL) {
       return cudaErrorInvalidValue;
     }
@@ -709,6 +1020,31 @@ cudaError_t run(const void* q, const void* k, const void* v, const void* pos0,
     const cudaError_t last = cudaGetLastError();  // read and clear
     return err != cudaSuccess ? err : last;
   }
+  if (route == ROUTE_MMA) {
+    if constexpr (std::is_same<T, __nv_bfloat16>::value && HD >= 64) {
+      if (G > MMA_VECS) return cudaErrorInvalidValue;
+      auto kernel = flash_fwd_mma<HD>;
+      // more than 48 KB of shared memory must be allowed first; set once
+      // per instantiation (on its first call, before any graph capture)
+      static bool smem_allowed = false;
+      if (!smem_allowed) {
+        const cudaError_t err = cudaFuncSetAttribute(
+            kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Mma<HD>::SMEM);
+        if (err != cudaSuccess) return err;
+        smem_allowed = true;
+      }
+      const int BQ = MMA_VECS / G;
+      const dim3 grid((S + BQ - 1) / BQ, KV, B);
+      kernel<<<grid, THREADS, Mma<HD>::SMEM, stream>>>(
+          static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+          static_cast<const __nv_bfloat16*>(v), static_cast<const long long*>(pos0),
+          static_cast<const long long*>(valid_end), static_cast<__nv_bfloat16*>(out), H, KV, S,
+          T_len, BQ, q_sb, q_sh, q_ss, o_sb, o_sh, o_ss, scale);
+      return cudaGetLastError();
+    }
+    return cudaErrorInvalidValue;  // bf16 at hd 64 / 128 only
+  }
+  if (route != ROUTE_FMA) return cudaErrorInvalidValue;
   const int per_block = WARPS * Tile<T, HD>::QPW;
   if (G > per_block) return cudaErrorInvalidValue;
   const int BQ = std::max(1, std::min(S, per_block / G));
@@ -723,18 +1059,18 @@ cudaError_t run(const void* q, const void* k, const void* v, const void* pos0,
 template <typename T>
 cudaError_t dispatch(int hd, const void* q, const void* k, const void* v, const void* pos0,
                      const void* valid_end, void* out, int B, int H, int KV, int S, int T_len,
-                     int q_sb, int q_sh, int q_ss, int o_sb, int o_sh, int o_ss, int splits,
-                     cudaStream_t stream) {
+                     int q_sb, int q_sh, int q_ss, int o_sb, int o_sh, int o_ss, int route,
+                     int splits, cudaStream_t stream) {
   switch (hd) {
     case 16:
       return run<T, 16>(q, k, v, pos0, valid_end, out, B, H, KV, S, T_len, q_sb, q_sh, q_ss,
-                        o_sb, o_sh, o_ss, splits, stream);
+                        o_sb, o_sh, o_ss, route, splits, stream);
     case 64:
       return run<T, 64>(q, k, v, pos0, valid_end, out, B, H, KV, S, T_len, q_sb, q_sh, q_ss,
-                        o_sb, o_sh, o_ss, splits, stream);
+                        o_sb, o_sh, o_ss, route, splits, stream);
     case 128:
       return run<T, 128>(q, k, v, pos0, valid_end, out, B, H, KV, S, T_len, q_sb, q_sh, q_ss,
-                         o_sb, o_sh, o_ss, splits, stream);
+                         o_sb, o_sh, o_ss, route, splits, stream);
     default:
       return cudaErrorInvalidValue;
   }
@@ -745,23 +1081,26 @@ cudaError_t dispatch(int hd, const void* q, const void* k, const void* v, const 
 // q (B, H, S, hd) with element strides q_sb, q_sh, q_ss (the last dim
 // contiguous); k, v (B, KV, T, hd) contiguous; pos0, valid_end (B,) int64
 // on the card; out (B, H, S, hd) with strides o_sb, o_sh, o_ss.  bf16 or
-// f32 (is_bf16), hd in {16, 64, 128}, H % KV == 0.  splits > 0 runs the
-// split-K decode kernel with clusters of that many blocks (1..16, and
-// H / KV * S <= 8); 0 runs the prefill kernel.  Launches on `stream` and
-// returns the launch's error (0 on success).
+// f32 (is_bf16), hd in {16, 64, 128}, H % KV == 0.  route: 0 runs the
+// CUDA-core prefill kernel; 1 the tensor-core prefill kernel (bf16, hd 64
+// or 128; q 16-byte aligned with strides that are multiples of 8); 2 the
+// split-K decode kernel with clusters of `splits` blocks (a power of two
+// up to 16, and H / KV * S <= 4).  Launches on `stream` and returns the
+// launch's error (0 on success).
 extern "C" int flash_attention(const void* q, const void* k, const void* v, const void* pos0,
                                const void* valid_end, void* out, int B, int H, int KV, int S,
                                int T, int hd, int q_sb, int q_sh, int q_ss, int o_sb,
-                               int o_sh, int o_ss, int splits, int is_bf16, void* stream) {
+                               int o_sh, int o_ss, int route, int splits, int is_bf16,
+                               void* stream) {
   if (B <= 0 || H <= 0 || KV <= 0 || S <= 0 || T <= 0 || H % KV != 0 || B > 65535 ||
-      KV > 65535 || splits < 0) {
+      KV > 65535) {
     return cudaErrorInvalidValue;
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (is_bf16) {
     return dispatch<__nv_bfloat16>(hd, q, k, v, pos0, valid_end, out, B, H, KV, S, T, q_sb,
-                                   q_sh, q_ss, o_sb, o_sh, o_ss, splits, st);
+                                   q_sh, q_ss, o_sb, o_sh, o_ss, route, splits, st);
   }
   return dispatch<float>(hd, q, k, v, pos0, valid_end, out, B, H, KV, S, T, q_sb, q_sh, q_ss,
-                         o_sb, o_sh, o_ss, splits, st);
+                         o_sb, o_sh, o_ss, route, splits, st);
 }

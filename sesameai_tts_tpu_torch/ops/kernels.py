@@ -28,9 +28,9 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 # kernel name → the C entry point's argument types (pointers, ints, stream)
 _SIGNATURES = {
     "quant_matmul": [_P] * 4 + [_I] * 9 + [_P],
-    "quant4_matmul": [_P] * 5 + [_I] * 7 + [_P],
+    "quant4_matmul": [_P] * 4 + [_I] * 9 + [_P],
     "quant_mlp": [_P] * 7 + [_I] * 6 + [_P],
-    "flash_attention": [_P] * 6 + [_I] * 14 + [_P],
+    "flash_attention": [_P] * 6 + [_I] * 15 + [_P],
 }
 KERNELS = tuple(_SIGNATURES)
 

@@ -31,15 +31,22 @@ import torch.nn.functional as F_
 
 from sesameai_tts_tpu_torch.ops.kernels import check_operands, launch
 
-_COLS_PER_BLOCK = 512  # COLS_PER_BLOCK of quant4_matmul.cu
 _MIN_SPLIT_ROWS = 32  # fewest weight rows one block reduces over
-_BLOCKS_PER_SM = 8  # blocks of quant4_matmul's partial-sum kernel aimed at per SM
 # quant_matmul.cu: threads per tile row, widest first (a tile is tpr * vec
 # columns, at most MAX_COLS = 256), the most blocks of a cluster
-# (MAX_CLUSTER), and the blocks aimed at per SM
+# (MAX_CLUSTER), and the blocks aimed at per SM; quant4_matmul.cu shares
+# the cluster bound
 _QMM_TPRS = (16, 8, 4)
 _QMM_MAX_CLUSTER = 16
 _QMM_BLOCKS_PER_SM = 2
+# quant4_matmul.cu: lane pairs per tile row, columns per pair by S tile (its
+# (s_tile, vec) instantiations: fewer at wide S tiles, to keep two f32 sums
+# per column and row of x within 128 registers), the packed weight bytes
+# aimed at per block, and the bounds of that aim in blocks per SM
+_Q4MM_TPR = 2
+_Q4MM_VEC = {1: 16, 2: 16, 4: 8, 8: 4}
+_Q4MM_BYTES_PER_BLOCK = 4096
+_Q4MM_BLOCKS_PER_SM = (1, 2)
 _MLP_THREADS = 512  # THREADS of quant_mlp.cu
 _MLP_MAX_SMEM = 232448  # shared memory one block may use (227 KB)
 
@@ -193,17 +200,72 @@ quant_matmul.launches = 0
 # ---------------------------------------------------------------------------
 
 
-def _q4_splits(S: int, D: int, F: int, G: int, sms: int):
-    """(parts, rows_per_split): every one of the G/2 scale groups of D/G
-    packed rows is cut into ``parts`` splits, so that no split crosses a
-    group boundary and the grid has about ``_BLOCKS_PER_SM`` blocks per SM.
-    Every split is non-empty."""
-    group = D // G
-    tiles = math.ceil(F / _COLS_PER_BLOCK) * math.ceil(S / _s_tile(S))
-    want = math.ceil(sms * _BLOCKS_PER_SM / tiles)
-    parts = max(1, min(math.ceil(want / (G // 2)), group // _MIN_SPLIT_ROWS))
-    rows = math.ceil(math.ceil(group / parts) / 8) * 8
-    return math.ceil(group / rows), rows
+def _q4mm_geometry(S: int, D: int, F: int, G: int, sms: int):
+    """quant4_matmul.cu's launch → (vec, tpr, splits, rows_per_split,
+    s_tile).  A pair of lanes reads ``vec`` columns of a packed row (16 at
+    S tiles of 1-2, fewer at wider ones) and ``_Q4MM_TPR`` pairs cover a
+    tile row: the narrowest tile, so that the fewest splits (the smallest
+    clusters, the cheapest barrier) fill the card.  The grid aims at one
+    block per ``_Q4MM_BYTES_PER_BLOCK`` packed bytes, held between 1 and 2
+    blocks per SM, and takes the fewest splits of the D/2 packed rows that
+    reach it (or the most allowed), at least ``_MIN_SPLIT_ROWS`` rows
+    each, in clusters of at most ``_QMM_MAX_CLUSTER``.  One cluster is the
+    ``splits`` blocks of a column tile; every split is non-empty.  A split
+    may cut a scale group of D/G packed rows or span several: the kernel
+    scales each group where a block's rows leave it (``_q4mm_segments``)."""
+    if G <= 0 or G % 2 or D % G:
+        raise ValueError(f"quant4_matmul: G={G} must be even and divide D={D}")
+    s_tile = _s_tile(S)
+    vec = _Q4MM_VEC[s_tile]
+    if F % vec:
+        vec = 8  # F % 8 == 0: the S tile's instantiation at 8 columns
+    D2 = D // 2
+    tiles = math.ceil(F / (vec * _Q4MM_TPR)) * math.ceil(S / s_tile)
+    max_splits = max(1, min(_QMM_MAX_CLUSTER, D2 // _MIN_SPLIT_ROWS))
+    lo, hi = (n * sms for n in _Q4MM_BLOCKS_PER_SM)
+    want = min(hi, max(lo, D2 * F / _Q4MM_BYTES_PER_BLOCK))
+    for want_splits in range(min(max_splits, math.ceil(want / tiles)), max_splits + 1):
+        rows = math.ceil(math.ceil(D2 / want_splits) / 8) * 8
+        splits = math.ceil(D2 / rows)
+        if splits * tiles >= want:
+            break
+    return vec, _Q4MM_TPR, splits, rows, s_tile
+
+
+def _q4mm_segments(D: int, G: int, begin: int, end: int):
+    """The scale groups that packed rows [begin, end) of a block touch, in
+    order → [(group, first row, end row)]: every group once, cut to the
+    block's rows.  Packed row d is in group d // (D/G) of each half."""
+    gs = D // G
+    return [(g, max(begin, g * gs), min(end, (g + 1) * gs))
+            for g in range(begin // gs, (end - 1) // gs + 1)] if end > begin else []
+
+
+def quant4_matmul_cluster_plain(x: torch.Tensor, q4: torch.Tensor, scale: torch.Tensor,
+                                rows_per_split: int) -> torch.Tensor:
+    """The kernel's order of sums as torch ops: the D/2 packed rows are cut
+    into splits of ``rows_per_split`` (one block each); a block takes, for
+    each group its rows touch (``_q4mm_segments``), the f32 partial dots of
+    bf16(x)'s low half with the low nibbles and of its high half with the
+    high nibbles over its rows of the group, times the group's two scales,
+    into its running f32 sum; the blocks' sums are added in rank order and
+    cast to x.dtype.  (The kernel scales each thread's share of a group and
+    adds the shares inside the block: the same terms, f32 sums in another
+    order.)"""
+    S, D = x.shape
+    G, F = scale.shape
+    D2 = D // 2
+    lo, hi = (n.float() for n in _unpack_int4(q4))
+    xb = x.to(torch.bfloat16).float()
+    x_lo, x_hi = xb[:, :D2], xb[:, D2:]
+    total = torch.zeros((S, F), dtype=torch.float32, device=x.device)
+    for begin in range(0, D2, rows_per_split):
+        block = torch.zeros_like(total)
+        for g, a, b in _q4mm_segments(D, G, begin, min(D2, begin + rows_per_split)):
+            block = (block + (x_lo[:, a:b] @ lo[a:b]) * scale[g].float()
+                     + (x_hi[:, a:b] @ hi[a:b]) * scale[G // 2 + g].float())
+        total = total + block
+    return total.to(x.dtype)
 
 
 def quant4_matmul_plain(x: torch.Tensor, q4: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
@@ -253,11 +315,12 @@ def quant4_matmul(x: torch.Tensor, q4: torch.Tensor, scale: torch.Tensor) -> tor
     check_operands("quant4_matmul", {"x": x, "q4": q4, "scale": scale}, x.device)
     if F % 8 != 0 or S * F >= 2**31:
         raise ValueError(f"quant4_matmul: need F % 8 == 0 and S*F < 2^31 (S={S}, F={F})")
-    parts, rows = _q4_splits(S, D, F, G, _sms(x.device))
+    if q4.data_ptr() % 16 or scale.data_ptr() % 16:  # read as 16-byte vectors
+        raise ValueError("quant4_matmul: q4 and scale must start on a 16-byte boundary")
+    vec, tpr, splits, rows, s_tile = _q4mm_geometry(S, D, F, G, _sms(x.device))
     y = torch.empty((S, F), dtype=torch.bfloat16, device=x.device)
-    ws = torch.empty(((G // 2) * parts, S, F), dtype=torch.float32, device=x.device)
     launch("quant4_matmul", x.data_ptr(), q4.data_ptr(), scale.data_ptr(), y.data_ptr(),
-           ws.data_ptr(), S, D, F, G, parts, rows, _s_tile(S),
+           S, D, F, G, splits, rows, tpr, vec, s_tile,
            torch.cuda.current_stream(x.device).cuda_stream)
     quant4_matmul.launches += 1
     return y

@@ -182,3 +182,95 @@ def test_wrapper_runs_the_plain_version_on_the_cpu():
     assert torch.equal(got, ta.flash_attention_plain(*args, pos0, valid_end))
     with pytest.raises(ValueError, match="device"):
         ta.flash_attention(*(a.to("meta") for a in args), pos0, valid_end)
+
+
+# -- the tensor-core prefill's arithmetic and tile plan -------------------------
+
+
+# (B, H, KV, S, T, hd, pos0 per row, valid_len per row, Pallas block_q)
+_TILED_CASES = {
+    "causal prefill from 0, G=4": (1, 8, 2, 64, 128, 64, (0,), (64,), 16),
+    "prefill after a cached context, G=4": (1, 8, 2, 32, 192, 64, (100,), (32,), 32),
+    "right-padded row beside a row with valid_len 0": (2, 8, 2, 32, 128, 64, (0, 0), (20, 0), 16),
+    "S=24 not a multiple of BQ=16, G=4": (1, 8, 2, 24, 128, 64, (5,), (24,), 8),
+    "G=1: 64-row tiles, padded": (1, 2, 2, 40, 128, 64, (50,), (35,), 8),
+    "hd 128, G=4": (1, 4, 1, 16, 64, 128, (0,), (16,), 16),
+}
+
+
+@pytest.mark.parametrize("case", sorted(_TILED_CASES))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_tiled_plain_matches_pallas_flash_attention(case, dtype):
+    """flash_attention_tiled_plain (p rounded to v's dtype at each 64-key
+    tile's running max, l unrounded) against the Pallas kernel in interpret
+    mode at block_k = 64, the same arithmetic, and against
+    flash_attention_plain within the stated tolerance."""
+    B, H, KV, S, T, hd, pos0, valid_len, block_q = _TILED_CASES[case]
+    q, k, v = (_to(a, dtype) for a in _inputs(6, B, H, KV, S, T, hd))
+    p0 = torch.tensor(pos0)
+    ve = p0 + torch.tensor(valid_len)
+    got = ta.flash_attention_tiled_plain(q, k, v, p0, ve)
+    assert got.dtype == dtype and got.shape == (B, H, S, hd)
+    _assert_split_close(got, ta.flash_attention_plain(q, k, v, p0, ve), v)
+    jdt = jnp.bfloat16 if dtype == torch.bfloat16 else jnp.float32
+    jargs = [jnp.asarray(a.float().numpy()).astype(jdt) for a in (q, k, v)]
+    want = j_flash(*jargs, jnp.asarray(p0.numpy(), jnp.int32), jnp.asarray(ve.numpy(), jnp.int32),
+                   block_q=block_q, block_k=64, interpret=True)
+    _assert_split_close(got, np.asarray(want.astype(jnp.float32)), v)
+    for b, (p, n) in enumerate(zip(pos0, valid_len)):
+        if p == 0 and n == 0:
+            assert not got[b].any()  # a row that sees no slot is exactly 0
+
+
+@pytest.mark.parametrize("block_k", [16, 64, 128])
+def test_tiled_plain_in_f32_is_the_plain_version(block_k):
+    """In f32 nothing is rounded, so the tile size only reorders f32 sums."""
+    q, k, v = (torch.from_numpy(a) for a in _inputs(7, 2, 8, 2, 20, 100, 64))
+    p0, ve = torch.tensor([0, 60]), torch.tensor([15, 80])
+    got = ta.flash_attention_tiled_plain(q, k, v, p0, ve, block_k=block_k)
+    torch.testing.assert_close(got, ta.flash_attention_plain(q, k, v, p0, ve), rtol=1e-5,
+                               atol=1e-5)
+
+
+@pytest.mark.parametrize("S,G,T,pos0,valid_len", [
+    (512, 4, 2048, 0, 500),  # the voice-context prefill
+    (64, 4, 2048, 500, 64),  # an utterance prefill after the context
+    (768, 4, 2048, 0, 628),  # a rolling-context turn at the 768 bucket
+    (64, 4, 2048, 0, 0),  # a row with valid_len 0
+    (40, 1, 100, 50, 35),  # G = 1: 64 rows a tile; the cache ends mid-tile
+    (24, 8, 256, 30, 24),  # G = 8: 8 rows a tile
+    (16, 4, 32, 0, 16),  # the decoder's 32-slot cache at hd 128
+])
+def test_mma_tile_plan(S, G, T, pos0, valid_len):
+    """BQ = 64 / G rows a query tile; a key tile is visited exactly when
+    some row of the query tile sees one of its keys, and masked exactly when
+    some row misses one of its keys (or the cache ends inside it)."""
+    ve = pos0 + valid_len
+    plan = ta._mma_tile_plan(S, G, T, pos0, ve)
+    BQ = 64 // G
+    assert [q0 for q0, _, _, _ in plan] == list(range(0, S, BQ))
+    assert sum(rows for _, rows, _, _ in plan) == S
+    for q0, rows, tiles, masked in plan:
+        assert rows == min(BQ, S - q0)
+        seen = [[t <= pos0 + q0 + i and t < ve and t < T for t in range(0, T + 64)]
+                for i in range(rows)]
+        want_tiles = [kt for kt in range(0, T, 64)
+                      if any(any(r[kt:kt + 64]) for r in seen)]
+        want_masked = [kt for kt in want_tiles if not all(all(r[kt:kt + 64]) for r in seen)]
+        assert tiles == want_tiles and masked == want_masked
+
+
+@pytest.mark.parametrize("dtype,hd,G,S,want", [
+    (torch.bfloat16, 64, 4, 1, "split"),  # backbone decode step
+    (torch.bfloat16, 128, 4, 1, "split"),  # decoder step
+    (torch.bfloat16, 64, 4, 512, "mma"),  # voice-context prefill
+    (torch.bfloat16, 64, 4, 64, "mma"),  # utterance prefill
+    (torch.bfloat16, 128, 4, 16, "mma"),
+    (torch.bfloat16, 64, 4, 2, "mma"),  # 8 query vectors: past the decode kernel's 4
+    (torch.bfloat16, 16, 2, 37, "fma"),  # hd 16 has no tensor-core route
+    (torch.float32, 64, 4, 512, "fma"),  # f32 stays on CUDA cores (no TF32)
+    (torch.float32, 16, 2, 37, "fma"),  # the tiny f32 flavor's prefill
+    (torch.float32, 16, 2, 1, "split"),
+])
+def test_route_by_dtype_and_head_dim(dtype, hd, G, S, want):
+    assert ta._route(dtype, hd, G, S) == want

@@ -122,10 +122,18 @@ def _assert_close_to_plain(got, want):
     assert bool(((got.float() - want).abs() <= tol).all())
 
 
+# the flagship decode shapes at S = 1 at the trunks' G = 2 and at 128-row
+# groups (a split inside one group, or across several), every S tile, and a
+# ragged tiny shape
 @pytest.mark.gpu
-@pytest.mark.parametrize("S,D,F,G", [(1, 2048, 3072, 2), (2, 1024, 16384, 2),
-                                     (8, 1024, 1536, 8), (17, 8192, 2048, 64),
-                                     (64, 8192, 1024, 2), (3, 96, 24, 6)])
+@pytest.mark.parametrize("S,D,F,G", [(1, 2048, 3072, 2), (1, 2048, 2048, 2), (1, 2048, 16384, 2),
+                                     (1, 8192, 2048, 2), (1, 1024, 1536, 2), (1, 1024, 1024, 2),
+                                     (1, 1024, 16384, 2), (1, 8192, 1024, 2),
+                                     (1, 2048, 16384, 16), (1, 8192, 1024, 64),
+                                     (1, 1024, 1024, 8), (2, 1024, 16384, 2),
+                                     (4, 2048, 3072, 16), (8, 1024, 1536, 8),
+                                     (17, 8192, 2048, 64), (64, 8192, 1024, 2), (3, 96, 24, 6),
+                                     (1, 96, 24, 6)])
 def test_quant4_matmul_matches_plain(cuda, S, D, F, G):
     q4, scale = _int4_weight(cuda, D, F, G)
     x = torch.randn((S, D), generator=cuda, device="cuda").to(torch.bfloat16)
@@ -134,6 +142,19 @@ def test_quant4_matmul_matches_plain(cuda, S, D, F, G):
     assert tq.quant4_matmul.launches == before + 1
     assert got.dtype == torch.bfloat16 and got.shape == (S, F)
     _assert_close_to_plain(got, tq.quant4_matmul_plain(x, q4, scale))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("S,D,F,G", [(1, 1024, 1024, 2), (1, 8192, 1024, 64),
+                                     (1, 2048, 16384, 16), (8, 2048, 3072, 2)])
+def test_quant4_matmul_is_deterministic(cuda, S, D, F, G):
+    """The cluster's blocks add in rank order: repeated calls and a
+    CUDA-graph replay give the same bits."""
+    q4, scale = _int4_weight(cuda, D, F, G)
+    x = torch.randn((S, D), generator=cuda, device="cuda").to(torch.bfloat16)
+    first = tq.quant4_matmul(x, q4, scale)
+    assert torch.equal(tq.quant4_matmul(x, q4, scale), first)
+    assert torch.equal(_replayed(lambda: tq.quant4_matmul(x, q4, scale)), first)
 
 
 @pytest.mark.gpu
@@ -247,6 +268,10 @@ def _assert_attention_close(got, want, v):
 @pytest.mark.parametrize("B,H,KV,S,T,hd,pos0,valid_end", [
     (1, 32, 8, 512, 2048, 64, 0, 500),  # backbone prefill, right-padded
     (1, 32, 8, 64, 2048, 64, 500, 564),  # utterance prefill after a cached context
+    (1, 32, 8, 768, 2048, 64, 0, 628),  # a rolling-context turn at the 768 bucket
+    (1, 8, 2, 16, 32, 128, 0, 16),  # a prefill at hd 128
+    (2, 8, 1, 40, 256, 64, 30, 60),  # G = 8: 8 rows a block, one tile straddled
+    (1, 4, 4, 100, 300, 128, 150, 230),  # G = 1: 64 rows a block, a ragged last tile
     (1, 32, 8, 1, 2048, 64, 0, 1),  # backbone decode: split-K over the cache
     (1, 32, 8, 1, 2048, 64, 63, 64),
     (1, 32, 8, 1, 2048, 64, 64, 65),
@@ -287,7 +312,9 @@ def test_flash_attention_decode_rows_at_different_positions(cuda, hd, T, pos, dt
 @pytest.mark.gpu
 @pytest.mark.parametrize("B,H,KV,S,T,hd,pos0", [(1, 32, 8, 1, 2048, 64, 1500),
                                                 (1, 8, 2, 1, 32, 128, 31),
-                                                (1, 32, 8, 64, 2048, 64, 500)])
+                                                (1, 32, 8, 64, 2048, 64, 500),
+                                                (1, 32, 8, 512, 2048, 64, 0),
+                                                (1, 8, 2, 16, 32, 128, 0)])
 def test_flash_attention_is_deterministic(cuda, B, H, KV, S, T, hd, pos0):
     """The splits (and the prefill's single block per tile) combine in a
     fixed order: repeated calls and a CUDA-graph replay give the same bits."""
@@ -361,5 +388,8 @@ def test_flash_attention_rejects_bad_inputs(cuda):
         ta.flash_attention(q, k.transpose(2, 3).contiguous().transpose(2, 3), v, p0, ve)
     with pytest.raises(ValueError):
         ta.flash_attention(q, k, v, p0.cpu(), ve)
+    qbuf = torch.randn((1, 4, 8 * 64 + 1), generator=cuda, device="cuda").to(torch.bfloat16)
+    with pytest.raises(ValueError):  # a bf16 prefill row of q not on a 16-byte boundary
+        ta.flash_attention(qbuf[..., :512].view(1, 4, 8, 64).transpose(1, 2), k, v, p0, ve)
     with pytest.raises(ValueError):  # 64 heads on one KV head: more than a block holds
         ta.flash_attention(*_attn_inputs(cuda, 1, 64, 1, 1, 64, 128, torch.bfloat16), p0, ve)

@@ -242,12 +242,74 @@ def test_quant4_matmul_cpu_runs_plain_without_launching(q4weight):
 
 @pytest.mark.parametrize("S", [1, 8, 64])
 @pytest.mark.parametrize("D,F,G", [(2048, 3072, 2), (2048, 16384, 16), (8192, 2048, 2),
-                                   (8192, 1024, 64), (1024, 1024, 2), (96, 24, 6)])
-def test_q4_split_plan_stays_inside_groups(S, D, F, G):
-    parts, rows = tq._q4_splits(S, D, F, G, sms=132)
-    group = D // G
-    assert rows % 8 == 0 and 1 <= (G // 2) * parts <= 65535
-    assert parts * rows >= group and (parts - 1) * rows < group  # every split non-empty
+                                   (8192, 1024, 64), (1024, 1024, 2), (96, 24, 6),
+                                   (1024, 1536, 8)])
+def test_q4mm_geometry_covers_every_row(S, D, F, G):
+    """Every packed row lies in exactly one split, every split is
+    non-empty, a cluster holds at most 16 blocks, and the launch is one the
+    kernel is built for; each split's group segments cover its rows once."""
+    vec, tpr, splits, rows, s_tile = tq._q4mm_geometry(S, D, F, G, sms=132)
+    D2 = D // 2
+    assert 1 <= splits <= 16 and rows >= tq._MIN_SPLIT_ROWS or splits == 1
+    assert splits * rows >= D2 and (splits - 1) * rows < D2  # every split non-empty
+    assert (s_tile, vec) in {(1, 16), (1, 8), (2, 16), (2, 8), (4, 8), (8, 4)}
+    assert F % vec == 0 and 16 % tpr == 0 and (S <= 8) == (s_tile >= S)
+    covered = []
+    for k in range(splits):
+        begin, end = k * rows, min(D2, (k + 1) * rows)
+        covered += [d for _, a, b in tq._q4mm_segments(D, G, begin, end) for d in range(a, b)]
+    assert covered == list(range(D2))  # every packed row exactly once, in order
+
+
+@pytest.mark.parametrize("G_of", ["halves", "128-row groups"])
+@pytest.mark.parametrize("D,F", _FLAGSHIP)
+def test_q4mm_flagship_geometry_fills_the_card(D, F, G_of):
+    """At S = 1 every flagship shape puts a block on each of the H100's 132
+    SMs, two from ~1 MB of packed weight on (one per 4 KB below that), in
+    clusters of at most 16 non-empty splits, at the trunks' G = 2 and at
+    G = D/128; the split count is the fewest that reaches that aim."""
+    G = 2 if G_of == "halves" else D // 128
+    vec, tpr, splits, rows, _ = tq._q4mm_geometry(1, D, F, G, sms=132)
+    tiles = math.ceil(F / (vec * tpr))
+    want = min(2 * 132, max(132, D * F / 2 / 4096))
+    assert splits * tiles >= want and (splits == 1 or (splits - 1) * tiles < want)
+    assert splits <= 16 and vec == 16 and (splits - 1) * rows < D // 2 <= splits * rows
+
+
+@pytest.mark.parametrize("D,G,begin,end", [(256, 2, 0, 128), (256, 2, 40, 96), (256, 16, 0, 24),
+                                           (256, 16, 8, 120), (8192, 64, 456, 912),
+                                           (2048, 16, 832, 1024), (96, 6, 0, 48),
+                                           (96, 6, 16, 32), (256, 16, 64, 64)])
+def test_q4mm_segments_scale_each_group_once_per_block(D, G, begin, end):
+    """A block's rows [begin, end) are cut at group boundaries: each group
+    it touches appears once, in order, with exactly its rows of that group."""
+    gs = D // G
+    segs = tq._q4mm_segments(D, G, begin, end)
+    groups = [g for g, _, _ in segs]
+    assert groups == sorted(set(groups))  # each group once: one scale multiply per group
+    assert [d for _, a, b in segs for d in range(a, b)] == list(range(begin, end))
+    for g, a, b in segs:
+        assert g * gs <= a < b <= (g + 1) * gs  # inside its group, non-empty
+
+
+@pytest.mark.parametrize("rows", [8, 24, 40, 128])
+@pytest.mark.parametrize("G", [2, 16])
+@pytest.mark.parametrize("S", [1, 3])
+def test_quant4_matmul_cluster_plain_matches_plain_and_jax_kernel_body(q4weight, S, G, rows):
+    """The kernel's order of sums (splits of ``rows`` packed rows, each
+    group scaled inside each block that touches it, blocks added in rank
+    order) against ``quant4_matmul_plain`` and the JAX kernel body in
+    interpret mode: the same exact products, f32 sums in another order."""
+    jw, tw = q4weight[G]
+    x = np.random.default_rng(60 + S).standard_normal((S, 256)).astype(np.float32)
+    xb = jnp.asarray(x).astype(jnp.bfloat16)
+    xt = torch.from_numpy(np.array(xb.astype(jnp.float32)))
+    got = tq.quant4_matmul_cluster_plain(xt, tw["q4"], tw["scale"], rows)
+    assert got.dtype == torch.float32 and got.shape == (S, 256)
+    _close(got.numpy(), tq.quant4_matmul_plain(xt, tw["q4"], tw["scale"]).numpy())
+    _close(got.numpy(), np.asarray(_q4_kernel_body(xb, jw)))
+    got_bf16 = tq.quant4_matmul_cluster_plain(xt.to(torch.bfloat16), tw["q4"], tw["scale"], rows)
+    assert got_bf16.dtype == torch.bfloat16
 
 
 def test_quantize_and_dequantize_csm_int4_match_jax():
