@@ -14,7 +14,9 @@ Phases, each of which fails the run if it fails:
    main paths' shapes (and the tensor-core prefill at hd 128), eagerly
    and from a CUDA-graph replay, a repeated call and the replay bit-equal
    to the first call, each timed beside its plain version, a library
-   yardstick and the card's bound;
+   yardstick and the card's bound (``quant_mlp`` also beside the port's
+   unfused int8 pair: two ``quant_matmul`` calls around the silu and
+   product);
 4. main paths, CSM-1B at full width with a bf16 Mimi and random weights
    from a seed, one configuration at a time: int8 trunks (offline,
    streamed and voice-context requests), int4 trunks and the fused int8
@@ -206,17 +208,29 @@ def _eager_ms(torch, fn, reps: int) -> float:
     return _events_ms(torch, lambda: [fn(i) for i in range(reps)]) / reps
 
 
+_SIDE_STREAM = []
+
+
+def _side_stream(torch):
+    """The one stream that every warm-up and capture below runs on: a
+    buffer kept per stream, as quant_mlp's, is then made once, not per
+    capture."""
+    if not _SIDE_STREAM:
+        _SIDE_STREAM.append(torch.cuda.Stream())
+    return _SIDE_STREAM[0]
+
+
 def _device_ms(torch, fn, reps: int, replays: int = 5) -> float:
     """Mean device time per call of fn(i): reps calls captured in one CUDA
     graph and replayed, so host overhead drops out."""
-    side = torch.cuda.Stream()
+    side = _side_stream(torch)
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
         for i in range(2):
             fn(i)
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with torch.cuda.graph(graph, stream=side):
         for i in range(reps):
             fn(i)
     graph.replay()
@@ -235,13 +249,13 @@ def _copies(nbytes: int) -> int:
 def _replayed(torch, fn):
     """fn(0)'s output from a CUDA-graph replay: a fault in a cluster's
     combine, or state that a launch leaves behind, shows only there."""
-    side = torch.cuda.Stream()
+    side = _side_stream(torch)
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
         fn(0)
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with torch.cuda.graph(graph, stream=side):
         out = fn(0)
     out.zero_()
     graph.replay()
@@ -353,9 +367,11 @@ def phase_quant4_matmul(torch, quant, peak_bw, peak_flops):
 
 
 def phase_quant_mlp(torch, quant, peak_bw, peak_flops):
-    """quant_mlp vs quant_mlp_plain at the backbone and decoder MLPs.  The
-    library yardstick is the dense bf16 SwiGLU sequence: three
-    torch.matmul calls, silu and a product."""
+    """quant_mlp vs quant_mlp_plain at the backbone and decoder MLPs, with
+    the launch geometry in each row.  The library yardstick is the dense
+    bf16 SwiGLU sequence: three torch.matmul calls, silu and a product.  A
+    second yardstick, ``unfused_ms``, is the port's own unfused int8 path on
+    the same weights: two quant_matmul calls around the silu and product."""
     F_ = torch.nn.functional
     gen = torch.Generator(device="cuda").manual_seed(2)
     rows = []
@@ -380,11 +396,13 @@ def phase_quant_mlp(torch, quant, peak_bw, peak_flops):
 
         for S in _S_VALUES:
             x = torch.randn((S, D), generator=gen, device="cuda").to(torch.bfloat16)
-            tiles = F // quant._mlp_block_i(S)
+            block_i, cluster, threads, prefetch, smem, _ = quant._qmlp_geometry(
+                S, D, F, Dout, quant._sms(x.device))
             row = _measure(
                 torch, "quant_mlp",
                 {"shape": name, "S": S, "D": D, "F": F, "Dout": Dout, "per_frame": per_frame,
-                 "tiles": tiles},
+                 "block_i": block_i, "cluster": cluster, "blocks": F // block_i,
+                 "threads": threads, "prefetch_rows": prefetch, "smem": smem},
                 quant.quant_mlp(x, q13, s13, q2, s2), quant.quant_mlp_plain(x, q13, s13, q2, s2),
                 lambda i: quant.quant_mlp(x, mats[i % copies][0], s13, mats[i % copies][1], s2),
                 lambda i: quant.quant_mlp_plain(x, mats[i % copies][0], s13, mats[i % copies][1],
@@ -392,11 +410,11 @@ def phase_quant_mlp(torch, quant, peak_bw, peak_flops):
                 lambda i: library(i, x),
                 copies, weight_bytes + 4 * (2 * F + Dout) + 2 * S * D + 2 * S * Dout,
                 2 * S * (2 * D * F + F * Dout), peak_bw, peak_flops)
-            # the design's own traffic: each tile's f32 (S, Dout) partial is
-            # written once and read once by the second pass
-            ws_bytes = 2 * 4 * tiles * S * Dout
-            row["workspace_bytes"] = ws_bytes
-            row["bound_with_workspace_ms"] = row["bound_ms"] + ws_bytes / peak_bw * 1e3
+            row["unfused_ms"] = _device_ms(torch, lambda i: quant.qmlp(
+                x, {"q": mats[i % copies][0], "scale": s13},
+                {"q": mats[i % copies][1], "scale": s2}), max(copies, 20))
+            print(f"kernel quant_mlp {name} S={S} unfused pair ms {row['unfused_ms']:.6f}",
+                  flush=True)
             rows.append(row)
         del mats, dense, q13, q2
         torch.cuda.empty_cache()
@@ -875,11 +893,13 @@ def _entry(name: str, source: str, replaces: str, rows, launches: dict, path: st
         "bound_by": "bytes",
         "library_ms": per_frame("library_ms"),
         "library": library,
+        **({"unfused_pair_ms": per_frame("unfused_ms")} if "unfused_ms" in main_rows[0] else {}),
         "timed_as": f"device time (CUDA graph replay, weights past L2) summed over one "
                     f"decoded frame's launches on the {path} path at S=1",
         "shapes": [{k: r[k] for k in ("shape", "S", "D", "F", "G", "Dout", "kernel_ms",
                                       "kernel_eager_ms", "plain_ms", "library_ms", "bound_ms",
-                                      "bound_with_workspace_ms", "cluster", "blocks", "max_abs_err",
+                                      "unfused_ms", "block_i", "threads", "prefetch_rows",
+                                      "smem", "cluster", "blocks", "max_abs_err",
                                       "replay_max_abs_err") if k in r}
                    for r in rows],
     }

@@ -1,4 +1,4 @@
-// Fused int8 SwiGLU MLP for Hopper (sm_90a).
+// Fused int8 SwiGLU MLP for Hopper (sm_90a): one launch per call.
 //
 // Replaces sesameai_tts_tpu/ops/quant.py::quant_mlp_pallas (body
 // _qmlp_kernel_factory): y (S, Dout) = silu(x@W1*s1) * (x@W3*s3) @ W2 * s2
@@ -9,290 +9,665 @@
 //   h  = bf16(bf16(silu(f32(bf16(a1)))) * bf16(a3));
 //   y  = bf16((sum over intermediate tiles of h_tile @ bf16(q2_tile)) * s2),
 // the tile sums in f32.  x is bf16; int8 -> f32 is exact and so is a
-// bf16 x bf16 product in f32, so the w13 half is the unfused kernel's up
-// to the order of its f32 sums, and the w2 contraction differs only in
-// the order of f32 sums.
+// bf16 x bf16 product in f32, so only the order of the f32 sums differs
+// from the unfused kernels (ops/quant.py::quant_mlp_cluster_plain states
+// the order of the tile sums).
 //
 // What bounds it: at decode sizes (S <= 64) the int8 weight bytes,
-// 2*D*F + F*Dout per launch, plus the f32 partials of the intermediate
-// tiles, which the design keeps small (below).
+// 2*D*F + F*Dout per call (50.3 MB for the backbone's MLP, 25.2 MB for the
+// decoder's); x, the scales and y are a few KB.  Below the bytes, the
+// chain of latencies after the last weight byte: the w2 product, the
+// cluster's and the grid's sums.
 //
 // What the design does about it:
-//  * one block per (S tile, intermediate tile of BI columns): it streams
-//    the w1 and w3 column tiles and the matching w2 row tile once, and the
-//    hidden h of its tile lives only in shared memory, so it never reaches
-//    device memory;
-//  * phase 1 (w13): 512 threads = (2*BI/8 column groups) x (row slices);
-//    each thread owns 8 neighbouring columns of w1 or w3 and reads them as
-//    one 8-byte load per row, 16 rows in flight at S <= 2 (8 above, where
-//    the accumulators take the registers), so the w1 and w3 tiles are read
-//    in 64- or 256-byte contiguous runs; the row slices' partial sums are
-//    added in shared memory in a fixed order.  One 512-thread block per SM
-//    keeps up to 64 KB of weight loads in flight;
-//  * phase 2 (w2): each thread owns 8 neighbouring output columns of a
-//    slice of the tile's BI rows of w2, again one 8-byte load per row;
-//  * each tile writes its (S, Dout) f32 partial to a workspace and a second
-//    kernel adds the tiles in a fixed order, applies s2 and casts.  No
-//    atomics: results are deterministic.  The workspace moves
-//    2 * 4 * S * Dout bytes per tile, so the wrapper widens BI (fewer
-//    tiles) when S is large;
-//  * the S tile's rows of x are staged once in shared memory, rounded to
-//    bf16; blockIdx.x walks the S tiles so that the S tiles of one
-//    intermediate tile run together and share its weights in L2.
-// wgmma, TMA and a pipelined ring are left for later work.
+//  * one launch per call: one block per intermediate tile of BI columns,
+//    grid F / BI in one wave (the launch checks
+//    cudaOccupancyMaxActiveClusters and refuses a grid whose clusters
+//    would not all be resident at once; ops/quant.py::_qmlp_geometry picks
+//    the tile, the cluster, the threads and the shared memory, which also
+//    keeps more blocks than the grid needs off an SM).  The block streams
+//    its w1 and w3 column tiles and its w2 row tile once; h never leaves
+//    the block;
+//  * the w2 tile (BI rows x Dout, contiguous in q2) does not depend on h,
+//    so thread 0 issues it into shared memory first, as bulk asynchronous
+//    copies completed on an mbarrier: it is in flight while w13 streams,
+//    and phase 2 reads it from shared memory with no DRAM round trip after
+//    h is ready.  Where S leaves too little shared memory, only the first
+//    `prefetch_rows` rows are copied and phase 2 reads the rest from
+//    global memory.  The scales are read at the start too;
+//  * phase 1 (w1, w3): tpr = 2*BI/16 threads cover a tile row, each 16
+//    neighbouring columns of w1 or w3 by one 16-byte ld.global.nc per row,
+//    the block's row groups walk D interleaved; every thread keeps U rows
+//    in flight and issues the next U before it uses the current ones, from
+//    its first instructions (x is read beside the weights and rounded in
+//    registers: no staging pass).  int8 -> f32 without an I2F: the byte,
+//    its sign bit flipped, is permuted (PRMT) into the mantissa of 2^23
+//    and one FADD removes 2^23 + 128, which is exact.  The row groups are
+//    summed by warp shuffles, then the warps in shared memory, both in a
+//    fixed order.  S above the S tile loops over S tiles in the block (the
+//    w1/w3 tile is read again, from L2 where it stayed);
+//  * phase 2 (w2): each thread owns 8 output columns of a slice of the
+//    tile's rows, reads them from shared memory 8 bytes a row, and the
+//    slices are added in shared memory in a fixed order;
+//  * the w2 partials: the blocks of a thread-block cluster (up to 16,
+//    non-portable above 8) reduce-scatter theirs through distributed
+//    shared memory (each block leaves its partial of every 4-column vector
+//    in the vector's owner block, one cluster barrier, the owner adds them
+//    in rank order) and each owner writes its columns of the cluster's
+//    partial to a small persistent buffer.  A grid barrier (one word whose
+//    top bit flips when every block has arrived, as in cooperative groups'
+//    grid sync: no reset, safe to replay) follows, and then every block
+//    adds the cluster partials of its share of the output in a fixed
+//    order, applies s2 and writes bf16 y.  No atomics on values: the result
+//    is bit-equal from call to call and in a CUDA-graph replay, and the
+//    launch allocates nothing (the wrapper owns the buffer and the barrier
+//    word, one pair per device and stream);
+//  * a wait on the mbarrier or the grid barrier that lasts 2 s traps, so a
+//    fault ends the launch with an error instead of hanging the card.
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <mutex>
+
+namespace cg = cooperative_groups;
+
 namespace {
 
-constexpr int THREADS = 512;
-constexpr int COLS_PER_THREAD = 8;
-constexpr int ROW_UNROLL = 8;  // rows per load batch; 2x at S_TILE <= 2
+constexpr int MAX_THREADS = 512;
+constexpr int VEC = 16;             // phase-1 columns per thread (one 16-byte load a row)
+constexpr int VEC2 = 8;             // phase-2 columns per thread (one 8-byte load a row)
+constexpr int MAX_CLUSTER = 16;     // blocks of a cluster (non-portable above 8)
+constexpr int MAX_S = 64;
+constexpr int SMEM_LIMIT = 232448;  // shared memory one block may use (227 KB)
+constexpr int HEADER = 16;          // the mbarrier (8 bytes), padded
+constexpr int COPY_CHUNK = 16384;   // bytes per bulk copy of the w2 tile
+constexpr unsigned FULL = 0xffffffffu;
+
+__host__ __device__ constexpr int align16(int n) { return (n + 15) / 16 * 16; }
+
+// Byte offsets of the dynamic shared memory; ops/quant.py::_qmlp_smem_bytes
+// mirrors `total`.
+struct Layout {
+  int w2s, hs, scratch, recv, total;
+};
+
+__host__ __device__ inline Layout layout(int S, int BI, int Dout, int threads, int cluster,
+                                         int prefetch_rows, int s_tile) {
+  const int tiles_s = (S + s_tile - 1) / s_tile;
+  const int cg2 = Dout / VEC2;
+  const int rg2 = min(max(1, threads / cg2), BI);
+  const int slice = (Dout / 4 + cluster - 1) / cluster * 4;  // columns per owner
+  const int p1 = threads / 32 * s_tile * 2 * BI * 4;          // phase-1 warp sums
+  const int p2 = rg2 * s_tile * Dout * 4;                     // phase-2 slice sums
+  Layout l;
+  l.w2s = HEADER;
+  l.hs = l.w2s + align16(prefetch_rows * Dout);
+  l.scratch = l.hs + tiles_s * s_tile * BI * 4;
+  l.recv = l.scratch + (p1 > p2 ? p1 : p2);
+  l.total = l.recv + cluster * s_tile * slice * 4;
+  return l;
+}
 
 __device__ __forceinline__ float bf16_round(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
 }
 
-__device__ __forceinline__ void decode8(uint2 w, float (&wf)[COLS_PER_THREAD]) {
-#pragma unroll
-  for (int c = 0; c < 4; ++c) {
-    wf[c] = static_cast<float>(static_cast<int8_t>((w.x >> (8 * c)) & 0xff));
-    wf[c + 4] = static_cast<float>(static_cast<int8_t>((w.y >> (8 * c)) & 0xff));
+// Byte I of `flipped` (an int8 with its sign bit flipped, i.e. b + 128)
+// as the float b: 0x4B0000uu is 2^23 + uu exactly.
+template <int I>
+__device__ __forceinline__ float int8_value(uint32_t flipped) {
+  return __int_as_float(__byte_perm(flipped, 0x4B000000u, 0x7540u | I)) - 8388736.f;
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(count)
+               : "memory");
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ uint64_t global_ns() {
+  uint64_t ns;
+  asm volatile("mov.u64 %0, %globaltimer;" : "=l"(ns));
+  return ns;
+}
+
+// A wait that has not ended after WATCHDOG_NS is a fault (a lost copy, a
+// block that never arrives): the kernel traps, and the launch's error
+// reaches the caller, instead of hanging the card
+constexpr uint64_t WATCHDOG_NS = 2000000000ull;
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = smem_addr(bar);
+  const uint64_t start = global_ns();
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+    if (!done && global_ns() - start > WATCHDOG_NS) __trap();
   }
+}
+
+// global -> shared, `bytes` (a multiple of 16, both ends 16-byte aligned),
+// completing on `bar`
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::
+          "r"(smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ unsigned ld_volatile(const unsigned* p) {
+  return *reinterpret_cast<const volatile unsigned*>(p);
+}
+
+// Every block of the grid waits here until all have arrived (they are all
+// resident: the launch is one wave).  One word, as cooperative groups'
+// grid barrier keeps it: each block adds 1, block 0 adds 2^31 - (blocks -
+// 1), so the word's top bit flips once all have arrived and the word
+// needs no reset.  Thread 0's fences make the block's global stores
+// before the barrier visible to every block after it.
+__device__ __forceinline__ void grid_barrier(unsigned* word) {
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    const unsigned add = blockIdx.x == 0 ? 0x80000000u - (gridDim.x - 1) : 1u;
+    __threadfence();
+    const unsigned before = atomicAdd(word, add);
+    const uint64_t start = global_ns();
+    while (((before ^ ld_volatile(word)) & 0x80000000u) == 0) {
+      if (global_ns() - start > WATCHDOG_NS) __trap();
+    }
+    __threadfence();
+  }
+  __syncthreads();
+}
+
+__device__ __forceinline__ void add4(float4& a, float4 b) {
+  a.x += b.x;
+  a.y += b.y;
+  a.z += b.z;
+  a.w += b.w;
+}
+
+// U rows of the thread's 16 columns (rows r0, r0 + step, ...; zero past D)
+// and the S tile's x at those rows, rounded to bf16 values
+template <int S_TILE, int U>
+__device__ __forceinline__ void fetch13(uint4 (&w)[U], float (&xv)[U][S_TILE],
+                                        const __nv_bfloat16* __restrict__ x,
+                                        const int8_t* __restrict__ q13, int r0, int step, int D,
+                                        size_t ld13, int col, int s0, int S) {
+#pragma unroll
+  for (int u = 0; u < U; ++u) {
+    const int r = r0 + u * step;
+    const bool ok = r < D;
+    w[u] = ok ? __ldg(reinterpret_cast<const uint4*>(q13 + static_cast<size_t>(r) * ld13 + col))
+              : make_uint4(0, 0, 0, 0);
+#pragma unroll
+    for (int s = 0; s < S_TILE; ++s) {
+      xv[u][s] = ok && s0 + s < S ? __bfloat162float(x[static_cast<size_t>(s0 + s) * D + r])
+                                  : 0.f;
+    }
+  }
+}
+
+// acc[s][0..7] += h[s][r] * w2[r][0..7] over rows [r_begin, r_end) of a
+// w2 tile whose rows are `ld` bytes apart, from shared (SHARED) or global
+// memory
+template <int S_TILE, bool SHARED>
+__device__ __forceinline__ void rows2(float (&acc)[S_TILE][VEC2], const int8_t* w, int ld,
+                                      const float* hs, int BI, int r_begin, int r_end) {
+  constexpr int U2 = 8;
+  int r = r_begin;
+  for (; r + U2 <= r_end; r += U2) {
+    uint2 wv[U2];
+#pragma unroll
+    for (int u = 0; u < U2; ++u) {
+      const uint2* p = reinterpret_cast<const uint2*>(w + static_cast<size_t>(r + u) * ld);
+      wv[u] = SHARED ? *p : __ldg(p);
+    }
+#pragma unroll
+    for (int u = 0; u < U2; ++u) {
+      const uint32_t lo = wv[u].x ^ 0x80808080u, hi = wv[u].y ^ 0x80808080u;
+      const float wf[VEC2] = {int8_value<0>(lo), int8_value<1>(lo), int8_value<2>(lo),
+                              int8_value<3>(lo), int8_value<0>(hi), int8_value<1>(hi),
+                              int8_value<2>(hi), int8_value<3>(hi)};
+#pragma unroll
+      for (int s = 0; s < S_TILE; ++s) {
+        const float hv = hs[s * BI + r + u];
+#pragma unroll
+        for (int e = 0; e < VEC2; ++e) acc[s][e] = fmaf(hv, wf[e], acc[s][e]);
+      }
+    }
+  }
+  for (; r < r_end; ++r) {
+    const uint2* p = reinterpret_cast<const uint2*>(w + static_cast<size_t>(r) * ld);
+    const uint2 wv = SHARED ? *p : __ldg(p);
+    const uint32_t lo = wv.x ^ 0x80808080u, hi = wv.y ^ 0x80808080u;
+    const float wf[VEC2] = {int8_value<0>(lo), int8_value<1>(lo), int8_value<2>(lo),
+                            int8_value<3>(lo), int8_value<0>(hi), int8_value<1>(hi),
+                            int8_value<2>(hi), int8_value<3>(hi)};
+#pragma unroll
+    for (int s = 0; s < S_TILE; ++s) {
+      const float hv = hs[s * BI + r];
+#pragma unroll
+      for (int e = 0; e < VEC2; ++e) acc[s][e] = fmaf(hv, wf[e], acc[s][e]);
+    }
+  }
+}
+
+// Block `tile` of a grid of F / BI blocks in clusters along x, all
+// resident at once.  `part` holds two halves of (F / BI / cluster,
+// S_TILE, Dout) f32 cluster partials (S tiles alternate between them);
+// `barrier` is the grid barrier's word.
+template <int S_TILE>
+__global__ void __launch_bounds__(MAX_THREADS)
+qmlp_cluster(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ q13,
+             const float* __restrict__ s13, const int8_t* __restrict__ q2,
+             const float* __restrict__ s2, __nv_bfloat16* __restrict__ y,
+             float* __restrict__ part, unsigned* __restrict__ barrier, int S, int D, int F, int Dout,
+             int BI, int prefetch_rows) {
+  constexpr int U = S_TILE == 1 ? 8 : S_TILE == 2 ? 4 : 2;  // rows in flight per thread (x2)
+  extern __shared__ __align__(16) unsigned char smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int csize = static_cast<int>(cluster.num_blocks());
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int threads = blockDim.x;
+  const int t = threadIdx.x;
+  const int lane = t % 32;
+  const int warp = t / 32;
+  const int warps = threads / 32;
+  const int tile = blockIdx.x;
+  const Layout L = layout(S, BI, Dout, threads, csize, prefetch_rows, S_TILE);
+  uint64_t* bar = reinterpret_cast<uint64_t*>(smem);
+  int8_t* w2s = reinterpret_cast<int8_t*>(smem + L.w2s);
+  float* hs = reinterpret_cast<float*>(smem + L.hs);          // [S tiles * S_TILE][BI]
+  float* scratch = reinterpret_cast<float*>(smem + L.scratch);
+  float* recv = reinterpret_cast<float*>(smem + L.recv);      // [cluster][S_TILE][slice]
+  const int8_t* q2t = q2 + static_cast<size_t>(tile) * BI * Dout;
+
+  // the w2 tile's first prefetch_rows rows, in flight from here on
+  if (t == 0) {
+    mbar_init(bar, 1);
+    const int bytes = prefetch_rows * Dout;
+    mbar_expect_tx(bar, static_cast<uint32_t>(bytes));
+    for (int off = 0; off < bytes; off += COPY_CHUNK) {
+      bulk_copy(w2s + off, q2t + off, static_cast<uint32_t>(min(COPY_CHUNK, bytes - off)), bar);
+    }
+  }
+  if (csize > 1) cluster_arrive_relaxed();  // waited for before the first remote store
+  // the scales this thread applies, read now so that no DRAM round trip
+  // follows the weights: s13 of its h column (threads % BI == 0, so every
+  // (s, j) item of the thread has j = t % BI) and s2 of its first output
+  // vector (the first S tile's first pass of the grid's sum)
+  const float sc1 = __ldg(s13 + tile * BI + t % BI);
+  const float sc3 = __ldg(s13 + F + tile * BI + t % BI);
+  const int n4 = Dout / 4;
+  const int clusters = gridDim.x / csize;
+  int tpv = 1;  // lanes per output vector in the grid's sum
+  while (tpv < clusters && tpv < 32) tpv *= 2;
+  float4 sc2_first = make_float4(0.f, 0.f, 0.f, 0.f);
+  {
+    const int total4 = min(S_TILE, S) * n4;
+    const int per = (total4 + gridDim.x - 1) / gridDim.x;
+    const int v = tile * per + t / tpv;
+    if (t / tpv < per && v < total4) {
+      sc2_first = __ldg(reinterpret_cast<const float4*>(s2) + v % n4);
+    }
+  }
+
+  // ---- phase 1: the w1 and w3 column tiles, one S tile at a time ----------
+  const int tpr = 2 * BI / VEC;  // threads per tile row (divides 32)
+  const int step = threads / tpr;
+  const int c = t % tpr;
+  const int half = tpr / 2;
+  const int col = c < half ? tile * BI + c * VEC : F + tile * BI + (c - half) * VEC;
+  const size_t ld13 = static_cast<size_t>(2) * F;
+  for (int s0 = 0; s0 < S; s0 += S_TILE) {
+    float acc[S_TILE][VEC];
+#pragma unroll
+    for (int s = 0; s < S_TILE; ++s) {
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) acc[s][e] = 0.f;
+    }
+    uint4 wa[U];
+    float xa[U][S_TILE];
+    int r0 = t / tpr;
+    fetch13<S_TILE, U>(wa, xa, x, q13, r0, step, D, ld13, col, s0, S);
+    for (; r0 < D; r0 += U * step) {
+      uint4 wb[U];
+      float xb[U][S_TILE];
+      fetch13<S_TILE, U>(wb, xb, x, q13, r0 + U * step, step, D, ld13, col, s0, S);
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const uint32_t* words = reinterpret_cast<const uint32_t*>(&wa[u]);
+#pragma unroll
+        for (int k = 0; k < VEC / 4; ++k) {
+          const uint32_t fl = words[k] ^ 0x80808080u;
+          const float wf[4] = {int8_value<0>(fl), int8_value<1>(fl), int8_value<2>(fl),
+                               int8_value<3>(fl)};
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+#pragma unroll
+            for (int s = 0; s < S_TILE; ++s) {
+              acc[s][4 * k + i] = fmaf(xa[u][s], wf[i], acc[s][4 * k + i]);
+            }
+          }
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        wa[u] = wb[u];
+#pragma unroll
+        for (int s = 0; s < S_TILE; ++s) xa[u][s] = xb[u][s];
+      }
+    }
+    // the warp's row groups (lanes tpr apart) by a butterfly, then the
+    // block's warps in shared memory, in warp order
+    for (int o = 16; o >= tpr; o >>= 1) {
+#pragma unroll
+      for (int s = 0; s < S_TILE; ++s) {
+#pragma unroll
+        for (int e = 0; e < VEC; ++e) acc[s][e] += __shfl_xor_sync(FULL, acc[s][e], o);
+      }
+    }
+    if (lane < tpr) {  // w1 columns [0, BI), w3 columns [BI, 2 BI) of the tile
+#pragma unroll
+      for (int s = 0; s < S_TILE; ++s) {
+#pragma unroll
+        for (int e = 0; e < VEC; e += 4) {
+          *reinterpret_cast<float4*>(&scratch[(warp * S_TILE + s) * 2 * BI + lane * VEC + e]) =
+              make_float4(acc[s][e], acc[s][e + 1], acc[s][e + 2], acc[s][e + 3]);
+        }
+      }
+    }
+    __syncthreads();
+    for (int i = t; i < S_TILE * BI; i += threads) {
+      const int s = i / BI;
+      const int j = i - s * BI;
+      float a1 = 0.f, a3 = 0.f;
+      for (int w = 0; w < warps; ++w) {
+        a1 += scratch[(w * S_TILE + s) * 2 * BI + j];
+        a3 += scratch[(w * S_TILE + s) * 2 * BI + BI + j];
+      }
+      a1 *= sc1;
+      a3 *= sc3;
+      const float g = bf16_round(a1);
+      const float act = bf16_round(g / (1.f + expf(-g)));
+      hs[(s0 + s) * BI + j] = s0 + s < S ? bf16_round(act * bf16_round(a3)) : 0.f;
+    }
+    __syncthreads();  // h of the S tile is complete; scratch is free again
+  }
+
+  // ---- phase 2: the w2 tile, then the cluster's and the grid's sums ------
+  mbar_wait(bar, 0);
+  const int cg2 = Dout / VEC2;
+  const int rg2 = min(max(1, threads / cg2), BI);
+  const int per2 = (BI + rg2 - 1) / rg2;  // rows per slice
+  const int items = rg2 * cg2;
+  const int slice = (Dout / 4 + csize - 1) / csize * 4;  // columns per owner
+  const int own_begin = rank * slice;
+  const int own = max(0, min(slice, Dout - own_begin));
+  const int cluster_id = tile / csize;
+  const size_t plane = static_cast<size_t>(S_TILE) * Dout;  // one cluster's partial
+  for (int s0 = 0; s0 < S; s0 += S_TILE) {
+    const float* h = hs + s0 * BI;
+    for (int item = t; item < items; item += threads) {
+      const int c2 = item % cg2;
+      const int g = item / cg2;
+      const int rb = g * per2;
+      const int re = min(BI, rb + per2);
+      float acc2[S_TILE][VEC2];
+#pragma unroll
+      for (int s = 0; s < S_TILE; ++s) {
+#pragma unroll
+        for (int e = 0; e < VEC2; ++e) acc2[s][e] = 0.f;
+      }
+      const int split = max(rb, min(re, prefetch_rows));  // rows below it are in shared memory
+      rows2<S_TILE, true>(acc2, w2s + c2 * VEC2, Dout, h, BI, rb, split);
+      rows2<S_TILE, false>(acc2, q2t + c2 * VEC2, Dout, h, BI, split, re);
+#pragma unroll
+      for (int s = 0; s < S_TILE; ++s) {
+        float* out = &scratch[(g * S_TILE + s) * Dout + c2 * VEC2];
+        *reinterpret_cast<float4*>(out) =
+            make_float4(acc2[s][0], acc2[s][1], acc2[s][2], acc2[s][3]);
+        *reinterpret_cast<float4*>(out + 4) =
+            make_float4(acc2[s][4], acc2[s][5], acc2[s][6], acc2[s][7]);
+      }
+    }
+    __syncthreads();
+    // every block of the cluster has started (a later S tile: every owner
+    // has read its slots before the grid barrier), so recv may be written
+    if (csize > 1 && s0 == 0) cluster_wait();
+    // the block's partial of each 4-column vector: its slices in order, into
+    // the owner's recv at slot `rank`
+    for (int v = t; v < S_TILE * n4; v += threads) {
+      const int s = v / n4;
+      const int col4 = (v - s * n4) * 4;
+      float4 sum = *reinterpret_cast<const float4*>(&scratch[s * Dout + col4]);
+      for (int g = 1; g < rg2; ++g) {
+        add4(sum, *reinterpret_cast<const float4*>(&scratch[(g * S_TILE + s) * Dout + col4]));
+      }
+      const int owner = col4 / slice;
+      float4* slot = reinterpret_cast<float4*>(
+          &recv[(rank * S_TILE + s) * slice + col4 - owner * slice]);
+      *(csize == 1 ? slot : cluster.map_shared_rank(slot, owner)) = sum;
+    }
+    if (csize > 1) {
+      cluster_sync();
+    } else {
+      __syncthreads();
+    }
+    // the owner's columns of the cluster's partial, ranks in order, to the
+    // S tile's half of `part` (two halves: a block may still read the
+    // previous S tile's while another writes this one)
+    float* half_part = part + static_cast<size_t>((s0 / S_TILE) % 2) * clusters * plane;
+    for (int v = t; v < S_TILE * (own / 4); v += threads) {
+      const int s = v / (own / 4);
+      const int j = (v - s * (own / 4)) * 4;
+      float4 sum = *reinterpret_cast<const float4*>(&recv[s * slice + j]);
+      for (int k = 1; k < csize; ++k) {
+        add4(sum, *reinterpret_cast<const float4*>(&recv[(k * S_TILE + s) * slice + j]));
+      }
+      __stcg(reinterpret_cast<float4*>(
+                 &half_part[static_cast<size_t>(cluster_id) * plane + s * Dout + own_begin + j]),
+             sum);
+    }
+    grid_barrier(barrier);
+    // the S tile's output: each block adds the cluster partials of its
+    // share of the 4-column vectors.  tpv consecutive lanes (a power of two
+    // up to 32) share a vector: lane l adds partials l, l + tpv, ... in
+    // order, then a shuffle tree (offsets tpv/2, ..., 1) gives lane 0 the sum
+    const int total4 = min(S_TILE, S - s0) * n4;
+    const int per = (total4 + gridDim.x - 1) / gridDim.x;
+    const int v0 = tile * per;
+    for (int base = 0; base < per; base += threads / tpv) {  // uniform over the block
+      const int vb = base + t / tpv;
+      const int v = v0 + vb;
+      const bool ok = vb < per && v < total4;
+      float4 sum = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (ok) {  // eight loads in flight, then their sums in order
+        for (int k0 = t % tpv; k0 < clusters; k0 += 8 * tpv) {
+          float4 p[8];
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            const int k = k0 + j * tpv;
+            p[j] = k < clusters ? __ldcg(reinterpret_cast<const float4*>(half_part + k * plane) + v)
+                                : make_float4(0.f, 0.f, 0.f, 0.f);
+          }
+#pragma unroll
+          for (int j = 0; j < 8; ++j) add4(sum, p[j]);
+        }
+      }
+      for (int o = tpv / 2; o >= 1; o >>= 1) {
+        sum.x += __shfl_down_sync(FULL, sum.x, o, tpv);
+        sum.y += __shfl_down_sync(FULL, sum.y, o, tpv);
+        sum.z += __shfl_down_sync(FULL, sum.z, o, tpv);
+        sum.w += __shfl_down_sync(FULL, sum.w, o, tpv);
+      }
+      if (ok && t % tpv == 0) {
+        const float4 sc = s0 == 0 && base == 0
+                              ? sc2_first
+                              : __ldg(reinterpret_cast<const float4*>(s2) + v % n4);
+        __nv_bfloat162 lo = __floats2bfloat162_rn(sum.x * sc.x, sum.y * sc.y);
+        __nv_bfloat162 hi = __floats2bfloat162_rn(sum.z * sc.z, sum.w * sc.w);
+        uint2 packed;
+        packed.x = *reinterpret_cast<uint32_t*>(&lo);
+        packed.y = *reinterpret_cast<uint32_t*>(&hi);
+        *reinterpret_cast<uint2*>(y + static_cast<size_t>(s0) * Dout + 4 * v) = packed;
+      }
+    }
+  }
+}
+
+// The most clusters of `cluster` blocks of `threads` threads and `smem`
+// bytes the card holds at once, asked once per instantiation and footprint
+template <int S_TILE>
+cudaError_t max_clusters(int cluster, int threads, int smem, int* out) {
+  struct Entry {
+    int cluster, threads, smem, clusters;
+  };
+  static Entry cache[64];
+  static int cached = 0;
+  static std::mutex lock;
+  std::lock_guard<std::mutex> guard(lock);
+  for (int i = 0; i < cached; ++i) {
+    if (cache[i].cluster == cluster && cache[i].threads == threads && cache[i].smem == smem) {
+      *out = cache[i].clusters;
+      return cudaSuccess;
+    }
+  }
+  cudaLaunchConfig_t config = {};
+  config.gridDim = dim3(cluster);
+  config.blockDim = dim3(threads);
+  config.dynamicSmemBytes = smem;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  config.attrs = attr;
+  config.numAttrs = 1;
+  const cudaError_t err = cudaOccupancyMaxActiveClusters(out, qmlp_cluster<S_TILE>, &config);
+  if (err != cudaSuccess) return err;
+  if (cached < 64) cache[cached++] = {cluster, threads, smem, *out};
+  return cudaSuccess;
 }
 
 template <int S_TILE>
-__device__ __forceinline__ void fma8(float (&acc)[S_TILE][COLS_PER_THREAD], uint2 w,
-                                     const float* v, int stride) {
-  float wf[COLS_PER_THREAD];
-  decode8(w, wf);
-#pragma unroll
-  for (int s = 0; s < S_TILE; ++s) {
-    const float xv = v[s * stride];
-#pragma unroll
-    for (int c = 0; c < COLS_PER_THREAD; ++c) acc[s][c] = fmaf(xv, wf[c], acc[s][c]);
-  }
-}
-
-// Shared memory: region A (max(S_TILE*D, THREADS*8*S_TILE) floats) holds the
-// staged x during phase 1 and the row slices' partial sums afterwards;
-// region H (S_TILE*BI floats) holds h.
-template <int S_TILE, int BI>
-__global__ void __launch_bounds__(THREADS)
-qmlp_partial(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ q13,
-             const float* __restrict__ s13, const int8_t* __restrict__ q2,
-             float* __restrict__ ws, int S, int D, int F, int Dout) {
-  extern __shared__ float smem[];
-  constexpr int CG1 = 2 * BI / COLS_PER_THREAD;  // phase-1 column groups
-  constexpr int RS1 = THREADS / CG1;             // phase-1 row slices
-  constexpr int UNROLL1 = S_TILE <= 2 ? 2 * ROW_UNROLL : ROW_UNROLL;
-  static_assert(THREADS % CG1 == 0, "BI must give whole row slices");
-  const int region_a = max(S_TILE * D, THREADS * COLS_PER_THREAD * S_TILE);
-  float* xs = smem;              // [S_TILE][D]
-  float* red = smem;             // [slices][S_TILE][cols]
-  float* hs = smem + region_a;   // [S_TILE][BI]
-  const int s0 = blockIdx.x * S_TILE;
-  const int tile = blockIdx.y;
-  const int t = threadIdx.x;
-
-  for (int i = t; i < S_TILE * D; i += THREADS) {
-    const int s = i / D;
-    xs[i] = s0 + s < S ? __bfloat162float(x[static_cast<size_t>(s0) * D + i]) : 0.f;
-  }
-  __syncthreads();
-
-  // ---- phase 1: the w1 and w3 column tiles -------------------------------
-  const int cg = t % CG1;
-  const int rs = t / CG1;
-  const int half = CG1 / 2;
-  const int col1 = cg < half ? tile * BI + cg * COLS_PER_THREAD
-                             : F + tile * BI + (cg - half) * COLS_PER_THREAD;
-  const size_t ld13 = static_cast<size_t>(2) * F;
-  float acc[S_TILE][COLS_PER_THREAD];
-#pragma unroll
-  for (int s = 0; s < S_TILE; ++s) {
-#pragma unroll
-    for (int c = 0; c < COLS_PER_THREAD; ++c) acc[s][c] = 0.f;
-  }
-  // rows in batches of UNROLL1 (D % 16 == 0), slices interleaved by batch
-  for (int r0 = rs * UNROLL1; r0 < D; r0 += RS1 * UNROLL1) {
-    uint2 w[UNROLL1];
-#pragma unroll
-    for (int u = 0; u < UNROLL1; ++u) {
-      w[u] = __ldg(reinterpret_cast<const uint2*>(q13 + (r0 + u) * ld13 + col1));
-    }
-#pragma unroll
-    for (int u = 0; u < UNROLL1; ++u) fma8<S_TILE>(acc, w[u], xs + r0 + u, D);
-  }
-  __syncthreads();  // every thread is done reading xs: region A becomes red
-  {
-    const int lcol = cg * COLS_PER_THREAD;  // w1 cols [0, BI), w3 [BI, 2BI)
-#pragma unroll
-    for (int s = 0; s < S_TILE; ++s) {
-#pragma unroll
-      for (int c = 0; c < COLS_PER_THREAD; ++c) {
-        red[(rs * S_TILE + s) * (2 * BI) + lcol + c] = acc[s][c];
-      }
-    }
-  }
-  __syncthreads();
-  for (int i = t; i < S_TILE * BI; i += THREADS) {
-    const int s = i / BI;
-    const int j = i - s * BI;
-    float a1 = 0.f, a3 = 0.f;
-    for (int k = 0; k < RS1; ++k) {
-      a1 += red[(k * S_TILE + s) * (2 * BI) + j];
-      a3 += red[(k * S_TILE + s) * (2 * BI) + BI + j];
-    }
-    a1 *= s13[tile * BI + j];
-    a3 *= s13[F + tile * BI + j];
-    const float g = bf16_round(a1);
-    const float act = bf16_round(g / (1.f + expf(-g)));
-    hs[i] = bf16_round(act * bf16_round(a3));
-  }
-  __syncthreads();  // h is complete and region A is free again
-
-  // ---- phase 2: the tile's BI rows of w2 ---------------------------------
-  const int cg2 = Dout / COLS_PER_THREAD;
-  const int rs2 = max(1, THREADS / cg2);
-  const int rows2 = (BI + rs2 - 1) / rs2;
-  const int8_t* q2t = q2 + static_cast<size_t>(tile) * BI * Dout;
-  for (int item = t; item < (rs2 == 1 ? cg2 : rs2 * cg2);
-       item += (rs2 == 1 ? THREADS : rs2 * cg2)) {
-    const int c2 = item % cg2;
-    const int slice = item / cg2;
-    const int r_begin = slice * rows2;
-    const int r_end = min(BI, r_begin + rows2);
-    float acc2[S_TILE][COLS_PER_THREAD];
-#pragma unroll
-    for (int s = 0; s < S_TILE; ++s) {
-#pragma unroll
-      for (int c = 0; c < COLS_PER_THREAD; ++c) acc2[s][c] = 0.f;
-    }
-    const int8_t* qp = q2t + c2 * COLS_PER_THREAD;
-    int r = r_begin;
-    for (; r + ROW_UNROLL <= r_end; r += ROW_UNROLL) {
-      uint2 w[ROW_UNROLL];
-#pragma unroll
-      for (int u = 0; u < ROW_UNROLL; ++u) {
-        w[u] = __ldg(reinterpret_cast<const uint2*>(
-            qp + static_cast<size_t>(r + u) * Dout));
-      }
-#pragma unroll
-      for (int u = 0; u < ROW_UNROLL; ++u) fma8<S_TILE>(acc2, w[u], hs + r + u, BI);
-    }
-    for (; r < r_end; ++r) {
-      const uint2 w = __ldg(
-          reinterpret_cast<const uint2*>(qp + static_cast<size_t>(r) * Dout));
-      fma8<S_TILE>(acc2, w, hs + r, BI);
-    }
-    if (rs2 == 1) {  // the thread holds whole sums: straight to the workspace
-#pragma unroll
-      for (int s = 0; s < S_TILE; ++s) {
-        if (s0 + s < S) {
-          float4* out = reinterpret_cast<float4*>(
-              ws + (static_cast<size_t>(tile) * S + s0 + s) * Dout + c2 * COLS_PER_THREAD);
-          out[0] = make_float4(acc2[s][0], acc2[s][1], acc2[s][2], acc2[s][3]);
-          out[1] = make_float4(acc2[s][4], acc2[s][5], acc2[s][6], acc2[s][7]);
-        }
-      }
-    } else {
-#pragma unroll
-      for (int s = 0; s < S_TILE; ++s) {
-#pragma unroll
-        for (int c = 0; c < COLS_PER_THREAD; ++c) {
-          red[(slice * S_TILE + s) * Dout + c2 * COLS_PER_THREAD + c] = acc2[s][c];
-        }
-      }
-    }
-  }
-  if (rs2 == 1) return;
-  __syncthreads();
-  for (int i = t; i < S_TILE * Dout; i += THREADS) {
-    const int s = i / Dout;
-    if (s0 + s >= S) continue;
-    float sum = 0.f;
-    for (int k = 0; k < rs2; ++k) sum += red[k * S_TILE * Dout + i];
-    ws[(static_cast<size_t>(tile) * S + s0) * Dout + i] = sum;
-  }
-}
-
-// y[s, o] = bf16((sum over tiles, in order, of ws[tile, s, o]) * s2[o]).
-__global__ void qmlp_reduce(const float* __restrict__ ws, const float* __restrict__ s2,
-                            __nv_bfloat16* __restrict__ y, int S, int Dout, int tiles) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= S * Dout) return;
-  const size_t plane = static_cast<size_t>(S) * Dout;
-  float sum = 0.f;
-  for (int k = 0; k < tiles; ++k) sum += ws[k * plane + i];
-  y[i] = __float2bfloat16_rn(sum * s2[i % Dout]);
-}
-
-template <int S_TILE, int BI>
 cudaError_t launch(const void* x, const void* q13, const void* s13, const void* q2,
-                   const void* s2, void* y, void* ws, int S, int D, int F, int Dout,
+                   const void* s2, void* y, void* part, void* barrier, int S, int D, int F,
+                   int Dout, int BI, int cluster, int threads, int prefetch_rows, int smem,
                    cudaStream_t stream) {
-  const size_t region_a = max(S_TILE * D, THREADS * COLS_PER_THREAD * S_TILE);
-  const size_t smem = (region_a + S_TILE * BI) * sizeof(float);
-  if (smem > 232448) return cudaErrorInvalidValue;  // 227 KB per block
-  auto kernel = qmlp_partial<S_TILE, BI>;
-  // above 48 KB a block's dynamic shared memory must be allowed first; set
-  // once per instantiation (on the first call, before any graph capture)
+  auto kernel = qmlp_cluster<S_TILE>;
+  // smem may exceed the layout's total, so that no more blocks share an SM
+  // than the grid needs (clusters are then spread over the SMs)
+  const Layout L = layout(S, BI, Dout, threads, cluster, prefetch_rows, S_TILE);
+  if (L.total > smem || smem > SMEM_LIMIT) return cudaErrorInvalidValue;
+  // the shared-memory and cluster-size opt-ins, once per instantiation (on
+  // its first call, before any graph capture)
   static bool opted_in = false;
-  if (smem > 48 * 1024 && !opted_in) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, 232448);
+  if (!opted_in) {
+    cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_LIMIT);
+    if (err == cudaSuccess) {
+      err = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    }
     if (err != cudaSuccess) return err;
     opted_in = true;
   }
+  // one wave: every cluster of the grid resident at once
   const int tiles = F / BI;
-  const dim3 grid((S + S_TILE - 1) / S_TILE, tiles);
-  kernel<<<grid, THREADS, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(x), static_cast<const int8_t*>(q13),
+  int fit = 0;
+  const cudaError_t occ = max_clusters<S_TILE>(cluster, threads, smem, &fit);
+  if (occ != cudaSuccess) return occ;
+  if (tiles / cluster > fit) return cudaErrorCooperativeLaunchTooLarge;
+  cudaLaunchConfig_t config = {};
+  config.gridDim = dim3(tiles);
+  config.blockDim = dim3(threads);
+  config.dynamicSmemBytes = smem;
+  config.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  config.attrs = attr;
+  config.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(
+      &config, kernel, static_cast<const __nv_bfloat16*>(x), static_cast<const int8_t*>(q13),
       static_cast<const float*>(s13), static_cast<const int8_t*>(q2),
-      static_cast<float*>(ws), S, D, F, Dout);
-  const int n = S * Dout;
-  qmlp_reduce<<<(n + 255) / 256, 256, 0, stream>>>(
-      static_cast<const float*>(ws), static_cast<const float*>(s2),
-      static_cast<__nv_bfloat16*>(y), S, Dout, tiles);
-  return cudaGetLastError();
-}
-
-template <int BI>
-cudaError_t dispatch(const void* x, const void* q13, const void* s13, const void* q2,
-                     const void* s2, void* y, void* ws, int S, int D, int F, int Dout,
-                     int s_tile, cudaStream_t st) {
-  switch (s_tile) {
-    case 1: return launch<1, BI>(x, q13, s13, q2, s2, y, ws, S, D, F, Dout, st);
-    case 2: return launch<2, BI>(x, q13, s13, q2, s2, y, ws, S, D, F, Dout, st);
-    case 4: return launch<4, BI>(x, q13, s13, q2, s2, y, ws, S, D, F, Dout, st);
-    case 8: return launch<8, BI>(x, q13, s13, q2, s2, y, ws, S, D, F, Dout, st);
-    default: return cudaErrorInvalidValue;
-  }
+      static_cast<const float*>(s2), static_cast<__nv_bfloat16*>(y), static_cast<float*>(part),
+      static_cast<unsigned*>(barrier), S, D, F, Dout, BI, prefetch_rows);
+  const cudaError_t last = cudaGetLastError();  // read and clear
+  return err != cudaSuccess ? err : last;
 }
 
 }  // namespace
 
 // x (S, D) bf16, q13 (D, 2F) int8, s13 (2F,) f32, q2 (F, Dout) int8, s2
-// (Dout,) f32, y (S, Dout) bf16, ws (F / block_i, S, Dout) f32 scratch.  All
-// contiguous; D % 16 == 0, F % block_i == 0, Dout % 8 == 0; block_i is 64
-// or 256.  Launches on `stream` and returns the launch's CUDA error (0 on
-// success).
-extern "C" int quant_mlp(const void* x, const void* q13, const void* s13,
-                         const void* q2, const void* s2, void* y, void* ws, int S,
-                         int D, int F, int Dout, int block_i, int s_tile,
-                         void* stream) {
-  if (S <= 0 || D <= 0 || F <= 0 || Dout <= 0 || D % (2 * ROW_UNROLL) != 0 ||
-      Dout % COLS_PER_THREAD != 0 || block_i <= 0 || F % block_i != 0 ||
-      F / block_i > 65535) {
+// (Dout,) f32, y (S, Dout) bf16, all contiguous, q13, q2 and s2 16-byte
+// aligned; part (F / block_i / cluster, s_tile, Dout) f32, twice that when
+// S has more than one S tile, and barrier (one 32-bit word) persist
+// between calls and are not shared with a call that may run at the same
+// time.  1 <= S <= 64, D % 16 == 0, Dout % 8 == 0; block_i in {16, 32, 64,
+// 128, 256} divides F; cluster in 1..16 divides F / block_i; threads a
+// multiple of 32 and of block_i, up to 512; prefetch_rows even and <=
+// block_i; smem (bytes of dynamic shared memory) at least the layout's and
+// at most 227 KB; s_tile in {1, 2, 4}.  Launches on `stream` and returns
+// the launch's CUDA error (0 on success; cudaErrorCooperativeLaunchTooLarge
+// when the grid's clusters would not all be resident at once).
+extern "C" int quant_mlp(const void* x, const void* q13, const void* s13, const void* q2,
+                         const void* s2, void* y, void* part, void* barrier, int S, int D,
+                         int F, int Dout, int block_i, int cluster, int threads,
+                         int prefetch_rows, int smem, int s_tile, void* stream) {
+  const bool bi_ok = block_i == 16 || block_i == 32 || block_i == 64 || block_i == 128 ||
+                     block_i == 256;
+  if (S <= 0 || S > MAX_S || D <= 0 || D % 16 != 0 || F <= 0 || Dout <= 0 || Dout % 8 != 0 ||
+      !bi_ok || F % block_i != 0 || cluster < 1 || cluster > MAX_CLUSTER ||
+      (F / block_i) % cluster != 0 || threads < 32 || threads > MAX_THREADS ||
+      threads % 32 != 0 || threads % block_i != 0 || prefetch_rows < 0 || prefetch_rows > block_i ||
+      prefetch_rows % 2 != 0) {
     return cudaErrorInvalidValue;
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (block_i) {
-    case 64: return dispatch<64>(x, q13, s13, q2, s2, y, ws, S, D, F, Dout, s_tile, st);
-    case 256: return dispatch<256>(x, q13, s13, q2, s2, y, ws, S, D, F, Dout, s_tile, st);
+  switch (s_tile) {
+    case 1: return launch<1>(x, q13, s13, q2, s2, y, part, barrier, S, D, F, Dout, block_i,
+                             cluster, threads, prefetch_rows, smem, st);
+    case 2: return launch<2>(x, q13, s13, q2, s2, y, part, barrier, S, D, F, Dout, block_i,
+                             cluster, threads, prefetch_rows, smem, st);
+    case 4: return launch<4>(x, q13, s13, q2, s2, y, part, barrier, S, D, F, Dout, block_i,
+                             cluster, threads, prefetch_rows, smem, st);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -29,7 +29,7 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     "quant_matmul": [_P] * 4 + [_I] * 9 + [_P],
     "quant4_matmul": [_P] * 4 + [_I] * 9 + [_P],
-    "quant_mlp": [_P] * 7 + [_I] * 6 + [_P],
+    "quant_mlp": [_P] * 8 + [_I] * 10 + [_P],
     "flash_attention": [_P] * 6 + [_I] * 15 + [_P],
 }
 KERNELS = tuple(_SIGNATURES)

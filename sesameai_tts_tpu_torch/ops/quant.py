@@ -47,8 +47,21 @@ _Q4MM_TPR = 2
 _Q4MM_VEC = {1: 16, 2: 16, 4: 8, 8: 4}
 _Q4MM_BYTES_PER_BLOCK = 4096
 _Q4MM_BLOCKS_PER_SM = (1, 2)
-_MLP_THREADS = 512  # THREADS of quant_mlp.cu
-_MLP_MAX_SMEM = 232448  # shared memory one block may use (227 KB)
+# quant_mlp.cu: intermediate tile widths, widest first; the cluster sizes,
+# largest first; the clusters of each size one H100 holds at once with 1
+# or 2 blocks per SM (csrc/probes/cluster_occupancy.cu, H100 80GB HBM3: a
+# cluster lives in one GPC, and the GPCs hold unequal numbers of SMs), for
+# 132 SMs; the shared memory one block may use and one SM holds (less 1 KB
+# the card reserves per resident block); the most threads a block has
+_QMLP_TILES = (256, 128, 64, 32)
+_QMLP_CLUSTERS = (16, 8, 4, 2, 1)
+_QMLP_CLUSTER_SLOTS = {1: {16: 7, 8: 15, 4: 30, 2: 66, 1: 132},
+                       2: {16: 14, 8: 30, 4: 62, 2: 132, 1: 264}}
+_QMLP_SLOT_SMS = 132
+_QMLP_MAX_SMEM = 232448  # 227 KB
+_QMLP_SM_SMEM = 233472  # 228 KB
+_QMLP_BLOCK_RESERVED = 1024
+_QMLP_MAX_THREADS = 512
 
 
 def quantize_weight(w: torch.Tensor) -> dict:
@@ -334,35 +347,150 @@ quant4_matmul.launches = 0
 # ---------------------------------------------------------------------------
 
 
-def _mlp_block_i(S: int) -> int:
-    """Intermediate-tile width.  Each tile writes and the second pass reads
-    an (S, Dout) f32 partial, so a wide S takes wider tiles (fewer
-    partials); a narrow S takes 64 so that F = 8192 still gives 128 blocks."""
-    return 64 if S <= 8 else 256
+def _qmlp_s_tile(S: int) -> int:
+    return 1 if S == 1 else 2 if S == 2 else 4
 
 
-def _mlp_smem_bytes(S: int, D: int, block_i: int) -> int:
-    s_tile = _s_tile(S)
-    return 4 * (max(s_tile * D, _MLP_THREADS * 8 * s_tile) + s_tile * block_i)
+def _qmlp_smem_bytes(S: int, block_i: int, Dout: int, threads: int, cluster: int,
+                     prefetch_rows: int) -> int:
+    """quant_mlp.cu's ``layout(...).total``: the mbarrier, the prefetched w2
+    rows, h of every S tile, the larger of the phase-1 warp sums and the
+    phase-2 slice sums, and the cluster's receive slots."""
+    s_tile = _qmlp_s_tile(S)
+    rg2 = min(max(1, threads // (Dout // 8)), block_i)
+    slice_ = -(-(Dout // 4) // cluster) * 4
+    return (16 + -(-prefetch_rows * Dout // 16) * 16 + -(-S // s_tile) * s_tile * block_i * 4
+            + max(threads // 32 * s_tile * 2 * block_i * 4, rg2 * s_tile * Dout * 4)
+            + cluster * s_tile * slice_ * 4)
+
+
+def _qmlp_geometry(S: int, D: int, F: int, Dout: int, sms: int):
+    """quant_mlp.cu's launch → (block_i, cluster, threads, prefetch_rows,
+    smem, s_tile).  The widest tile whose F / block_i blocks still reach
+    every SM (else the narrowest), k = ceil(blocks / SMs) blocks per SM of
+    512 / k threads (at most 8 * block_i: 64 row groups), and the largest
+    cluster that divides the grid and whose clusters the card holds at once
+    with k blocks per SM (``_QMLP_CLUSTER_SLOTS``, scaled to ``sms``): one
+    wave.  The w2 tile is prefetched whole where a block's share of the
+    SM's shared memory holds it, else its first rows (an even count), and
+    ``smem`` asks for enough shared memory that no (k+1)-th block fits on
+    an SM.  D does not enter: x is not staged."""
+    if F % _QMLP_TILES[-1] or Dout % 8 or not 1 <= S <= 64:
+        raise ValueError(f"quant_mlp: need F % {_QMLP_TILES[-1]} == 0, Dout % 8 == 0 and "
+                         f"1 <= S <= 64 (S={S}, F={F}, Dout={Dout})")
+    block_i = next((b for b in _QMLP_TILES if F % b == 0 and F // b >= sms), _QMLP_TILES[-1])
+    blocks = F // block_i
+    per_sm = min(2, -(-blocks // sms))
+    threads = min(_QMLP_MAX_THREADS // per_sm, 8 * block_i)
+    slots = _QMLP_CLUSTER_SLOTS[per_sm]
+    cluster = next((c for c in _QMLP_CLUSTERS
+                    if blocks % c == 0 and blocks // c <= slots[c] * sms // _QMLP_SLOT_SMS), None)
+    if cluster is None:
+        raise ValueError(f"quant_mlp: F={F} needs {blocks} blocks, more than one wave holds")
+    budget = min(_QMLP_MAX_SMEM, _QMLP_SM_SMEM // per_sm - _QMLP_BLOCK_RESERVED)
+    rows = block_i
+    while rows > 0 and _qmlp_smem_bytes(S, block_i, Dout, threads, cluster, rows) > budget:
+        rows -= 2
+    need = _qmlp_smem_bytes(S, block_i, Dout, threads, cluster, rows)
+    if need > budget:
+        raise ValueError(f"quant_mlp: S={S}, Dout={Dout} need more shared memory than a "
+                         f"block has")
+    spread = _QMLP_SM_SMEM // (per_sm + 1) - _QMLP_BLOCK_RESERVED + 16
+    return block_i, cluster, threads, rows, min(budget, max(need, spread)), _qmlp_s_tile(S)
+
+
+def _qmlp_parts(S: int, F: int, Dout: int, block_i: int, cluster: int) -> int:
+    """f32 elements of the cluster partials one call keeps: F / block_i /
+    cluster partials of (s_tile, Dout), twice when the call has more than
+    one S tile."""
+    s_tile = _qmlp_s_tile(S)
+    return F // block_i // cluster * s_tile * Dout * (2 if S > s_tile else 1)
+
+
+# per (device, stream): [f32 cluster partials, the grid barrier's int32
+# word].  A buffer outgrown by a larger call stays referenced here: a
+# captured CUDA graph may still read it
+_qmlp_buffers: dict = {}
+_qmlp_outgrown: list = []
+
+
+def _qmlp_workspace(device: torch.device, numel: int):
+    """The current stream's partials (at least ``numel`` f32) and barrier
+    word, allocated outside any capture: the first call on a stream, and a call
+    that needs more, must not be captured."""
+    stream = torch.cuda.current_stream(device)
+    key = (device.index, stream.cuda_stream)
+    entry = _qmlp_buffers.get(key)
+    if entry is None or entry[0].numel() < numel:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("quant_mlp: the stream's first call (or one that needs a larger "
+                               "buffer) is inside a CUDA-graph capture; call it once on the "
+                               "capturing stream before capturing")
+        if entry is not None:
+            _qmlp_outgrown.append(entry[0])
+        word = entry[1] if entry else torch.zeros(1, dtype=torch.int32, device=device)
+        entry = [torch.empty(numel, dtype=torch.float32, device=device), word]
+        _qmlp_buffers[key] = entry
+    return entry
 
 
 def quant_mlp_plain(x: torch.Tensor, q13: torch.Tensor, s13: torch.Tensor, q2: torch.Tensor,
                     s2: torch.Tensor, block_i: Optional[int] = None) -> torch.Tensor:
     """The kernel's arithmetic as torch ops: a1, a3 = (bf16(x) @ q13) × s13
     in f32; h = bf16(bf16(silu(f32(bf16(a1)))) · bf16(a3)); each
-    intermediate tile of ``block_i`` (default: the kernel's) rows gives an
-    f32 partial h_tile @ q2_tile, the partials are summed in f32, × s2,
-    cast to x.dtype.  For the CPU tests and the on-card comparison."""
+    intermediate tile of ``block_i`` rows (default: one tile of all F)
+    gives an f32 partial h_tile @ q2_tile, the partials are summed in f32,
+    × s2, cast to x.dtype.  For the CPU tests and the on-card comparison;
+    ``quant_mlp_cluster_plain`` sums the tiles in the kernel's order."""
+    parts = _qmlp_tile_parts(x, q13, s13, q2, block_i or q13.shape[1] // 2)
+    return (parts.sum(dim=0) * s2.float()).to(x.dtype)
+
+
+def _qmlp_tile_parts(x, q13, s13, q2, block_i: int) -> torch.Tensor:
+    """(F / block_i, S, Dout) f32: each intermediate tile's h_tile @ q2_tile."""
     S = x.shape[0]
     F = q13.shape[1] // 2
     Dout = q2.shape[1]
-    bi = block_i or _mlp_block_i(S)
     a = (x.to(torch.bfloat16).float() @ q13.to(torch.bfloat16).float()) * s13.float()
     gate = F_.silu(a[:, :F].to(torch.bfloat16).float()).to(torch.bfloat16)
     h = (gate * a[:, F:].to(torch.bfloat16)).float()
-    parts = torch.einsum("stb,tbo->tso", h.reshape(S, F // bi, bi),
-                         q2.to(torch.bfloat16).float().reshape(F // bi, bi, Dout))
-    return (parts.sum(dim=0) * s2.float()).to(x.dtype)
+    return torch.einsum("stb,tbo->tso", h.reshape(S, F // block_i, block_i),
+                        q2.to(torch.bfloat16).float().reshape(F // block_i, block_i, Dout))
+
+
+def quant_mlp_cluster_plain(x: torch.Tensor, q13: torch.Tensor, s13: torch.Tensor,
+                            q2: torch.Tensor, s2: torch.Tensor, block_i: int,
+                            cluster: int) -> torch.Tensor:
+    """The kernel's order of sums as torch ops: the F / block_i tiles' f32
+    partials (one block each) are added in rank order within each cluster
+    of ``cluster`` consecutive tiles; the cluster partials are added in the
+    order of quant_mlp.cu's grid sum: tpv = min(32, the next power of two
+    of the cluster count) lanes, lane l adding clusters l, l + tpv, ... in
+    order, then a tree that adds lane l + o into lane l for o = tpv/2, ...,
+    1; × s2, cast to x.dtype.  (Inside a block the kernel adds a tile's
+    rows in slices: the same terms, f32 sums in another order.)"""
+    parts = _qmlp_tile_parts(x, q13, s13, q2, block_i)
+    n = parts.shape[0] // cluster
+    clusters = []
+    for c in range(n):
+        acc = parts[c * cluster]
+        for r in range(1, cluster):
+            acc = acc + parts[c * cluster + r]
+        clusters.append(acc)
+    tpv = 1
+    while tpv < n and tpv < 32:
+        tpv *= 2
+    lanes = []
+    for lane in range(tpv):
+        acc = torch.zeros_like(parts[0])
+        for k in range(lane, n, tpv):
+            acc = acc + clusters[k]
+        lanes.append(acc)
+    o = tpv // 2
+    while o >= 1:
+        lanes = [lanes[i] + lanes[i + o] for i in range(o)]
+        o //= 2
+    return (lanes[0] * s2.float()).to(x.dtype)
 
 
 def quant_mlp(x: torch.Tensor, q13: torch.Tensor, s13: torch.Tensor, q2: torch.Tensor,
@@ -394,16 +522,17 @@ def quant_mlp(x: torch.Tensor, q13: torch.Tensor, s13: torch.Tensor, q2: torch.T
         raise TypeError("quant_mlp: want x bf16, q13 and q2 int8, s13 and s2 f32")
     check_operands("quant_mlp", {"x": x, "q13": q13, "s13": s13, "q2": q2, "s2": s2},
                     x.device)
-    bi = _mlp_block_i(S)
-    if D % 16 != 0 or Dout % 8 != 0 or F % bi != 0 or S > 64:
-        raise ValueError(f"quant_mlp: need D % 16 == 0, Dout % 8 == 0, F % {bi} == 0 and "
-                         f"S <= 64 (S={S}, D={D}, F={F}, Dout={Dout})")
-    if _mlp_smem_bytes(S, D, bi) > _MLP_MAX_SMEM:
-        raise ValueError(f"quant_mlp: D={D} needs more shared memory than a block has")
+    if D % 16 != 0:
+        raise ValueError(f"quant_mlp: need D % 16 == 0 (D={D})")
+    if q13.data_ptr() % 16 or q2.data_ptr() % 16 or s2.data_ptr() % 16:
+        raise ValueError("quant_mlp: q13, q2 and s2 must start on a 16-byte boundary")
+    block_i, cluster, threads, rows, smem, s_tile = _qmlp_geometry(S, D, F, Dout,
+                                                                   _sms(x.device))
+    part, barrier = _qmlp_workspace(x.device, _qmlp_parts(S, F, Dout, block_i, cluster))
     y = torch.empty((S, Dout), dtype=torch.bfloat16, device=x.device)
-    ws = torch.empty((F // bi, S, Dout), dtype=torch.float32, device=x.device)
     launch("quant_mlp", x.data_ptr(), q13.data_ptr(), s13.data_ptr(), q2.data_ptr(),
-           s2.data_ptr(), y.data_ptr(), ws.data_ptr(), S, D, F, Dout, bi, _s_tile(S),
+           s2.data_ptr(), y.data_ptr(), part.data_ptr(), barrier.data_ptr(), S, D, F, Dout,
+           block_i, cluster, threads, rows, smem, s_tile,
            torch.cuda.current_stream(x.device).cuda_stream)
     quant_mlp.launches += 1
     return y

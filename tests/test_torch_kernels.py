@@ -30,14 +30,15 @@ def _int8_weight(gen, D, F):
 
 def _replayed(fn):
     """fn()'s output from a CUDA-graph replay (a fault in a cluster's
-    combine or in a self-reset shows only there)."""
+    combine or in a self-reset shows only there).  The capture runs on the
+    stream of the warm-up, where quant_mlp has its persistent buffer."""
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
         fn()  # warm up outside the capture
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with torch.cuda.graph(graph, stream=side):
         out = fn()
     out.zero_()
     graph.replay()
@@ -195,7 +196,8 @@ def _mlp_weights(gen, D, F, Dout):
 @pytest.mark.gpu
 @pytest.mark.parametrize("S,D,F,Dout", [(1, 2048, 8192, 2048), (1, 1024, 8192, 1024),
                                         (8, 1024, 8192, 1024), (9, 2048, 8192, 2048),
-                                        (64, 1024, 8192, 1024), (3, 64, 256, 24)])
+                                        (64, 1024, 8192, 1024), (3, 64, 256, 24),
+                                        (1, 256, 32768, 256), (2, 256, 65536, 64)])
 def test_quant_mlp_matches_plain(cuda, S, D, F, Dout):
     q13, s13, q2, s2 = _mlp_weights(cuda, D, F, Dout)
     x = (torch.randn((S, D), generator=cuda, device="cuda") * 0.3).to(torch.bfloat16)
@@ -207,6 +209,54 @@ def test_quant_mlp_matches_plain(cuda, S, D, F, Dout):
     # the plain version's; each such flip moves the output by a fraction of
     # one term of the F-long w2 sum, far inside the tolerance below
     _assert_close_to_plain(got, tq.quant_mlp_plain(x, q13, s13, q2, s2))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("S,D,F,Dout", [(1, 2048, 8192, 2048), (1, 1024, 8192, 1024),
+                                        (8, 2048, 8192, 2048), (64, 1024, 8192, 1024),
+                                        (3, 64, 256, 24)])
+def test_quant_mlp_is_deterministic(cuda, S, D, F, Dout):
+    """One launch sums the tiles in a fixed order (cluster, then the grid's
+    fixed tree): three calls in a row on one stream and a CUDA-graph replay
+    give the first call's bits, so the grid barrier's counter resets."""
+    q13, s13, q2, s2 = _mlp_weights(cuda, D, F, Dout)
+    x = (torch.randn((S, D), generator=cuda, device="cuda") * 0.3).to(torch.bfloat16)
+    first = tq.quant_mlp(x, q13, s13, q2, s2)
+    for _ in range(3):
+        assert torch.equal(tq.quant_mlp(x, q13, s13, q2, s2), first)
+    assert torch.equal(_replayed(lambda: tq.quant_mlp(x, q13, s13, q2, s2)), first)
+    assert torch.equal(tq.quant_mlp(x, q13, s13, q2, s2), first)  # after the replay
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("S,D,F,Dout", [(1, 1024, 8192, 1024), (9, 2048, 8192, 2048)])
+def test_quant_mlp_allocates_only_its_output(cuda, S, D, F, Dout):
+    """The persistent buffer is allocated once per device and stream: a
+    call then allocates its (S, Dout) bf16 output and nothing else."""
+    q13, s13, q2, s2 = _mlp_weights(cuda, D, F, Dout)
+    x = (torch.randn((S, D), generator=cuda, device="cuda") * 0.3).to(torch.bfloat16)
+    tq.quant_mlp(x, q13, s13, q2, s2)  # the stream's buffer, once
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    outs = [tq.quant_mlp(x, q13, s13, q2, s2) for _ in range(3)]
+    torch.cuda.synchronize()
+    block = -(-S * Dout * 2 // 512) * 512  # the caching allocator's 512-byte blocks
+    assert torch.cuda.memory_allocated() - before == len(outs) * block
+
+
+@pytest.mark.gpu
+def test_quant_mlp_refused_launch_raises(cuda, monkeypatch):
+    """A grid whose clusters the card cannot hold at once (512 blocks of 16
+    columns, one per SM by shared memory, in pairs) is refused by the
+    launch, and the wrapper raises: nothing falls back."""
+    q13, s13, q2, s2 = _mlp_weights(cuda, 1024, 8192, 1024)
+    x = torch.randn((1, 1024), generator=cuda, device="cuda").to(torch.bfloat16)
+    monkeypatch.setattr(tq, "_qmlp_geometry",
+                        lambda *a: (16, 2, 256, 16, tq._QMLP_MAX_SMEM, 1))
+    before = tq.quant_mlp.launches
+    with pytest.raises(RuntimeError):
+        tq.quant_mlp(x, q13, s13, q2, s2)
+    assert tq.quant_mlp.launches == before
 
 
 @pytest.mark.gpu

@@ -416,3 +416,77 @@ def test_qmlp_on_the_cpu_is_the_unfused_sequence(mlp_weights, fused):
     before = tq.quant_mlp.launches
     _close(tq.qmlp(torch.from_numpy(x), tw13, tw2, fused=fused).numpy(), want)
     assert tq.quant_mlp.launches == before
+
+
+# -- quant_mlp's launch geometry and order of sums ---------------------------------
+
+_MLP_FLAGSHIP = [(2048, 8192, 2048), (1024, 8192, 1024)]  # backbone, decoder MLPs
+
+
+@pytest.mark.parametrize("S", [1, 8, 64])
+@pytest.mark.parametrize("D,F,Dout", _MLP_FLAGSHIP)
+def test_qmlp_geometry_fits_one_wave(S, D, F, Dout):
+    """quant_mlp.cu's launch on a 132-SM H100: whole tiles, clusters of at
+    most 16 that divide the grid and that the card holds at once (one
+    wave), shared memory within a block's 227 KB and at least the layout's,
+    the prefetched w2 rows even and within the tile, and at least one block
+    per SM at S = 1."""
+    block_i, cluster, threads, rows, smem, s_tile = tq._qmlp_geometry(S, D, F, Dout, 132)
+    blocks = F // block_i
+    assert F % block_i == 0 and block_i in tq._QMLP_TILES
+    assert 1 <= cluster <= 16 and blocks % cluster == 0
+    per_sm = math.ceil(blocks / 132)
+    assert per_sm <= 2 and blocks // cluster <= tq._QMLP_CLUSTER_SLOTS[per_sm][cluster]
+    assert threads % 32 == 0 and threads * per_sm <= 512 and threads % block_i == 0
+    assert 0 <= rows <= block_i and rows % 2 == 0
+    need = tq._qmlp_smem_bytes(S, block_i, Dout, threads, cluster, rows)
+    assert need <= smem <= tq._QMLP_MAX_SMEM
+    # no more blocks share an SM than the grid needs: clusters spread out
+    assert (per_sm + 1) * (smem + tq._QMLP_BLOCK_RESERVED) > tq._QMLP_SM_SMEM
+    assert s_tile == (1 if S == 1 else 4)
+    if S == 1:
+        assert blocks >= 132 and rows == block_i  # the whole w2 tile is prefetched
+
+
+@pytest.mark.parametrize("S,F,Dout", [(65, 256, 24), (1, 48, 24), (1, 256, 20)])
+def test_qmlp_geometry_rejects_what_the_kernel_does_not_take(S, F, Dout):
+    with pytest.raises(ValueError):
+        tq._qmlp_geometry(S, 64, F, Dout, 132)
+
+
+@pytest.mark.parametrize("S,block_i,cluster", [(1, 32, 2), (2, 32, 4), (3, 64, 1), (8, 32, 16)])
+def test_quant_mlp_cluster_plain_matches_jax_kernel_and_plain(mlp_weights, S, block_i, cluster):
+    """The kernel's order of sums (tiles in rank order inside a cluster, the
+    clusters by the grid's lane-and-tree order) against quant_mlp_pallas in
+    interpret mode at the same tile width (the fused-vs-unfused bound, as
+    in test_quant_mlp_plain_matches_jax_kernel) and against quant_mlp_plain
+    at that width (the same tile partials in another f32 order: one bf16
+    rounding apart)."""
+    jw13, jw2, tw13, tw2 = mlp_weights
+    xb, xt = _bf16_x(S, 50 + S)
+    got = tq.quant_mlp_cluster_plain(xt, tw13["q"], tw13["scale"], tw2["q"], tw2["scale"],
+                                     block_i, cluster)
+    assert got.dtype == torch.bfloat16 and got.shape == (S, 128)
+    want = np.asarray(jq.quant_mlp_pallas(xb, jw13["q"], jw13["scale"], jw2["q"], jw2["scale"],
+                                          block_i=block_i, interpret=True), np.float32)
+    np.testing.assert_allclose(got.float().numpy(), want, rtol=0,
+                               atol=2e-2 * np.abs(want).max() + 1e-6)
+    plain = tq.quant_mlp_plain(xt, tw13["q"], tw13["scale"], tw2["q"], tw2["scale"],
+                               block_i=block_i).float()
+    assert bool(((got.float() - plain).abs() <= 2**-7 * plain.abs() + 1e-5 * plain.abs().max())
+                .all())
+
+
+@pytest.mark.parametrize("cluster", [1, 2, 4])
+def test_quant_mlp_cluster_plain_with_more_clusters_than_lanes(cluster):
+    """64 tiles: up to 64 cluster partials, two or more per lane of the
+    grid's sum, against quant_mlp_plain."""
+    rng = np.random.default_rng(11)
+    D, F, Dout = 64, 2048, 32
+    w13 = tq.quantize_weight(torch.from_numpy(rng.standard_normal((D, 2 * F)).astype(np.float32)))
+    w2 = tq.quantize_weight(torch.from_numpy(rng.standard_normal((F, Dout)).astype(np.float32)))
+    x = torch.from_numpy(rng.standard_normal((2, D)).astype(np.float32) * 0.3).to(torch.bfloat16)
+    got = tq.quant_mlp_cluster_plain(x, w13["q"], w13["scale"], w2["q"], w2["scale"], 32,
+                                     cluster).float()
+    want = tq.quant_mlp_plain(x, w13["q"], w13["scale"], w2["q"], w2["scale"]).float()
+    assert bool(((got - want).abs() <= 2**-7 * want.abs() + 1e-5 * want.abs().max()).all())
