@@ -24,9 +24,18 @@ Phases, each of which fails the run if it fails:
    ~16 s 44.1 kHz stereo reference clips through the voice registry and
    ``prepare_voice_context`` into a 512-row context prefill, offline and
    streamed requests from the cached context, one rolling-context turn).
-   Exact launch counts show that each path went through its kernels.
-   Then each configuration's profiled window (device busy share, kernel
-   mix);
+   Each Generator is warmed up first (``Generator.warmup``: the decode
+   step's CUDA graphs are captured then), so every decoded frame is a
+   graph replay.  Exact launch counts, added by the replays, show that
+   each path went through its kernels.  Then, on each path, the graphs
+   against the eager step (``csm.generate_frame`` + ``csm.decode_frames``)
+   on the card: greedy and seeded frames bit-equal, a second (temperature,
+   topk) on the same graphs bit-equal, a clone with another chunk size
+   giving the same frames without new weight memory; and the same
+   requests on an eager twin of the Generator, timed beside the graphed
+   ones.  Then each configuration's profiled windows (device busy share,
+   kernel mix), graphed and eager, the graphed step's device time by CUDA
+   events and the sampler's threshold search alone;
 5. QA at full width: teacher-forced agreement of the int4 generator with
    the dense twin of its own tree, and of the fused generator with the
    unfused one, against thresholds; the int8 and int4 acceptance reports
@@ -90,6 +99,12 @@ _ATOL_OF_PEAK = 1e-3
 TEXT_1 = "Hello from the port. This sentence is spoken by random weights."
 TEXT_2 = "And this one continues in the same voice."
 AUDIO_MS = 2000
+# the graph checks: 12 frames each, (label, temperature, topk, seed); the
+# captured graphs read the sampling parameters from buffers, so the second
+# sampled request runs on the graphs the first one used
+GRAPH_CHECK_MS = 960
+GRAPH_CHECKS = (("greedy", 1.0, 1, 0), ("sampled", 0.8, 40, 5), ("second_sampling", 0.6, 20, 6))
+GRAPH_STEP_FRAMES = 16  # frames of the graphed step timed by CUDA events, from a 600-row cache
 
 # the main paths: ModelSpec fields, kernel launches per decoded frame, and
 # whether the voice-context request runs
@@ -510,19 +525,45 @@ def _attention_launches(cfg, decoded: int, prefills: int, extends: int) -> int:
 
 
 def _build_generator(torch, path: str, spec_fields: dict):
-    """Build one configuration at CSM-1B width and warm it up (cuBLAS and
-    cuDNN handles, allocator; not counted)."""
+    """Build one configuration at CSM-1B width, ``warmup`` it (the decode
+    graphs are captured, every prefill bucket runs once) and decode a frame
+    offline through Mimi (cuDNN); nothing of it is counted.  → (gen, its
+    warm-up seconds and device memory)."""
+    import numpy as np
+
     from sesameai_tts_tpu_torch.runtime.loader import build_generator, csm_1b_spec
 
     t0 = time.perf_counter()
     gen = build_generator(csm_1b_spec(**spec_fields), device="cuda")
     torch.cuda.synchronize()
+    built_gb = torch.cuda.memory_allocated() / 1e9
     torch.cuda.reset_peak_memory_stats()
     print(f"main[{path}]: built CSM-1B + bf16 Mimi in {time.perf_counter() - t0:.1f} s",
           flush=True)
-    gen.generate("warm up", 0, [], max_audio_length_ms=240, temperature=0.8, topk=40, seed=7)
+    warm = gen.warmup()
+    gen.decode_audio(np.zeros((2, gen._cfg.audio_num_codebooks), np.int32))
     torch.cuda.synchronize()
-    return gen
+    setup = {"warmup_s": warm,
+             "capture_s": {k: v for k, v in warm.items() if k.startswith("graph_")},
+             "memory_gb": {"built": built_gb, "after_warmup": torch.cuda.memory_allocated() / 1e9}}
+    print(f"main[{path}] warmup " + json.dumps(setup), flush=True)
+    return gen, setup
+
+
+def _eager_twin(gen):
+    """A clone of gen (same weights) whose decode step runs eagerly on the
+    card: the yardstick the graphs are checked and timed against.  The
+    library has no such mode (on a CUDA device it only replays graphs), so
+    the twin replaces the clone's two graph methods with the eager call."""
+    twin = gen.clone()
+
+    def capture(batch_size, greedy, parts=None):
+        twin._slot(batch_size)
+        return {}
+
+    twin._capture = capture
+    twin._run = lambda batch_size, part, greedy: twin._step(batch_size, part, greedy)()
+    return twin
 
 
 def _stream(gen, text, context, **kw):
@@ -539,6 +580,49 @@ def _stream(gen, text, context, **kw):
     return np.concatenate(chunks), time.perf_counter() - t0, first_chunk_s
 
 
+def _requests(torch, gen, text: str, cached=None, voice: bool = False):
+    """A path's offline and streamed requests (and the voice-context one)
+    → (outputs {name: (PCM, wall s)}, seconds to the first streamed chunk)."""
+    from sesameai_tts_tpu_torch.runtime.frames import Segment
+
+    t0 = time.perf_counter()
+    offline = gen.generate(text, 0, [], max_audio_length_ms=AUDIO_MS, temperature=0.8,
+                           topk=40, cached_context=cached, seed=0)
+    outputs = {"offline": (offline, time.perf_counter() - t0)}
+    streamed, t_stream, first_chunk_s = _stream(gen, text, [], cached_context=cached)
+    outputs["stream"] = (streamed, t_stream)
+    if voice:
+        t0 = time.perf_counter()
+        ctx = gen.precompute_context_state([Segment(0, TEXT_1, offline)])
+        voiced = gen.generate(TEXT_2, 0, [], max_audio_length_ms=AUDIO_MS, temperature=0.8,
+                              topk=40, cached_context=ctx, seed=1)
+        outputs["voice"] = (voiced, time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    return outputs, first_chunk_s
+
+
+def _timing(torch, gen, outputs: dict, first_chunk_s: float) -> dict:
+    """ms per decoded frame, RTF, first-chunk latency and peak memory of a
+    run's requests, from gen's Metrics."""
+    sr = gen.sample_rate
+    summary = gen.metrics.summary()
+    decoded = int(summary["decoded_frames"]["total"])
+    return {
+        "frames": {**{k: pcm.size // gen._hop for k, (pcm, _) in outputs.items()},
+                   "decoded": decoded},
+        "audio_s": {k: pcm.size / sr for k, (pcm, _) in outputs.items()},
+        "rtf": {k: t / (pcm.size / sr) for k, (pcm, t) in outputs.items()},
+        "first_chunk_ms": first_chunk_s * 1e3,
+        "ms_per_decoded_frame": summary["decode_s"]["total"] / decoded * 1e3,
+        # where the requests' wall time went; the rest is host-side
+        # tokenization and the voice context's backbone pass
+        "wall_s": sum(t for _, t in outputs.values()),
+        "breakdown_s": {k: summary[k]["total"] for k in ("prefill_s", "decode_s", "codec_s",
+                                                         "encode_s") if k in summary},
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+    }
+
+
 def _report(torch, gen, path: str, outputs: dict, first_chunk_s: float, launches: dict,
             per_frame: dict, extends: int, extra: dict = None) -> dict:
     """Print a path's result line and check it: PCM finite, the quant
@@ -546,35 +630,23 @@ def _report(torch, gen, path: str, outputs: dict, first_chunk_s: float, launches
     launches (``_attention_launches``), streamed == offline."""
     import numpy as np
 
-    sr = gen.sample_rate
     summary = gen.metrics.summary()
     decoded = int(summary["decoded_frames"]["total"])
     prefills = summary["prefill_s"]["count"]
-    decode_s = summary["decode_s"]["total"]
     offline, streamed = outputs["offline"][0], outputs["stream"][0]
     rel = float(np.abs(streamed - offline).max() / max(np.abs(offline).max(), 1e-12)) \
         if streamed.shape == offline.shape else float("inf")
     want_attention = _attention_launches(gen._cfg, decoded, prefills, extends)
     result = {
         "path": path,
-        "frames": {**{k: pcm.size // gen._hop for k, (pcm, _) in outputs.items()},
-                   "decoded": decoded},
-        "audio_s": {k: pcm.size / sr for k, (pcm, _) in outputs.items()},
-        "rtf": {k: t / (pcm.size / sr) for k, (pcm, t) in outputs.items()},
-        "first_chunk_ms": first_chunk_s * 1e3,
-        "ms_per_decoded_frame": decode_s / decoded * 1e3,
-        # where the requests' wall time went; the rest is host-side
-        # tokenization and the voice context's backbone pass
-        "wall_s": sum(t for _, t in outputs.values()),
-        "breakdown_s": {k: summary[k]["total"] for k in ("prefill_s", "decode_s", "codec_s",
-                                                         "encode_s") if k in summary},
+        "decode": "CUDA graph replays",
+        **_timing(torch, gen, outputs, first_chunk_s),
         "prefills": prefills,
         "context_prefills": extends,
         "launches": launches,
         "launches_per_decoded_frame": {k: v / decoded for k, v in launches.items()},
         "flash_attention_expected": want_attention,
         "stream_vs_offline_rel_err": rel,
-        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
         **(extra or {}),
     }
     print(f"main[{path}] " + json.dumps(result), flush=True)
@@ -598,32 +670,136 @@ def _report(torch, gen, path: str, outputs: dict, first_chunk_s: float, launches
     return result
 
 
+def _eager_frames(torch, gen, text: str, temperature, topk, seed: int, frames: int,
+                  cached=None):
+    """One request's valid frames computed eagerly on the card by the
+    model's functions, as the Generator computes them: the bucketed prefill
+    through ``csm.generate_frame`` on the prefill weights, then
+    ``csm.decode_frames`` → (F, K) int32."""
+    from sesameai_tts_tpu_torch.models import csm
+    from sesameai_tts_tpu_torch.runtime.generator import _next_bucket
+
+    cfg = gen._cfg
+    state = csm.init_state(cfg, 1, gen._params["projection"].dtype, device=gen.device)
+    if cached is not None:
+        csm.load_state(state, cached[0])
+        tokens, mask = gen.frame_tokenizer.text_segment(text, 0)
+        ctx_rows = cached[1]
+    else:
+        tokens, mask = gen._tokenize_prompt(text, 0, [])
+        ctx_rows = 0
+    bucket = _next_bucket(tokens.shape[0], gen._prefill_buckets,
+                          room=gen.max_seq_len - ctx_rows)
+    tok, msk, valid_len = gen._padded(tokens, mask, bucket)
+    frame, state = csm.generate_frame(gen._prefill_params, cfg, state, tok, msk,
+                                      csm.frame_generator(seed, 0, gen.device), temperature,
+                                      topk, valid_len=valid_len, rope_cs=gen._rope)
+    first_valid = ~(frame == 0).all(dim=-1)
+    rest, valid, _, _ = csm.decode_frames(gen._params, cfg, state, frame, ~first_valid, seed,
+                                          frames - 1, temperature, topk, rope_cs=gen._rope,
+                                          start_index=1, fused_mlp=gen._fused_mlp)
+    out = torch.cat([frame[None], rest])[:, 0]
+    keep = torch.cat([first_valid[None], valid])[:, 0]
+    return out[keep].cpu().numpy().astype("int32")
+
+
+def _frame_launches(gen) -> dict:
+    """Port kernel launches one decoded frame replays (the backbone and the
+    sampling graphs at B = 1, sampled)."""
+    out = {}
+    for part in ("backbone", "sample"):
+        for fn, n in gen._graphs[(1, part, False)].launches.items():
+            out[fn.__name__] = out.get(fn.__name__, 0) + n
+    return out
+
+
+def phase_graphs(torch, gen, path: str, per_frame: dict, text: str, cached=None) -> dict:
+    """The captured graphs against the eager step on the card, on one
+    path: each of ``GRAPH_CHECKS`` (greedy, sampled, a second temperature
+    and topk on the same graphs) gives the frames of ``_eager_frames``,
+    bit for bit; each frame replays exactly the path's launches; a clone
+    with another decode chunk size gives the seeded frames again, shares
+    the weights' storage and adds no weight memory."""
+    import numpy as np
+
+    want = {**per_frame, "flash_attention": _attention_launches(gen._cfg, 1, 0, 0)}
+    got = _frame_launches(gen)
+    result = {"launches_per_frame_replayed": got}
+    _check(all(got.get(k, 0) == n for k, n in want.items()),
+           f"{path}: a replayed frame launches {got}, want {want}")
+    n_graphs = len(gen._graphs)
+    frames = GRAPH_CHECK_MS // 80
+    graphed = {}
+    for label, temperature, topk, seed in GRAPH_CHECKS:
+        graphed[label] = gen.generate_frames(text, 0, [], max_audio_length_ms=GRAPH_CHECK_MS,
+                                             temperature=temperature, topk=topk,
+                                             cached_context=cached, seed=seed)
+        eager = _eager_frames(torch, gen, text, temperature, topk, seed, frames, cached)
+        equal = graphed[label].shape == eager.shape and bool(np.array_equal(graphed[label], eager))
+        result[label] = {"temperature": temperature, "topk": topk, "seed": seed,
+                         "frames": int(graphed[label].shape[0]), "bit_equal_to_eager": equal}
+        _check(equal, f"{path}: graphed {label} frames differ from the eager step's: "
+                      f"{graphed[label].shape} vs {eager.shape}")
+    _check(len(gen._graphs) == n_graphs,
+           f"{path}: the requests captured new graphs ({n_graphs} → {len(gen._graphs)})")
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    clone = gen.clone(decode_chunk_frames=3)
+    _, temperature, topk, seed = GRAPH_CHECKS[1]
+    chunked = clone.generate_frames(text, 0, [], max_audio_length_ms=GRAPH_CHECK_MS,
+                                    temperature=temperature, topk=topk, cached_context=cached,
+                                    seed=seed)
+    torch.cuda.synchronize()
+    weight = gen._params["projection"]
+    result["clone"] = {
+        "decode_chunk_frames": 3, "frames_equal": bool(np.array_equal(chunked,
+                                                                      graphed["sampled"])),
+        "added_gb": (torch.cuda.memory_allocated() - before) / 1e9,
+        "shares_weights": clone._params["projection"].data_ptr() == weight.data_ptr(),
+        "own_metrics": clone.metrics is not gen.metrics,
+        "graphs": len(clone._graphs),
+    }
+    del clone
+    _collect(torch)
+    print(f"graphs[{path}] " + json.dumps(result), flush=True)
+    _check(result["clone"]["frames_equal"],
+           f"{path}: the seeded frames depend on the chunk size (3 vs 10)")
+    _check(result["clone"]["shares_weights"] and result["clone"]["own_metrics"],
+           f"{path}: the clone does not share the weights or shares the Metrics")
+    # the static state is 64 MiB; one more copy of the weights would be GBs
+    _check(result["clone"]["added_gb"] < 0.5,
+           f"{path}: the clone added {result['clone']['added_gb']:.2f} GB")
+    return result
+
+
+def _eager_run(torch, gen, text: str, cached=None, voice: bool = False) -> dict:
+    """The path's requests on an eager twin of gen, timed as the graphed
+    ones (the graphed Generator's memory stays allocated beside it)."""
+    twin = _eager_twin(gen)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    outputs, first_chunk_s = _requests(torch, twin, text, cached, voice)
+    result = {"decode": "eager", **_timing(torch, twin, outputs, first_chunk_s)}
+    del twin
+    _collect(torch)
+    return result
+
+
 def phase_main_path(torch, wrappers, path: str, spec_fields: dict, per_frame: dict,
                     voice: bool):
     """One configuration of the serving path at CSM-1B width: offline and
-    streamed requests (and a 2 s voice-context one), launch counts checked
-    exactly."""
-    from sesameai_tts_tpu_torch.runtime.frames import Segment
-
-    gen = _build_generator(torch, path, spec_fields)
+    streamed requests (and a 2 s voice-context one) on the graphs, launch
+    counts checked exactly; then the graph checks and the eager twin."""
+    gen, setup = _build_generator(torch, path, spec_fields)
     gen.metrics.reset()
     _reset_counts(wrappers)
-    t0 = time.perf_counter()
-    offline = gen.generate(TEXT_1, 0, [], max_audio_length_ms=AUDIO_MS, temperature=0.8,
-                           topk=40, seed=0)
-    outputs = {"offline": (offline, time.perf_counter() - t0)}
-    streamed, t_stream, first_chunk_s = _stream(gen, TEXT_1, [])
-    outputs["stream"] = (streamed, t_stream)
-    if voice:
-        t0 = time.perf_counter()
-        ctx = gen.precompute_context_state([Segment(0, TEXT_1, offline)])
-        voiced = gen.generate(TEXT_2, 0, [], max_audio_length_ms=AUDIO_MS, temperature=0.8,
-                              topk=40, cached_context=ctx, seed=1)
-        outputs["voice"] = (voiced, time.perf_counter() - t0)
-    torch.cuda.synchronize()
+    outputs, first_chunk_s = _requests(torch, gen, TEXT_1, voice=voice)
     launches = _counts(wrappers)
     result = _report(torch, gen, path, outputs, first_chunk_s, launches, per_frame,
-                     extends=int(voice))
+                     extends=int(voice), extra=setup)
+    result["graph_checks"] = phase_graphs(torch, gen, path, per_frame, TEXT_1)
+    result["eager"] = _eager_run(torch, gen, TEXT_1, voice=voice)
+    print(f"eager[{path}] " + json.dumps(result["eager"]), flush=True)
     del gen
     _collect(torch)
     return result
@@ -671,7 +847,7 @@ def phase_voice_path(torch, wrappers, per_frame: dict):
     from sesameai_tts_tpu_torch.service.tts import prepare_voice_context
     from sesameai_tts_tpu_torch.service.voices import load_registry
 
-    gen = _build_generator(torch, "voice", {})
+    gen, setup = _build_generator(torch, "voice", {})
     with tempfile.TemporaryDirectory() as tmp:
         registry = load_registry(_write_voice(tmp))
         gen.metrics.reset()
@@ -685,12 +861,8 @@ def phase_voice_path(torch, wrappers, per_frame: dict):
     torch.cuda.synchronize()
     context_prefill_s = time.perf_counter() - t0
 
-    t0 = time.perf_counter()
-    offline = gen.generate(TEXT_2, 0, [], max_audio_length_ms=AUDIO_MS, temperature=0.8,
-                           topk=40, cached_context=ctx, seed=0)
-    outputs = {"offline": (offline, time.perf_counter() - t0)}
-    streamed, t_stream, first_chunk_s = _stream(gen, TEXT_2, [], cached_context=ctx)
-    outputs["stream"] = (streamed, t_stream)
+    outputs, first_chunk_s = _requests(torch, gen, TEXT_2, cached=ctx)
+    offline = outputs["offline"][0]
 
     rolling = RollingContext(max_positions=gen.max_seq_len)
     rolling.pin_prefix(segments)
@@ -704,7 +876,7 @@ def phase_voice_path(torch, wrappers, per_frame: dict):
     launches = _counts(wrappers)
     result = _report(torch, gen, "voice", outputs, first_chunk_s, launches, per_frame,
                      extends=1, extra={
-                         "context_rows": rows, "context_bucket": bucket,
+                         **setup, "context_rows": rows, "context_bucket": bucket,
                          "context_trimmed": trimmed, "prepare_voice_s": prepare_s,
                          "context_prefill_ms": context_prefill_s * 1e3,
                          "rolling_turn_prompt_rows": turn_rows,
@@ -714,6 +886,9 @@ def phase_voice_path(torch, wrappers, per_frame: dict):
            f"voice: context of {rows} rows (bucket {bucket}, trimmed {trimmed}); want 385-512 "
            f"rows in the 512-row bucket")
     _check(turn_rows > 512, f"voice: the rolling turn's prompt is {turn_rows} rows, not > 512")
+    result["graph_checks"] = phase_graphs(torch, gen, "voice", per_frame, TEXT_2, cached=ctx)
+    result["eager"] = _eager_run(torch, gen, TEXT_2, cached=ctx)
+    print("eager[voice] " + json.dumps(result["eager"]), flush=True)
     del gen
     _collect(torch)
     return result
@@ -727,26 +902,64 @@ def _collect(torch) -> None:
 
 
 def phase_profile(torch, wrappers):
-    """Each configuration's profiled window, after every counted request:
-    a torch.profiler session leaves the host slower at issuing kernels for
-    the rest of the process, so no counted request may follow one."""
+    """Each configuration's profiled windows, after every counted request
+    (a torch.profiler session leaves the host slower at issuing kernels
+    for the rest of the process, so no counted request may follow one):
+    the window of one short request on the graphs and on the eager twin,
+    and the graphed step alone (``_graph_step``).  Then the sampler's
+    threshold search alone."""
     from sesameai_tts_tpu_torch.runtime.loader import build_generator, csm_1b_spec
 
     for path, fields, _, _ in _PATHS:
         gen = build_generator(csm_1b_spec(**fields), device="cuda")
-        gen.generate("warm up", 0, [], max_audio_length_ms=240, temperature=0.8, topk=40,
-                     seed=7)
-        print(f"profile[{path}] " + json.dumps(_profile_decode(torch, gen, wrappers)),
-              flush=True)
-        del gen
+        gen.warmup()
+        result = {"graphed": _profile_decode(torch, gen, wrappers),
+                  "step": _graph_step(torch, gen)}
+        twin = _eager_twin(gen)
+        twin.generate("warm up", 0, [], max_audio_length_ms=240, temperature=0.8, topk=40,
+                      seed=7)
+        result["eager"] = _profile_decode(torch, twin, wrappers)
+        print(f"profile[{path}] " + json.dumps(result), flush=True)
+        del gen, twin
         _collect(torch)
+    print("sampler " + json.dumps(_sampler_timing(torch)), flush=True)
+
+
+# kernel kinds of the device split, by a piece of the kernel's name; the
+# first match names the kind
+_KINDS = (
+    ("quant_matmul", "qmm_"), ("quant4_matmul", "q4mm_"), ("quant_mlp", "qmlp_"),
+    ("flash_attention", "flash_fwd"), ("direct_copy", "direct_copy"), ("cat", "CatArray"),
+    ("index / gather", "index"), ("random", "distribution"), ("reduce", "reduce_kernel"),
+    ("cuBLAS", "gemm"), ("cuBLAS", "gemv"), ("cuBLAS", "cutlass"),
+    ("elementwise, other", "elementwise"),
+)
+
+
+def _device_kernels(torch, prof):
+    cuda = torch.autograd.DeviceType.CUDA
+    return [e for e in prof.key_averages() if getattr(e, "device_type", None) == cuda]
+
+
+def _dev_us(e) -> float:
+    return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+
+
+def _split(kernels, per: int = 1) -> dict:
+    """{kind: [device ms, launches]} of profiled kernels, divided by per."""
+    out = {}
+    for e in kernels:
+        kind = next((k for k, piece in _KINDS if piece in e.key), "other")
+        ms, n = out.get(kind, (0.0, 0))
+        out[kind] = (ms + _dev_us(e) / 1e3 / per, n + e.count / per)
+    return {k: [round(ms, 4), n] for k, (ms, n) in sorted(out.items(), key=lambda kv: -kv[1][0])}
 
 
 def _profile_decode(torch, gen, wrappers) -> dict:
     """Device busy share and kernel mix of one short request (prefill + 4
     decoded frames) under torch.profiler, device activity only (host-side
     events make the trace's processing take minutes), with the port
-    kernels' launches in the window beside the profiler's count."""
+    kernels' launches in the window beside the profiler's count of them."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -758,30 +971,101 @@ def _profile_decode(torch, gen, wrappers) -> dict:
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     port_launches = {k: n - before[k] for k, n in _counts(wrappers).items()}
-    cuda = torch.autograd.DeviceType.CUDA
-    kernels = [e for e in prof.key_averages() if getattr(e, "device_type", None) == cuda]
+    kernels = _device_kernels(torch, prof)
     if not kernels:
         return {"window": "prefill + 4 decoded frames", "device_time": "not measured",
                 "wall_ms_profiled": wall_ms, "port_launches": port_launches}
-
-    def dev_us(e):
-        return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
-
-    device_ms = sum(dev_us(e) for e in kernels) / 1e3
-    top = sorted(kernels, key=dev_us, reverse=True)[:8]
-    ours = {prefix: sum(dev_us(e) for e in kernels if prefix in e.key) / 1e3
-            for prefix in ("qmm_", "q4mm_", "qmlp_", "flash_fwd")}
+    device_ms = sum(_dev_us(e) for e in kernels) / 1e3
+    split = _split(kernels)
     return {
         "window": "prefill + 4 decoded frames, profiled",
         "wall_ms_profiled": wall_ms,
         "device_kernel_ms": device_ms,
         "device_busy_share": device_ms / wall_ms,
         "kernel_launches": sum(e.count for e in kernels),
-        "quant_matmul_launches": port_launches["quant_matmul"],
         "port_launches": port_launches,
-        "port_kernel_device_ms": ours,
-        "top": [[e.key[:70], dev_us(e) / 1e3, e.count] for e in top],
+        "port_launches_seen": {k: split.get(k, [0, 0])[1] for k in port_launches},
+        "split": split,
+        "top": [[e.key[:70], _dev_us(e) / 1e3, e.count]
+                for e in sorted(kernels, key=_dev_us, reverse=True)[:8]],
     }
+
+
+def _graph_step(torch, gen) -> dict:
+    """The graphed step alone: ``GRAPH_STEP_FRAMES`` sampled frames as
+    back-to-back replays of the backbone and sampling graphs from a
+    ``_FRAME_CACHE_FILL``-row cache, timed by CUDA events (device ms per
+    frame; the host only launches the graphs) and by the host's clock
+    until the last launch returns (the host's ms per frame), then the same
+    frames under the profiler, split by kernel kind per frame."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from sesameai_tts_tpu_torch.models import csm
+
+    backbone, sample = gen._graphs[(1, "backbone", False)], gen._graphs[(1, "sample", False)]
+    state, bufs = gen._slot(1)
+
+    def frames():
+        for _ in range(GRAPH_STEP_FRAMES):
+            backbone.replay()
+            sample.replay()
+
+    with gen._request():
+        csm.set_sampling(bufs, 0.8, 40)
+        state.pos.fill_(_FRAME_CACHE_FILL)
+        frames()
+        state.pos.fill_(_FRAME_CACHE_FILL)
+        torch.cuda.synchronize()
+        ms = _events_ms(torch, frames) / GRAPH_STEP_FRAMES
+        state.pos.fill_(_FRAME_CACHE_FILL)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        frames()  # the launches return before the device ends
+        host_ms = (time.perf_counter() - t0) * 1e3 / GRAPH_STEP_FRAMES
+        torch.cuda.synchronize()
+        state.pos.fill_(_FRAME_CACHE_FILL)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            frames()
+            torch.cuda.synchronize()
+        csm.load_state(state)
+    kernels = _device_kernels(torch, prof)
+    result = {"frames": GRAPH_STEP_FRAMES, "cache_rows": _FRAME_CACHE_FILL,
+              "device_ms_per_frame_events": ms, "host_launch_ms_per_frame": host_ms}
+    if kernels:
+        result.update({
+            "profiled_kernel_ms_per_frame": sum(_dev_us(e) for e in kernels) / 1e3
+            / GRAPH_STEP_FRAMES,
+            "kernels_per_frame": sum(e.count for e in kernels) / GRAPH_STEP_FRAMES,
+            "split_per_frame": _split(kernels, GRAPH_STEP_FRAMES)})
+    else:
+        result["profiled"] = "no device kernels seen"
+    return result
+
+
+def _sampler_timing(torch) -> dict:
+    """The sampler's top-k threshold (the JAX package's 4-phase 32-way
+    bracket search, ``topk_threshold``) and a whole ``sample_topk`` with
+    tensor temperature and topk, as the sampled graph calls them, on one
+    (1, 2051) row: device µs per call by CUDA-graph replay, and per
+    decoded frame (K = 32 calls); ``torch.topk``'s k-th value beside."""
+    from sesameai_tts_tpu_torch.ops import sampling
+
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    logits = torch.randn((1, 2051), generator=gen, device="cuda") * 3
+    gumbel = sampling.gumbel_noise(gen, logits.shape)
+    k = torch.full((1,), 40, dtype=torch.int64, device="cuda")
+    temperature = torch.full((1,), 0.8, device="cuda")
+    calls = {
+        "topk_threshold": lambda i: sampling.topk_threshold(logits, k[..., None]),
+        "sample_topk": lambda i: sampling.sample_topk(None, logits, k, temperature,
+                                                      gumbel=gumbel),
+        "torch.topk kth value": lambda i: torch.topk(logits, 40).values[..., -1:],
+    }
+    out = {}
+    for name, fn in calls.items():
+        us = _device_ms(torch, fn, 64) * 1e3
+        out[name] = {"us_per_call": us, "ms_per_frame": us * 32 / 1e3}
+    return out
 
 
 def _sibling(gen, params, fused_mlp: bool = False):
@@ -955,6 +1239,15 @@ def _flash_entry(rows, launches: dict, cfg, peak_bw: float) -> dict:
     return entry
 
 
+def _graphed_vs_eager(paths: dict) -> dict:
+    """Each path's end-to-end numbers on the graphs beside the eager twin's."""
+    keys = ("ms_per_decoded_frame", "rtf", "first_chunk_ms", "peak_mem_gb")
+    return {path: {"graphed": {k: r[k] for k in keys}, "eager": {k: r["eager"][k] for k in keys},
+                   "capture_s": r["capture_s"], "memory_gb": r["memory_gb"],
+                   "clone_added_gb": r["graph_checks"]["clone"]["added_gb"]}
+            for path, r in paths.items()}
+
+
 def main() -> int:
     try:
         import torch
@@ -997,12 +1290,13 @@ def main() -> int:
             ("quant4_matmul", phase_quant4_matmul, quant),
             ("quant_mlp", phase_quant_mlp, quant),
             ("flash_attention", phase_flash_attention, attention))}
-        launches = {}
+        paths = {}
         for path, fields, per_frame, voice in _PATHS:
-            launches[path] = timed(f"main[{path}]", phase_main_path, torch, wrappers, path,
-                                   fields, per_frame, voice)["launches"]
-        launches["voice"] = timed("main[voice]", phase_voice_path, torch, wrappers,
-                                  _PATHS[0][2])["launches"]
+            paths[path] = timed(f"main[{path}]", phase_main_path, torch, wrappers, path,
+                                fields, per_frame, voice)
+        paths["voice"] = timed("main[voice]", phase_voice_path, torch, wrappers, _PATHS[0][2])
+        launches = {path: r["launches"] for path, r in paths.items()}
+        print("graphed vs eager " + json.dumps(_graphed_vs_eager(paths)), flush=True)
         timed("profile", phase_profile, torch, wrappers)
         timed("qa", phase_qa, torch)
         timed("parity", phase_parity, torch, attention)

@@ -3,10 +3,13 @@
 
 Plain functions over a parameter dict.  ``CSMState`` carries the backbone
 KV cache, which every call here updates IN PLACE, and the next position.
-Randomness comes from one ``torch.Generator`` per frame: the c0 draw
-first, then one ``(K-1, B, V)`` Gumbel draw for the codebook decoder.
-``decode_frames`` seeds frame i's generator from (utterance seed, absolute
-frame index) only, so every chunk schedule gives the same frames.
+``decode_step`` decodes one frame on static buffers (``DecodeBuffers``)
+and is what the Generator captures as CUDA graphs; ``decode_frames`` and
+``generate_frame`` run the same steps eagerly.  Randomness comes from one
+``torch.Generator`` seeded per frame from (utterance seed, absolute frame
+index) only (``frame_seed``), so every chunk schedule gives the same
+frames: the c0 draw first, then one ``(K-1, B, V)`` Gumbel draw for the
+codebook decoder.
 """
 
 from __future__ import annotations
@@ -19,7 +22,6 @@ import torch
 from sesameai_tts_tpu_torch.core.config import CSMConfig
 from sesameai_tts_tpu_torch.models.transformer import (
     KVCache,
-    clone_kv_cache,
     init_kv_cache,
     init_transformer_params,
     precompute_rope,
@@ -70,15 +72,27 @@ def init_state(cfg: CSMConfig, batch_size: int, dtype=None, device="cpu") -> CSM
     )
 
 
-def clone_state(state: CSMState) -> CSMState:
-    """A copy whose cache later in-place writes leave the original intact."""
-    return CSMState(cache=clone_kv_cache(state.cache), pos=state.pos.clone())
+def load_state(dst: CSMState, src: Optional[CSMState] = None) -> None:
+    """Overwrite ``dst`` in place with ``src`` (a cached voice context), or
+    with the zeros of ``init_state`` when ``src`` is None."""
+    if src is None:
+        for t in dst.cache.k + dst.cache.v:
+            t.zero_()
+        dst.pos.zero_()
+        return
+    for d, s in zip(dst.cache.k + dst.cache.v, src.cache.k + src.cache.v):
+        d.copy_(s)
+    dst.pos.copy_(src.pos)
+
+
+def frame_seed(seed: int, index: int) -> int:
+    """The noise seed of frame ``index`` of the utterance seeded ``seed``."""
+    return int(np.random.SeedSequence([seed % 2**64, index]).generate_state(1, np.uint64)[0])
 
 
 def frame_generator(seed: int, index: int, device) -> torch.Generator:
     """The generator of frame ``index`` of the utterance seeded ``seed``."""
-    mixed = np.random.SeedSequence([seed % 2**64, index]).generate_state(1, np.uint64)[0]
-    return torch.Generator(device=device).manual_seed(int(mixed))
+    return torch.Generator(device=device).manual_seed(frame_seed(seed, index))
 
 
 def embed_frames(params: dict, cfg: CSMConfig, tokens: torch.Tensor,
@@ -102,36 +116,85 @@ def _head_logits(h: torch.Tensor, head: torch.Tensor) -> torch.Tensor:
     return h.float() @ head.float()
 
 
+class DecodeBuffers(NamedTuple):
+    """The static inputs and outputs of one decode step at batch B, written
+    in place every frame, so that a CUDA graph captured over them serves
+    every frame of every request."""
+
+    frame: torch.Tensor  # (B, K) int64: the frame fed back in, the new frame out
+    done: torch.Tensor  # (B,) bool: EOS already hit, in and out
+    valid: torch.Tensor  # (B,) bool out: the new frame comes before EOS
+    last_h: torch.Tensor  # (B, D) the backbone's hidden state the frame is sampled from
+    temperature: torch.Tensor  # (B,) f32
+    topk: torch.Tensor  # (B,) int64
+    # the decoder's cache over the K codebook positions: every frame rewrites
+    # every position before causal attention reads it, so it is never zeroed
+    dec_cache: KVCache
+    dec_rope: torch.Tensor  # (K, hd/2, 2) the decoder's RoPE table
+
+
+def init_decode_buffers(params: dict, cfg: CSMConfig, batch_size: int,
+                        device="cpu") -> DecodeBuffers:
+    """Buffers for batch ``batch_size`` in the params' dtype; the sampling
+    parameters start at temperature 1, topk 1."""
+    dec, K = cfg.decoder, cfg.audio_num_codebooks
+    dtype = params["projection"].dtype
+    return DecodeBuffers(
+        frame=torch.zeros((batch_size, K), dtype=torch.int64, device=device),
+        done=torch.zeros(batch_size, dtype=torch.bool, device=device),
+        valid=torch.zeros(batch_size, dtype=torch.bool, device=device),
+        last_h=torch.zeros((batch_size, cfg.backbone.embed_dim), dtype=dtype, device=device),
+        temperature=torch.ones(batch_size, dtype=torch.float32, device=device),
+        topk=torch.ones(batch_size, dtype=torch.int64, device=device),
+        dec_cache=init_kv_cache(dec, batch_size, dtype, max_seq_len=K, device=device),
+        dec_rope=precompute_rope(dec, max_len=K, device=device),
+    )
+
+
+def is_greedy(topk) -> bool:
+    """A number ``topk <= 1`` samples by exact argmax; a per-row tensor
+    always takes the threshold (as ``sample_topk`` does)."""
+    return isinstance(topk, (int, np.integer)) and topk <= 1
+
+
+def set_sampling(bufs: DecodeBuffers, temperature, topk) -> None:
+    """Write a request's temperature and topk (numbers or per-row tensors)
+    into the buffers; a number is a fill, so no host copy is made."""
+    for buf, value in ((bufs.temperature, temperature), (bufs.topk, topk)):
+        if isinstance(value, torch.Tensor):
+            buf.copy_(value)
+        else:
+            buf.fill_(value)
+
+
 def _decode_codebooks(
     params: dict,
     cfg: CSMConfig,
-    last_h: torch.Tensor,  # (B, D_backbone)
+    bufs: DecodeBuffers,
     c0: torch.Tensor,  # (B,)
     generator: Optional[torch.Generator],
     temperature,
     topk,
     fused_mlp: bool = False,
 ) -> torch.Tensor:
-    """Run the decoder AR over codebooks 1..K-1 → (B, K-1) samples.  The
-    decoder cache is fresh every frame, positions 0..K-1."""
+    """Run the decoder AR over codebooks 1..K-1 from ``bufs.last_h`` →
+    (B, K-1) samples, positions 0..K-1 of ``bufs.dec_cache``."""
     dec = cfg.decoder
     K = cfg.audio_num_codebooks
-    B = last_h.shape[0]
-    dev = last_h.device
+    B = c0.shape[0]
+    dev = c0.device
     dtype = params["projection"].dtype
-    cache = init_kv_cache(dec, B, dtype, max_seq_len=K, device=dev)
-    rope_cs = precompute_rope(dec, max_len=K, device=dev)
 
     def dec_step(x, pos):
         pos0 = torch.full((B,), pos, dtype=torch.int64, device=dev)
-        h, _ = transformer_forward(params["decoder"], dec, x, pos0, cache, rope_cs,
-                                   fused_mlp=fused_mlp)
+        h, _ = transformer_forward(params["decoder"], dec, x, pos0, bufs.dec_cache,
+                                   bufs.dec_rope, fused_mlp=fused_mlp)
         return h[:, 0, :]
 
     # position 0: the projected backbone hidden; its output is unused
-    dec_step((last_h[:, None, :] @ params["projection"]).to(dtype), 0)
+    dec_step((bufs.last_h[:, None, :] @ params["projection"]).to(dtype), 0)
 
-    greedy = isinstance(topk, (int, np.integer)) and topk <= 1
+    greedy = is_greedy(topk)
     gumbels = None if greedy else gumbel_noise(generator, (K - 1, B, cfg.audio_vocab_size))
     prev_c = c0
     cs = []
@@ -143,6 +206,54 @@ def _decode_codebooks(
                              gumbel=None if greedy else gumbels[i])
         cs.append(prev_c)
     return torch.stack(cs, dim=1)
+
+
+def sample_step(params: dict, cfg: CSMConfig, bufs: DecodeBuffers,
+                generator: Optional[torch.Generator], greedy: bool,
+                fused_mlp: bool = False) -> None:
+    """Sample a frame from ``bufs.last_h`` (c0 from the backbone's head, then
+    codebooks 1..K-1 through the decoder) and apply the all-zero-frame EOS
+    rule in place: ``bufs.valid`` = not (done or EOS), ``bufs.done`` |= EOS,
+    ``bufs.frame`` = the frame, zeros once invalid.  A sampled step reads
+    ``bufs.temperature`` and ``bufs.topk`` and draws the c0 noise, then one
+    ``(K-1, B, V)`` block, from ``generator``; a greedy one draws nothing."""
+    temperature, topk = (1.0, 1) if greedy else (bufs.temperature, bufs.topk)
+    c0 = sample_topk(generator, _head_logits(bufs.last_h, params["codebook0_head"]),
+                     topk, temperature)
+    cs = _decode_codebooks(params, cfg, bufs, c0, generator, temperature, topk, fused_mlp)
+    frame = torch.cat([c0[:, None], cs], dim=1)
+    is_eos = (frame == 0).all(dim=-1)
+    torch.logical_not(bufs.done | is_eos, out=bufs.valid)
+    bufs.done.logical_or_(is_eos)
+    # post-EOS steps still run; their outputs are masked to zeros
+    bufs.frame.copy_(torch.where(bufs.valid[:, None], frame, 0))
+
+
+def backbone_step(params: dict, cfg: CSMConfig, state: CSMState, bufs: DecodeBuffers,
+                  rope_cs: torch.Tensor, fused_mlp: bool = False) -> None:
+    """Feed ``bufs.frame`` back through the backbone at ``state.pos`` →
+    ``bufs.last_h``; the KV cache is written and ``state.pos`` advances by
+    one, both in place."""
+    B, K = bufs.frame.shape
+    text = torch.zeros((B, 1, 1), dtype=bufs.frame.dtype, device=bufs.frame.device)
+    tokens = torch.cat([bufs.frame[:, None, :], text], dim=-1)
+    last_h, _ = backbone_last_hidden(params, cfg, state, tokens,
+                                     _feedback_mask(B, K, tokens.device), rope_cs=rope_cs,
+                                     fused_mlp=fused_mlp)
+    bufs.last_h.copy_(last_h)
+    state.pos.add_(1)
+
+
+def decode_step(params: dict, cfg: CSMConfig, state: CSMState, bufs: DecodeBuffers,
+                generator: Optional[torch.Generator], greedy: bool, rope_cs: torch.Tensor,
+                fused_mlp: bool = False) -> None:
+    """One decoded frame on static buffers (the body of the JAX package's
+    ``decode_frames`` scan): ``backbone_step`` then ``sample_step``.  It
+    allocates nothing that outlives it, copies nothing from the host and
+    reads the sampling parameters from ``bufs``, so a CUDA graph can
+    capture it."""
+    backbone_step(params, cfg, state, bufs, rope_cs, fused_mlp)
+    sample_step(params, cfg, bufs, generator, greedy, fused_mlp)
 
 
 def extend_state(params: dict, cfg: CSMConfig, state: CSMState, tokens: torch.Tensor,
@@ -157,6 +268,34 @@ def extend_state(params: dict, cfg: CSMConfig, state: CSMState, tokens: torch.Te
     _, cache = transformer_forward(params["backbone"], bb, x, state.pos, state.cache,
                                    rope_cs, valid_len=valid_len)
     return CSMState(cache=cache, pos=state.pos + (valid_len if valid_len is not None else S))
+
+
+def backbone_last_hidden(
+    params: dict,
+    cfg: CSMConfig,
+    state: CSMState,
+    tokens: torch.Tensor,  # (B, S, K+1)
+    tokens_mask: torch.Tensor,  # (B, S, K+1)
+    valid_len: Optional[torch.Tensor] = None,  # (B,) for right-padded prefill
+    rope_cs: Optional[torch.Tensor] = None,
+    fused_mlp: bool = False,
+) -> Tuple[torch.Tensor, CSMState]:
+    """The backbone over a window of rows → ((B, D) hidden state of each
+    row's last valid row, new state); the cache is written in place."""
+    bb = cfg.backbone
+    B, S, _ = tokens.shape
+    if rope_cs is None:
+        rope_cs = precompute_rope(bb, device=tokens.device)
+    x = embed_frames(params, cfg, tokens, tokens_mask).to(params["projection"].dtype)
+    h, cache = transformer_forward(params["backbone"], bb, x, state.pos, state.cache,
+                                   rope_cs, valid_len=valid_len, fused_mlp=fused_mlp)
+    if valid_len is None:
+        return h[:, -1, :], CSMState(cache=cache, pos=state.pos + S)
+    # clamp: a valid_len=0 row (an idle slot of a batched prefill) would
+    # gather row -1; its output is meaningless but must be defined
+    idx = torch.clamp_min(valid_len - 1, 0)
+    return h[torch.arange(B, device=h.device), idx], CSMState(cache=cache,
+                                                              pos=state.pos + valid_len)
 
 
 def generate_frame(
@@ -175,28 +314,13 @@ def generate_frame(
     """One frame of K codes from a window of input rows (prefill: S prompt
     rows; decode: S=1 feedback row) → ((B, K) frame, new state).
     ``fused_mlp`` sends the int8 MLPs to the fused ``quant_mlp`` kernel."""
-    bb = cfg.backbone
-    B, S, _ = tokens.shape
-    if rope_cs is None:
-        rope_cs = precompute_rope(bb, device=tokens.device)
-    x = embed_frames(params, cfg, tokens, tokens_mask).to(params["projection"].dtype)
-    h, cache = transformer_forward(params["backbone"], bb, x, state.pos, state.cache,
-                                   rope_cs, valid_len=valid_len, fused_mlp=fused_mlp)
-    if valid_len is None:
-        last_h = h[:, -1, :]
-        new_pos = state.pos + S
-    else:
-        # clamp: a valid_len=0 row (an idle slot of a batched prefill)
-        # would gather row -1; its output is meaningless but must be defined
-        idx = torch.clamp_min(valid_len - 1, 0)
-        last_h = h[torch.arange(B, device=h.device), idx]
-        new_pos = state.pos + valid_len
-
-    c0 = sample_topk(generator, _head_logits(last_h, params["codebook0_head"]),
-                     topk, temperature)
-    cs = _decode_codebooks(params, cfg, last_h, c0, generator, temperature, topk, fused_mlp)
-    frame = torch.cat([c0[:, None], cs], dim=1)
-    return frame, CSMState(cache=cache, pos=new_pos)
+    last_h, state = backbone_last_hidden(params, cfg, state, tokens, tokens_mask, valid_len,
+                                         rope_cs, fused_mlp)
+    bufs = init_decode_buffers(params, cfg, tokens.shape[0], tokens.device)
+    set_sampling(bufs, temperature, topk)
+    bufs.last_h.copy_(last_h)
+    sample_step(params, cfg, bufs, generator, is_greedy(topk), fused_mlp)
+    return bufs.frame, state
 
 
 def _feedback_mask(B: int, K: int, device) -> torch.Tensor:
@@ -220,34 +344,30 @@ def decode_frames(
     start_index: int = 0,
     fused_mlp: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, CSMState]:
-    """Generate ``num_frames`` more frames on the device, the all-zero-frame
-    EOS rule applied as masking.  Frame ``start_index + i`` draws its noise
-    from ``frame_generator(seed, start_index + i)``.
+    """Generate ``num_frames`` more frames on the device, eagerly, one
+    ``decode_step`` each, the all-zero-frame EOS rule applied as masking.
+    Frame ``start_index + i`` draws its noise from ``frame_generator(seed,
+    start_index + i)``.  The cache is written in place; ``state.pos`` is not.
 
     Returns (frames (T, B, K), valid (T, B) bool, done (B,), new state)."""
-    K = cfg.audio_num_codebooks
     B = prev_frame.shape[0]
     dev = prev_frame.device
     if rope_cs is None:
         rope_cs = precompute_rope(cfg.backbone, device=dev)
-    mask_row = _feedback_mask(B, K, dev)
-    zero_text = torch.zeros((B, 1, 1), dtype=prev_frame.dtype, device=dev)
-    frame, done = prev_frame, prev_done
+    bufs = init_decode_buffers(params, cfg, B, dev)
+    set_sampling(bufs, temperature, topk)
+    bufs.frame.copy_(prev_frame)
+    bufs.done.copy_(prev_done)
+    state = CSMState(cache=state.cache, pos=state.pos.clone())
+    generator = torch.Generator(device=dev)
+    greedy = is_greedy(topk)
     frames, valids = [], []
     for i in range(num_frames):
-        tokens = torch.cat([frame[:, None, :], zero_text], dim=-1)
-        gen = frame_generator(seed, start_index + i, dev)
-        new_frame, state = generate_frame(params, cfg, state, tokens, mask_row, gen,
-                                          temperature, topk, rope_cs=rope_cs,
-                                          fused_mlp=fused_mlp)
-        is_eos = (new_frame == 0).all(dim=-1)
-        valid = ~(done | is_eos)
-        done = done | is_eos
-        # post-EOS steps still run; their outputs are masked to zeros
-        frame = torch.where(valid[:, None], new_frame, 0)
-        frames.append(frame)
-        valids.append(valid)
-    return torch.stack(frames), torch.stack(valids), done, state
+        generator.manual_seed(frame_seed(seed, start_index + i))
+        decode_step(params, cfg, state, bufs, generator, greedy, rope_cs, fused_mlp)
+        frames.append(bufs.frame.clone())
+        valids.append(bufs.valid.clone())
+    return torch.stack(frames), torch.stack(valids), bufs.done.clone(), state
 
 
 def teacher_forced_eval(
@@ -260,25 +380,23 @@ def teacher_forced_eval(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Greedy decode with the feedback forced to ``teacher`` → ((T, B, K)
     greedy frames, (T, B, V) f32 codebook-0 logits)."""
-    bb = cfg.backbone
     K = cfg.audio_num_codebooks
     B = teacher.shape[1]
     dev = teacher.device
     if rope_cs is None:
-        rope_cs = precompute_rope(bb, device=dev)
+        rope_cs = precompute_rope(cfg.backbone, device=dev)
     mask_row = _feedback_mask(B, K, dev)
     zero_text = torch.zeros((B, 1, 1), dtype=teacher.dtype, device=dev)
+    bufs = init_decode_buffers(params, cfg, B, dev)
     frames, logits_all = [], []
     for fin in teacher:
         tokens = torch.cat([fin[:, None, :], zero_text], dim=-1)
-        x = embed_frames(params, cfg, tokens, mask_row).to(params["projection"].dtype)
-        h, cache = transformer_forward(params["backbone"], bb, x, state.pos, state.cache,
-                                       rope_cs, fused_mlp=fused_mlp)
-        last_h = h[:, -1, :]
+        last_h, state = backbone_last_hidden(params, cfg, state, tokens, mask_row,
+                                             rope_cs=rope_cs, fused_mlp=fused_mlp)
+        bufs.last_h.copy_(last_h)
         c0_logits = _head_logits(last_h, params["codebook0_head"])
         c0 = c0_logits.argmax(dim=-1)
-        cs = _decode_codebooks(params, cfg, last_h, c0, None, 1.0, 1, fused_mlp)
+        cs = _decode_codebooks(params, cfg, bufs, c0, None, 1.0, 1, fused_mlp)
         frames.append(torch.cat([c0[:, None], cs], dim=1))
         logits_all.append(c0_logits)
-        state = CSMState(cache=cache, pos=state.pos + 1)
     return torch.stack(frames), torch.stack(logits_all)

@@ -86,10 +86,6 @@ def init_kv_cache(cfg: TransformerConfig, batch_size: int, dtype=None,
     )
 
 
-def clone_kv_cache(cache: KVCache) -> KVCache:
-    return KVCache(k=[t.clone() for t in cache.k], v=[t.clone() for t in cache.v])
-
-
 def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
     """f32 island, cast back to x.dtype, then times the scale."""
     xf = x.float()

@@ -46,10 +46,14 @@ def topk_threshold(logits: torch.Tensor, k, iters: int = _DEFAULT_PHASES) -> tor
 
 
 def gumbel_noise(generator: torch.Generator, shape: Sequence[int]) -> torch.Tensor:
-    """Standard Gumbel f32 noise on the generator's device."""
+    """Standard Gumbel f32 noise on the generator's device.  The two logs
+    run in f64: the CPU build's f32 ``log`` of a tensor large enough to be
+    split across threads gave results ~1e-5 apart on the same input in two
+    calls of one process (one that also runs JAX), so one seed drew two
+    different noises."""
     u = torch.rand(tuple(shape), generator=generator, device=generator.device)
-    u = u.clamp_min_(torch.finfo(torch.float32).tiny)
-    return -torch.log(-torch.log(u))
+    u = u.clamp_min_(torch.finfo(torch.float32).tiny).double()
+    return (-torch.log(-torch.log(u))).float()
 
 
 def sample_topk(

@@ -77,11 +77,11 @@ def teacher_forced_agreement(gen_q, gen_ref, text: str, steps: int = 100,
 
     def _tf(gen):
         # greedy (topk=1) draws no noise: the seed only names the generator
-        _, state, _, _, _ = gen._prefill_utterance(text, speaker, [], None, steps + 2, 1.0, 1,
-                                                   seed=0)
-        frames, logits = csm_model.teacher_forced_eval(
-            gen._params, cfg, state, torch.from_numpy(teacher).to(gen.device),
-            rope_cs=gen._rope, fused_mlp=gen._fused_mlp)
+        with gen._request():
+            gen._prefill_utterance(text, speaker, [], None, steps + 2, 1.0, 1, seed=0)
+            frames, logits = csm_model.teacher_forced_eval(
+                gen._params, cfg, gen._slot(1).state, torch.from_numpy(teacher).to(gen.device),
+                rope_cs=gen._rope, fused_mlp=gen._fused_mlp)
         return (frames[:n_real, 0].cpu().numpy(),
                 logits[:n_real, 0].float().cpu().numpy())
 

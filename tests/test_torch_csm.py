@@ -1,6 +1,10 @@
 """Port CSM model vs ``sesameai_tts_tpu/models/csm.py`` at ``csm_test_tiny``
-in f32: greedy ``generate_frame`` and ``decode_frames`` frames are equal,
-dense and int8-quantized, and teacher-forced codebook-0 logits agree."""
+in f32: greedy ``generate_frame``, ``decode_frames`` and the static-buffer
+``decode_step`` (what the Generator captures as CUDA graphs) give equal
+frames, dense and int8-quantized, and teacher-forced codebook-0 logits
+agree.  In the port: sampled frames depend only on (seed, frame index),
+equal those of one ``generate_frame`` per frame, and do not change when
+temperature and topk come as tensors."""
 
 import jax
 import jax.numpy as jnp
@@ -14,6 +18,7 @@ from sesameai_tts_tpu.ops.quant import quantize_csm as j_quantize
 from sesameai_tts_tpu_torch.convert import from_jax_params
 from sesameai_tts_tpu_torch.core.config import csm_test_tiny as t_tiny
 from sesameai_tts_tpu_torch.models import csm as tm
+from sesameai_tts_tpu_torch.models.transformer import KVCache, precompute_rope
 
 # f32 logits: the same arithmetic summed in another order
 RTOL = 1e-5
@@ -131,3 +136,76 @@ def test_bf16_head_logits_stay_f32():
     got = tm._head_logits(h, head)
     assert got.dtype == torch.float32
     torch.testing.assert_close(got, h.double().matmul(head.double()).float(), rtol=1e-6, atol=1e-5)
+
+
+def test_decode_step_on_static_buffers_greedy_equals_jax(params):
+    """Five ``decode_step`` calls on one set of buffers give JAX
+    ``decode_frames``' greedy frames, and advance the position in place.
+    The decoder cache starts as garbage: each frame writes every position
+    before causal attention reads it, so it is never zeroed."""
+    jp, tp = params
+    (jf, js), (tf, ts) = _prefill(jp, tp)
+    j_frames, j_valid, j_done, _ = jm.decode_frames(
+        jp, j_tiny(), js, jf, jnp.zeros((2,), bool), jax.random.PRNGKey(1), 5, 1.0, 1,
+        start_index=1
+    )
+    cfg = t_tiny()
+    bufs = tm.init_decode_buffers(tp, cfg, 2)
+    garbage = torch.Generator().manual_seed(0)
+    for t in bufs.dec_cache.k + bufs.dec_cache.v:
+        t.copy_(torch.randn(t.shape, generator=garbage) * 1e3)
+    bufs.frame.copy_(tf)
+    rope = precompute_rope(cfg.backbone)
+    frames, valid = [], []
+    for _ in range(5):
+        tm.decode_step(tp, cfg, ts, bufs, None, True, rope)
+        frames.append(bufs.frame.clone())
+        valid.append(bufs.valid.clone())
+    np.testing.assert_array_equal(torch.stack(frames).numpy(), np.asarray(j_frames))
+    np.testing.assert_array_equal(torch.stack(valid).numpy(), np.asarray(j_valid))
+    np.testing.assert_array_equal(bufs.done.numpy(), np.asarray(j_done))
+    assert ts.pos.tolist() == [12, 12]
+
+
+def _copy(state):
+    return tm.CSMState(KVCache([t.clone() for t in state.cache.k],
+                               [t.clone() for t in state.cache.v]), state.pos.clone())
+
+
+def test_sampled_frames_equal_one_generate_frame_per_frame(params):
+    """``decode_frames`` (one generator reseeded per frame, static buffers)
+    gives the frames of the path it replaced: ``generate_frame`` on each
+    feedback row with a fresh ``frame_generator(seed, i)`` and a fresh
+    decoder cache, the EOS masking written out."""
+    _, tp = params
+    cfg = t_tiny()
+    tf, ts = _prefill_port(tp)
+    state = _copy(ts)
+    frame, done, want = tf, torch.zeros(2, dtype=torch.bool), []
+    for i in range(6):
+        tokens = torch.cat([frame[:, None, :], torch.zeros((2, 1, 1), dtype=frame.dtype)], -1)
+        new, state = tm.generate_frame(tp, cfg, state, tokens, tm._feedback_mask(2, K, "cpu"),
+                                       tm.frame_generator(9, 1 + i, "cpu"), 0.9, 5)
+        eos = (new == 0).all(dim=-1)
+        valid = ~(done | eos)
+        done = done | eos
+        frame = torch.where(valid[:, None], new, 0)
+        want.append(frame)
+    got, _, _, got_state = tm.decode_frames(tp, cfg, ts, tf, torch.zeros(2, dtype=torch.bool),
+                                            9, 6, 0.9, 5, start_index=1)
+    assert torch.equal(got, torch.stack(want))
+    assert torch.equal(got_state.pos, state.pos)
+
+
+def test_tensor_temperature_and_topk_give_the_frames_of_numbers(params):
+    """Per-row tensors (what the captured sampled step reads from its
+    buffers) and numbers give the same sampled frames."""
+    _, tp = params
+    cfg = t_tiny()
+    tf, ts = _prefill_port(tp)
+    copy = _copy(ts)
+    done = torch.zeros(2, dtype=torch.bool)
+    by_number, _, _, _ = tm.decode_frames(tp, cfg, ts, tf, done, 9, 4, 0.9, 5, start_index=1)
+    by_tensor, _, _, _ = tm.decode_frames(tp, cfg, copy, tf, done, 9, 4, torch.full((2,), 0.9),
+                                          torch.full((2,), 5), start_index=1)
+    assert torch.equal(by_number, by_tensor)

@@ -21,7 +21,7 @@ bad = sorted(k for k in sys.modules
              if k == "jax" or k.startswith("jax.") or k == "jaxlib"
              or k == "sesameai_tts_tpu" or k.startswith("sesameai_tts_tpu."))
 for want in ("runtime.qa", "ops.kernels", "ops.attention", "audio.io", "audio.resample",
-             "service.voices", "service.tts", "runtime.context"):
+             "service.voices", "service.tts", "runtime.context", "runtime.graphs"):
     assert "sesameai_tts_tpu_torch." + want in names, (want, names)
 print(len(names), bad)
 """

@@ -443,3 +443,59 @@ def test_flash_attention_rejects_bad_inputs(cuda):
         ta.flash_attention(qbuf[..., :512].view(1, 4, 8, 64).transpose(1, 2), k, v, p0, ve)
     with pytest.raises(ValueError):  # 64 heads on one KV head: more than a block holds
         ta.flash_attention(*_attn_inputs(cuda, 1, 64, 1, 1, 64, 128, torch.bfloat16), p0, ve)
+
+
+@pytest.mark.gpu
+def test_a_graph_replay_counts_the_launches_its_capture_recorded(cuda):
+    from sesameai_tts_tpu_torch.runtime import graphs
+
+    q, k, v = _attn_inputs(cuda, 1, 8, 2, 1, 64, 64, torch.bfloat16)
+    p0, ve = torch.tensor([10], device="cuda"), torch.tensor([11], device="cuda")
+    out = torch.empty((1, 8, 1, 64), dtype=torch.bfloat16, device="cuda")
+    side = torch.cuda.Stream()
+    captured = graphs.capture(lambda: out.copy_(ta.flash_attention(q, k, v, p0, ve)), side,
+                              torch.cuda.graph_pool_handle())
+    before = ta.flash_attention.launches
+    want = ta.flash_attention(q, k, v, p0, ve)
+    out.zero_()
+    for _ in range(3):
+        captured.replay()
+    torch.cuda.synchronize()
+    assert captured.launches == {ta.flash_attention: 1}
+    assert ta.flash_attention.launches - before == 1 + 3
+    assert torch.equal(out, want)
+
+
+@pytest.mark.gpu
+def test_graphed_tiny_generator_equals_its_eager_step(cuda):
+    """The tiny f32 model on the card: frames from the graph replays equal
+    ``csm.generate_frame`` + ``csm.decode_frames`` run eagerly on the card,
+    greedy and sampled, and each decoded frame replays the trunk's
+    attention launches."""
+    import numpy as np
+
+    from sesameai_tts_tpu_torch.models import csm
+    from sesameai_tts_tpu_torch.runtime.loader import build_generator, test_tiny_spec
+
+    gen = build_generator(test_tiny_spec(), device="cuda", decode_chunk_frames=3)
+    cfg = gen._cfg
+    text = "the quick brown fox"
+    for temperature, topk, seed in ((1.0, 1, 0), (0.9, 5, 3), (0.6, 20, 4)):
+        graphed = gen.generate_frames(text, 0, [], max_audio_length_ms=640,
+                                      temperature=temperature, topk=topk, seed=seed)
+        tokens, mask = gen._tokenize_prompt(text, 0, [])
+        tok, msk, valid_len = gen._padded(tokens, mask, 64)
+        state = csm.init_state(cfg, 1, torch.float32, device="cuda")
+        frame, state = csm.generate_frame(gen._prefill_params, cfg, state, tok, msk,
+                                          csm.frame_generator(seed, 0, "cuda"), temperature,
+                                          topk, valid_len=valid_len, rope_cs=gen._rope)
+        rest, valid, _, _ = csm.decode_frames(gen._params, cfg, state, frame,
+                                              (frame == 0).all(-1), seed, 7, temperature, topk,
+                                              rope_cs=gen._rope, start_index=1)
+        frames = torch.cat([frame[None], rest])[:, 0]
+        keep = torch.cat([~(frame == 0).all(-1)[None], valid])[:, 0]
+        np.testing.assert_array_equal(graphed, frames[keep].cpu().numpy())
+    per_frame = cfg.backbone.num_layers + cfg.audio_num_codebooks * cfg.decoder.num_layers
+    replayed = sum(gen._graphs[(1, part, False)].launches.get(ta.flash_attention, 0)
+                   for part in ("backbone", "sample"))
+    assert replayed == per_frame

@@ -79,3 +79,43 @@ def test_drawn_noise_is_gumbel_and_seeded_per_frame():
     # standard Gumbel: mean = Euler–Mascheroni, variance = π²/6
     assert abs(a.mean().item() - 0.5772) < 0.01
     assert abs(a.var().item() - np.pi**2 / 6) < 0.03
+
+
+@pytest.mark.parametrize("as_tensors", [False, True])
+@pytest.mark.parametrize("temperature,k", [(0.7, 10), (1.3, 5)])
+def test_chi_square_against_exact_distribution(temperature, k, as_tensors):
+    """Counterpart of tests/test_sampling.py's χ² test: N rows of one
+    logits vector sampled with the noise of one ``frame_generator`` (the
+    one noise source the port keeps; the decode reseeds one generator per
+    frame with the same seed), temperature and topk as numbers or as the
+    per-row tensors the captured decode step reads."""
+    V, N = 50, 20_000
+    logits = np.random.default_rng(4).standard_normal(V).astype(np.float32) * 2.0
+    scaled = logits.astype(np.float64) / temperature
+    masked = np.where(scaled < np.sort(scaled)[-k], -np.inf, scaled)
+    p = np.exp(masked - masked.max())
+    p /= p.sum()
+
+    rows = torch.from_numpy(logits).expand(N, V)
+    if as_tensors:
+        topk, temp = torch.full((N,), k), torch.full((N,), temperature)
+    else:
+        topk, temp = k, temperature
+    draws = ts.sample_topk(frame_generator(5, 0, "cpu"), rows, topk, temp).numpy()
+    counts = np.bincount(draws, minlength=V)
+    support = p > 0
+    assert counts[~support].sum() == 0  # never outside the top k
+    chi2 = np.sum((counts[support] - N * p[support]) ** 2 / (N * p[support]))
+    assert chi2 < 30.0, f"chi2={chi2:.1f} (df={k - 1})"
+
+
+@pytest.mark.parametrize("temperature,k", [(0.7, 3), (1.3, 66), (0.9, 500)])
+def test_tensor_temperature_and_topk_sample_as_numbers(temperature, k):
+    """The tensor branch (what the captured decode step runs) draws what
+    the number branch draws, at every topk: below, at and above V."""
+    logits, g = _logits(7, (4, 67))
+    got = ts.sample_topk(None, torch.from_numpy(logits), torch.full((4,), k),
+                         torch.full((4,), temperature), gumbel=torch.from_numpy(g))
+    want = ts.sample_topk(None, torch.from_numpy(logits), k, temperature,
+                          gumbel=torch.from_numpy(g))
+    assert torch.equal(got, want)
