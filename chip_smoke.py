@@ -35,7 +35,12 @@ Phases, each of which fails the run if it fails:
    requests on an eager twin of the Generator, timed beside the graphed
    ones.  Then each configuration's profiled windows (device busy share,
    kernel mix), graphed and eager, the graphed step's device time by CUDA
-   events and the sampler's threshold search alone;
+   events and the sampler's threshold search alone.  Before the profiled
+   windows, ``main[cli]``: the command line from files (a 6.2 GB CSM-1B
+   checkpoint written and read back bit-equal, a Llama-3-format
+   tokenizer.json, a Mimi ``save_pytree`` file, a voice) speaks two
+   sentences into a watermarked WAV; its launches, the WAV, the watermark
+   and greedy frames against a Generator built in memory are checked;
 5. QA at full width: teacher-forced agreement of the int4 generator with
    the dense twin of its own tree, and of the fused generator with the
    unfused one, against thresholds; the int8 and int4 acceptance reports
@@ -152,6 +157,18 @@ VOICE_TRANSCRIPTS = (
     "A second clip adds more of the same speaker.",
 )
 TEXT_3 = "The rolling context keeps the voice and the dialog."
+
+# main[cli]: the command line's two sentences, each capped at CLI_MAX_MS (random
+# weights rarely end a sentence early, so each is about that long); the greedy
+# check's cap.  Each sentence is marked on its own grid, as in the JAX package,
+# so a decode of the whole WAV finds one sentence's mark among the other's
+# audio: on one H100 80GB HBM3 at 700 W two 12.6 s clips verified alone at
+# 7.0 / 6.6 and the WAV at 3.87 (threshold 4; the JAX package's checker reads
+# the same file the same way).  Each sentence's stretch of the WAV is checked.
+CLI_SENTENCES = ("The command line reads its weights from files.",
+                 "Then it speaks with the voice it was given.")
+CLI_MAX_MS = 12_000
+GREEDY_MS = 1600
 
 QA_TEXT = "Teacher forcing holds two generators to one trajectory of frames."
 QA_STEPS = 32  # the gated pairs
@@ -894,6 +911,265 @@ def phase_voice_path(torch, wrappers, per_frame: dict):
     return result
 
 
+def _tokenizer_backend(tok) -> dict:
+    """Which tokenizer backend loaded, and whether it tokenizes as Llama-3
+    does everywhere (the native BPE without ``regex`` approximates the
+    pretokenizer off ASCII)."""
+    from sesameai_tts_tpu_torch.tokenizer import native_bpe, text
+
+    if isinstance(tok, native_bpe.NativeBPETokenizer):
+        return {"backend": "native_bpe", "exact": native_bpe.has_exact_pretokenizer()}
+    return {"backend": type(tok).__name__, "exact": isinstance(tok, text.HFTokenizer)}
+
+
+def _confidence(wm, audio, rate: int) -> float:
+    """The verify statistic of the CSM key in 24 kHz audio (``verify``
+    thresholds it at ``wm.verify_threshold``)."""
+    from sesameai_tts_tpu_torch.audio.resample import resample
+    from sesameai_tts_tpu_torch.watermark import dsp
+
+    return wm.decode_wav(resample(audio, rate, dsp.WATERMARK_RATE), dsp.WATERMARK_RATE,
+                         phase_shift_decoding=True,
+                         expected_message=dsp.CSM_1B_WATERMARK)["confidence"]
+
+
+def _watermark_timing(torch, wm, audio, rate: int) -> dict:
+    """ms per second of audio of ``watermark`` and ``verify`` on the card
+    (the host's 24 ↔ 44.1 kHz resampling included), and of the on-card
+    embed and decode alone at 44.1 kHz, best of 3 (the first call of each
+    is a warm-up)."""
+    from sesameai_tts_tpu_torch.audio.resample import resample
+    from sesameai_tts_tpu_torch.watermark import api, dsp
+
+    key, sr = dsp.CSM_1B_WATERMARK, dsp.WATERMARK_RATE
+    x44 = resample(audio, rate, sr)
+    calls = {
+        "watermark": lambda: api.watermark(wm, audio, rate, key),
+        "verify": lambda: api.verify(wm, audio, rate, key),
+        "encode_wav_44k": lambda: wm.encode_wav(x44, sr, key, message_sdr=30.0),
+        "decode_wav_44k": lambda: wm.decode_wav(x44, sr, phase_shift_decoding=True,
+                                                expected_message=key),
+    }
+    out = {}
+    for name, fn in calls.items():
+        fn()
+        best = math.inf
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()  # returns host numpy: the device work has ended
+            best = min(best, time.perf_counter() - t0)
+        out[name] = best * 1e3 / (len(audio) / rate)
+    return out
+
+
+def phase_cli(torch, wrappers, per_frame: dict):
+    """The port's command line at CSM-1B width on the card, from files:
+    CSM-1B parameters drawn from seed 0 (f32) → ``save_csm_checkpoint`` into
+    ``<tmp>/csm/model.safetensors`` beside the port's Llama-3-format
+    ``bench_tokenizer.json`` as ``tokenizer.json``; bf16 Mimi parameters →
+    ``save_pytree``; a voice of two synthesized clips.  The checkpoint loads
+    back bit-equal to the bf16 cast of the drawn parameters.  Then
+    ``service.cli.main`` (int8 and the watermark, as its defaults) speaks two
+    sentences with that voice into a WAV; launch counts, the WAV (24 kHz
+    mono, each sentence audible past its lead-in, no silent fallback,
+    verified as watermarked; the same request unmarked does not verify) and
+    greedy frames of a Generator built from the checkpoint against one
+    built from the drawn parameters in memory are checked."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from sesameai_tts_tpu_torch.audio.io import read_wav, write_wav
+    from sesameai_tts_tpu_torch.codec.mimi import Mimi, MimiConfig
+    from sesameai_tts_tpu_torch.convert import to_device, tree_map
+    from sesameai_tts_tpu_torch.core import weights
+    from sesameai_tts_tpu_torch.core.config import csm_1b
+    from sesameai_tts_tpu_torch.models.csm import init_csm_params
+    from sesameai_tts_tpu_torch.ops.quant import quantize_csm
+    from sesameai_tts_tpu_torch.runtime.generator import Generator
+    from sesameai_tts_tpu_torch.service import cli, tts
+    from sesameai_tts_tpu_torch.watermark import api
+
+    cfg = csm_1b()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_cli_")
+    result = {"tmp_free_gb": shutil.disk_usage(tmp).free / 1e9}
+    seen = {"requests": []}
+    saved = tts.TTS.load_model, tts.TTS.generate_audio_segment, tts.TTS.export_wav
+    try:
+        # the files
+        t0 = time.perf_counter()
+        params = init_csm_params(cfg, torch.Generator().manual_seed(0), torch.float32)
+        result["draw_s"] = time.perf_counter() - t0
+        csm_dir = os.path.join(tmp, "csm")
+        os.makedirs(csm_dir)
+        t0 = time.perf_counter()
+        weights.save_csm_checkpoint(os.path.join(csm_dir, "model.safetensors"), params)
+        result["save_s"] = time.perf_counter() - t0
+        result["checkpoint_gb"] = os.path.getsize(os.path.join(csm_dir, "model.safetensors")) / 1e9
+        shutil.copy(os.path.join(HERE, "sesameai_tts_tpu_torch", "assets", "bench_tokenizer.json"),
+                    os.path.join(csm_dir, "tokenizer.json"))
+        mimi = Mimi(MimiConfig())
+        mimi_params = mimi.init(torch.Generator().manual_seed(1), torch.bfloat16)
+        mimi_path = os.path.join(tmp, "mimi.safetensors")
+        weights.save_pytree(mimi_path, mimi_params)
+        voices = _write_voice(tmp)
+
+        # the round trip: bit-equal after the same cast
+        bf16 = tree_map(lambda t: t.to(torch.bfloat16), params)
+        del params
+        t0 = time.perf_counter()
+        loaded = weights.load_csm_checkpoint(csm_dir, cfg, torch.bfloat16)
+        result["load_s"] = time.perf_counter() - t0
+        want, got = [], []
+        tree_map(want.append, bf16)
+        tree_map(got.append, loaded)
+        equal = len(want) == len(got) and all(
+            a.dtype == b.dtype and a.shape == b.shape and torch.equal(a, b)
+            for a, b in zip(want, got))
+        result["checkpoint_bit_equal"] = equal
+        del loaded, want, got
+        gc.collect()
+        _check(equal, "cli: the checkpoint read back differs from the parameters written")
+
+        # the command line, with the engine and its sentences observed
+        def load_model(self):
+            seen["engine"] = self
+            t0 = time.perf_counter()
+            saved[0](self)
+            torch.cuda.synchronize()
+            seen["build_s"] = time.perf_counter() - t0
+
+        def generate_audio_segment(self, prompt, *a, **kw):
+            t0 = time.perf_counter()
+            clip = saved[1](self, prompt, *a, **kw)
+            seen["requests"].append((prompt, time.perf_counter() - t0,
+                                     len(clip.samples) / clip.sample_rate))
+            return clip
+
+        def export_wav(self, *a, **kw):
+            seen["clips"] = saved[2](self, *a, **kw)
+            return seen["clips"]
+
+        tts.TTS.load_model = load_model
+        tts.TTS.generate_audio_segment = generate_audio_segment
+        tts.TTS.export_wav = export_wav
+        out_wav = os.path.join(tmp, "out.wav")
+        argv = ["--model-path", csm_dir, "--mimi-path", mimi_path, "--voices", voices,
+                "-v", "clone", "--seed", "0", "--max-ms", str(CLI_MAX_MS), "--output", out_wav,
+                " ".join(CLI_SENTENCES)]
+        _reset_counts(wrappers)
+        t0 = time.perf_counter()
+        cli.main(argv)
+        torch.cuda.synchronize()
+        result["cli_s"] = time.perf_counter() - t0
+        launches = _counts(wrappers)
+        tts.TTS.load_model, tts.TTS.generate_audio_segment, tts.TTS.export_wav = saved
+        engine, gen = seen["engine"], seen["engine"].generator
+        summary = gen.metrics.summary()
+        decoded = int(summary["decoded_frames"]["total"])
+        prefills = summary["prefill_s"]["count"]
+        # the decode graphs were captured inside the CLI's first request:
+        # each capture's eager warm-up call launched what one replay does
+        warm = {}
+        for g in gen._graphs.values():
+            for fn, n in g.launches.items():
+                warm[fn.__name__] = warm.get(fn.__name__, 0) + n
+        want_attention = _attention_launches(cfg, decoded, prefills, extends=1)
+        sr = gen.sample_rate
+        lead = int(0.5 * sr)  # generate_audio_segment's 500 ms of leading silence
+        clips = seen["clips"]
+        rms = [float(np.sqrt(np.mean(c.samples[lead:] ** 2))) for c in clips]
+        wav, rate = read_wav(out_wav)
+        # each sentence's stretch of the WAV, as a file of its own
+        t0 = time.perf_counter()
+        marked_ok, start = [], 0
+        for i, c in enumerate(clips):
+            part = os.path.join(tmp, f"sentence{i}.wav")
+            write_wav(part, wav[0, start:start + len(c.samples)], rate)
+            marked_ok.append(api.check_audio_from_file(part))
+            start += len(c.samples)
+        check_s = time.perf_counter() - t0
+        whole_ok = api.check_audio_from_file(out_wav)
+        # the first sentence's request again, unmarked (the CLI's seed 0 + 0)
+        engine.enable_watermark = False
+        raw = engine.generate_with_context(CLI_SENTENCES[0], temperature=0.8, topk=40, seed=0,
+                                           max_audio_length_ms=CLI_MAX_MS)
+        raw_ok = api.verify(engine.watermarker, raw, sr, engine.watermark_key)
+        requests = [{"text": p, "wall_s": w, "audio_s": a, "rtf": w / a}
+                    for p, w, a in seen["requests"]]
+        result.update({
+            "build_s": seen["build_s"],
+            "tokenizer": _tokenizer_backend(gen._tokenizer.text_tokenizer),
+            "requests": requests,
+            "wav": {"rate": rate, "channels": int(wav.shape[0]), "seconds": wav.shape[1] / rate},
+            "clip_rms_past_lead_in": rms,
+            "fallbacks": engine.fallbacks,
+            "sentences_verified": marked_ok, "check_audio_s": check_s,
+            "whole_wav_verified": whole_ok,
+            "verify_confidence": {"wav": _confidence(engine.watermarker, wav[0], rate),
+                                  "raw": _confidence(engine.watermarker, raw, sr),
+                                  **{f"clip{i}": _confidence(engine.watermarker, c.samples, sr)
+                                     for i, c in enumerate(clips)}},
+            "raw_verified": raw_ok,
+            "watermark_ms_per_audio_s": _watermark_timing(torch, engine.watermarker, raw, sr),
+            "decoded_frames": decoded, "prefills": prefills, "context_prefills": 1,
+            "launches": launches, "capture_warmup_launches": warm,
+            "launches_per_decoded_frame": {
+                k: (launches[k] - warm.get(k, 0)) / decoded for k in per_frame},
+            "flash_attention_expected": want_attention + warm.get("flash_attention", 0),
+        })
+
+        # greedy: the checkpoint-built Generator against one built in memory
+        in_memory = Generator(quantize_csm(to_device(bf16, "cuda")), cfg, gen._mimi,
+                              to_device(mimi_params, "cuda"), gen._tokenizer.text_tokenizer,
+                              device="cuda")
+        ref = tts.TTS(spec=engine.spec, voices=voices, enable_watermark=False)
+        ref.generator = in_memory
+        ref.load_voice("clone", warmup=False)
+        greedy = {}
+        for name, e in (("checkpoint", engine), ("in_memory", ref)):
+            pcm = e.generate_with_context(CLI_SENTENCES[1], topk=1, temperature=1.0, seed=0,
+                                          max_audio_length_ms=GREEDY_MS)
+            frames = e.generator.generate_frames(CLI_SENTENCES[1], 1, [], topk=1,
+                                                 temperature=1.0, seed=0,
+                                                 max_audio_length_ms=GREEDY_MS,
+                                                 cached_context=e.cached_context)
+            greedy[name] = (frames, pcm)
+        (f_ckpt, p_ckpt), (f_mem, p_mem) = greedy["checkpoint"], greedy["in_memory"]
+        result["greedy"] = {
+            "frames": int(f_ckpt.shape[0]),
+            "frames_equal": f_ckpt.shape == f_mem.shape and bool(np.array_equal(f_ckpt, f_mem)),
+            "pcm_max_abs_diff": float(np.abs(p_ckpt - p_mem).max())
+            if p_ckpt.shape == p_mem.shape else None}
+        del in_memory, ref, engine, gen
+        seen.clear()
+    finally:
+        tts.TTS.load_model, tts.TTS.generate_audio_segment, tts.TTS.export_wav = saved
+        shutil.rmtree(tmp, ignore_errors=True)
+        _collect(torch)
+    print("main[cli] " + json.dumps(result), flush=True)
+    _check(rate == 24_000 and wav.shape[0] == 1, f"cli: the WAV is {rate} Hz, {wav.shape[0]} ch")
+    _check(len(clips) == len(CLI_SENTENCES), f"cli: {len(clips)} clips for "
+                                             f"{len(CLI_SENTENCES)} sentences")
+    _check(result["fallbacks"] == 0, f"cli: {result['fallbacks']} sentences fell back to silence")
+    _check(all(r > 1e-3 for r in rms), f"cli: a clip is silent past its lead-in: RMS {rms}")
+    _check(all(marked_ok), f"cli: check_audio_from_file does not find the watermark in each "
+                           f"sentence of the WAV: {marked_ok}")
+    _check(not raw_ok, "cli: the unmarked audio of the same request verifies as watermarked")
+    for kernel, n in per_frame.items():
+        got = launches[kernel] - warm.get(kernel, 0)
+        _check(got == n * decoded, f"cli: {kernel} launched {got} times past the capture for "
+                                   f"{decoded} decoded frames (want {n} per frame)")
+    _check(launches["flash_attention"] == result["flash_attention_expected"],
+           f"cli: flash_attention launched {launches['flash_attention']} times, want "
+           f"{result['flash_attention_expected']}")
+    _check(result["greedy"]["frames_equal"],
+           "cli: the checkpoint-built Generator's greedy frames differ from the in-memory one's")
+    return result
+
+
 def _collect(torch) -> None:
     """Free the device memory of generators the caller has dropped: a
     Generator holds a reference cycle (its tokenizer's audio encoder)."""
@@ -1295,7 +1571,9 @@ def main() -> int:
             paths[path] = timed(f"main[{path}]", phase_main_path, torch, wrappers, path,
                                 fields, per_frame, voice)
         paths["voice"] = timed("main[voice]", phase_voice_path, torch, wrappers, _PATHS[0][2])
+        cli = timed("main[cli]", phase_cli, torch, wrappers, _PATHS[0][2])
         launches = {path: r["launches"] for path, r in paths.items()}
+        launches["cli"] = cli["launches"]
         print("graphed vs eager " + json.dumps(_graphed_vs_eager(paths)), flush=True)
         timed("profile", phase_profile, torch, wrappers)
         timed("qa", phase_qa, torch)

@@ -1,11 +1,18 @@
-"""Structured per-stage metrics (port of ``Metrics`` from
-``sesameai_tts_tpu/utils/profiling.py``)."""
+"""Profiling and structured metrics (port of
+``sesameai_tts_tpu/utils/profiling.py``): bounded per-stage metric series,
+a ``torch.profiler`` trace context for device timelines, and realtime
+factor accounting for one utterance.
+"""
 
 from __future__ import annotations
 
+import contextlib
+import os
 import threading
+import time
 from collections import defaultdict
-from typing import Dict, List
+from dataclasses import dataclass, field
+from typing import Dict, Iterator, List, Optional
 
 import numpy as np
 
@@ -44,3 +51,46 @@ class Metrics:
     def reset(self) -> None:
         with self._lock:
             self._series.clear()
+
+
+@contextlib.contextmanager
+def device_trace(logdir: str) -> Iterator[None]:
+    """Trace the CPU and, where there is a card, the CUDA timeline of the
+    block with ``torch.profiler``; the Chrome trace (Perfetto,
+    chrome://tracing) is written into ``logdir`` when the block ends."""
+    import torch
+
+    activities = [torch.profiler.ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(torch.profiler.ProfilerActivity.CUDA)
+    os.makedirs(logdir, exist_ok=True)
+    with torch.profiler.profile(activities=activities) as prof:
+        yield
+    prof.export_chrome_trace(os.path.join(logdir, f"trace_{os.getpid()}_{time.time_ns()}.json"))
+
+
+@dataclass
+class RTFMeter:
+    """Realtime-factor accounting for one utterance: feed it the PCM chunks
+    as they arrive, then read ``result()``."""
+
+    sample_rate: int
+    start: float = field(default_factory=time.perf_counter)
+    first_audio_at: Optional[float] = None
+    samples: int = 0
+
+    def on_chunk(self, chunk: np.ndarray) -> None:
+        if self.first_audio_at is None:
+            self.first_audio_at = time.perf_counter() - self.start
+        self.samples += len(chunk)
+
+    def result(self) -> dict:
+        proc = time.perf_counter() - self.start
+        audio_s = self.samples / self.sample_rate
+        return {
+            "proc_s": proc,
+            "audio_s": audio_s,
+            "rtf": proc / audio_s if audio_s else float("inf"),
+            "xrt": audio_s / proc if proc else 0.0,
+            "first_audio_ms": (self.first_audio_at or 0.0) * 1000.0,
+        }
