@@ -40,7 +40,12 @@ Phases, each of which fails the run if it fails:
    checkpoint written and read back bit-equal, a Llama-3-format
    tokenizer.json, a Mimi ``save_pytree`` file, a voice) speaks two
    sentences into a watermarked WAV; its launches, the WAV, the watermark
-   and greedy frames against a Generator built in memory are checked;
+   and greedy frames against a Generator built in memory are checked.
+   Then ``main[serve]``: an 8-slot ``BatchedTTSServer`` over CSM-1B int8
+   (``phase_serve``: 12 in-process sessions with exact launches and PCM
+   equal to the offline decode of their frames, the HTTP API with the
+   streaming watermark and a burst answered 429, the pool's graphed tick
+   bit-equal to the eager step, no graph captured after ``start()``);
 5. QA at full width: teacher-forced agreement of the int4 generator with
    the dense twin of its own tree, and of the fused generator with the
    unfused one, against thresholds; the int8 and int4 acceptance reports
@@ -139,6 +144,11 @@ _ATTN_CASES = (
     ("decoder step pos 31", 1, 8, 2, 128, 32, 1, (31,), (1,)),
     ("backbone prefill S=64, row 1 valid_len 0", 2, 32, 8, 64, 2048, 64, (0, 0), (40, 0)),
     ("backbone prefill S=768 (rolling turn)", 1, 32, 8, 64, 2048, 768, (0,), (628,)),
+    # a serving pool of 8 slots: every row at its own position (mean 600)
+    ("backbone decode B=8, pos 100-1100", 8, 32, 8, 64, 2048, 1,
+     (100, 250, 400, 550, 650, 800, 950, 1100), (1,) * 8),
+    ("decoder step B=8 pos 0", 8, 8, 2, 128, 32, 1, (0,) * 8, (1,) * 8),
+    ("decoder step B=8 pos 31", 8, 8, 2, 128, 32, 1, (31,) * 8, (1,) * 8),
     # not on a main path: the tensor-core prefill at hd 128
     ("prefill hd 128", 1, 8, 2, 128, 32, 16, (0,), (16,)),
 )
@@ -169,6 +179,21 @@ CLI_SENTENCES = ("The command line reads its weights from files.",
                  "Then it speaks with the voice it was given.")
 CLI_MAX_MS = 12_000
 GREEDY_MS = 1600
+
+# main[serve]: BatchedTTSServer(slots=8, chunk_frames=10, max_pending=32) at
+# CSM-1B width.  In-process traffic, 12 sessions against 8 slots, (budget ms,
+# temperature, topk): 4 interactive (2 s) and 8 bulk (6 s), two at topk=1;
+# SERVE_CANCEL is cancelled after its first chunk, SERVE_LONG_PROMPT's prompt
+# leaves SERVE_ROOM rows of KV cache, fewer than a tick's frames
+SERVE_SLOTS, SERVE_CHUNK, SERVE_MAX_PENDING = 8, 10, 32
+SERVE_SESSIONS = (
+    (2000, 1.0, 1), (2000, 0.8, 40), (2000, 0.7, 20), (2000, 0.9, 5),
+    (6000, 1.0, 1), (6000, 0.8, 40), (6000, 0.6, 10), (6000, 0.8, 30),
+    (6000, 0.9, 50), (6000, 0.7, 40), (6000, 0.8, 20), (6000, 1.0, 3),
+)
+SERVE_CANCEL, SERVE_LONG_PROMPT, SERVE_ROOM = 5, 11, 9
+SERVE_STREAM_MS = 8000  # the streamed HTTP responses (>= 4 s verify)
+SERVE_BURST = 64  # /tts requests at once against max_pending=32 with every slot busy
 
 QA_TEXT = "Teacher forcing holds two generators to one trajectory of frames."
 QA_STEPS = 32  # the gated pairs
@@ -1170,6 +1195,364 @@ def phase_cli(torch, wrappers, per_frame: dict):
     return result
 
 
+def _post(base: str, path: str, body: dict, timeout: float = 300):
+    import urllib.request
+
+    req = urllib.request.Request(base + path, data=json.dumps(body).encode(),
+                                 headers={"Content-Type": "application/json"}, method="POST")
+    return urllib.request.urlopen(req, timeout=timeout)
+
+
+def _text_of_rows(gen, rows: int) -> str:
+    """The shortest prefix of a long text whose prompt is ``rows`` rows (a
+    prompt grows by at most one row per character)."""
+    text = "a serving prompt that fills the cache " * (rows // 4 + 1)
+
+    def n_rows(n):
+        return gen._tokenize_prompt(text[:n], 0, [])[0].shape[0]
+
+    lo, hi = 0, len(text)
+    while lo < hi:
+        mid = (lo + hi) // 2
+        lo, hi = (mid + 1, hi) if n_rows(mid) < rows else (lo, mid)
+    _check(n_rows(lo) == rows, f"serve: no prefix of the text is {rows} rows")
+    return text[:lo]
+
+
+def _pool_tensors(srv):
+    """The pool's static tensors (state and decode buffers of the tick clone)."""
+    from sesameai_tts_tpu_torch.runtime.serving import _tensors
+
+    return list(_tensors(srv._ticker._slot(srv.B)))
+
+
+def _pool_ticks(torch, srv, greedy: bool, ms0, seed: int = 77):
+    """One tick of the pool as it stands, on the graphs and then on the eager
+    step from the same state (restored in between) → (graphed, eager): each
+    (frames, valid, done, PCM) on the host, plus the graphed tick's wall ms
+    (synchronized)."""
+    from sesameai_tts_tpu_torch.convert import tree_map
+    from sesameai_tts_tpu_torch.runtime.serving import _on
+
+    t = srv._ticker
+    snapshot = [x.clone() for x in _pool_tensors(srv)]
+    out = {}
+    for mode in ("graphed", "eager"):
+        for dst, src in zip(_pool_tensors(srv), snapshot):
+            dst.copy_(src)
+        if mode == "eager":  # the yardstick of _eager_twin, on the pool's own state
+            t._run = lambda b, part, g: t._step(b, part, g)()
+        try:
+            with _on(t):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                res = t._serve_tick(srv.B, srv.chunk, seed, greedy,
+                                    tree_map(lambda x: x.clone(), ms0))
+                torch.cuda.synchronize()
+                wall_ms = (time.perf_counter() - t0) * 1e3
+        finally:
+            t.__dict__.pop("_run", None)
+        out[mode] = ([x.cpu().numpy() for x in res[:4]], wall_ms)
+    for dst, src in zip(_pool_tensors(srv), snapshot):
+        dst.copy_(src)
+    return out
+
+
+def phase_serve(torch, wrappers, card: str):
+    """Batched serving and the HTTP API at CSM-1B width (int8, bf16 Mimi):
+    ``BatchedTTSServer(slots=8, chunk_frames=10, max_pending=32)``,
+    ``warmup`` before ``start`` and no graph captured after it.  12
+    in-process sessions against 8 slots (``SERVE_SESSIONS``): each ends,
+    its delivered PCM equals the offline Mimi decode of its delivered
+    frames, and the launches are exact (quant_matmul 576 per frame-step at
+    S = 8, flash_attention 144 per frame-step and per admission).  Then
+    over HTTP with the DSP watermark: 8 concurrent /tts, a /tts/stream and
+    an SSE /v1/audio/speech whose streamed marks verify, a burst past
+    max_pending answered 429 with Retry-After, /healthz?deep=1 with the
+    canary.  Then, the server stopped, 8 fresh admissions in the pool: one
+    tick on the graphs bit-equal to the eager step from the same state,
+    sampled (mixed temperature and topk) and greedy.  Prints the numbers of
+    the serving cell."""
+    import base64
+    import threading
+    import urllib.error
+    import urllib.request
+
+    import numpy as np
+
+    from sesameai_tts_tpu_torch.convert import tree_map
+    from sesameai_tts_tpu_torch.runtime.serving import BatchedTTSServer, Session, _on
+    from sesameai_tts_tpu_torch.service.http_api import serve
+    from sesameai_tts_tpu_torch.watermark import api
+
+    gen, setup = _build_generator(torch, "serve", {})
+    torch.cuda.reset_peak_memory_stats()
+    srv = BatchedTTSServer(gen, slots=SERVE_SLOTS, chunk_frames=SERVE_CHUNK,
+                           max_pending=SERVE_MAX_PENDING)
+    t0 = time.perf_counter()
+    warm = srv.warmup()
+    warmup_s = time.perf_counter() - t0
+    clones = (srv._ticker, srv._admitter, srv._canary)
+
+    def n_graphs():
+        return sum(len(c._graphs) for c in clones) + len(gen._graphs)
+
+    graphs_at_start = n_graphs()
+    srv.start()
+    result = {"card": card, "warmup_s": warmup_s,
+              "capture_s": {k: v for k, v in warm.items() if "graph_" in k},
+              "graphs": graphs_at_start}
+    wm = api.load_watermarker(device=gen.device)
+    httpd = None
+    try:
+        # -- in-process traffic, counted
+        texts = [f"Session {i} of the serving phase speaks one sentence." for i in
+                 range(len(SERVE_SESSIONS))]
+        texts[SERVE_LONG_PROMPT] = _text_of_rows(gen, gen.max_seq_len - SERVE_ROOM)
+        srv.metrics.reset()
+        srv._admitter.metrics.reset()
+        _reset_counts(wrappers)
+        t0 = time.perf_counter()
+        sessions = [srv.submit(text, speaker=0, max_audio_length_ms=ms, temperature=temp,
+                               topk=k)
+                    for text, (ms, temp, k) in zip(texts, SERVE_SESSIONS)]
+        victim = sessions[SERVE_CANCEL]
+        chunks = [victim.chunks.get(timeout=120)]
+        victim.cancel()
+        while chunks[-1] is not None:
+            chunks.append(victim.chunks.get(timeout=120))
+        audio = [np.concatenate([c for c in chunks if c is not None]) if s is victim
+                 else s.audio(timeout=300) for s in sessions]
+        wall = time.perf_counter() - t0
+        deadline = time.monotonic() + 60
+        while (srv._inflight is not None or any(srv._sessions)) and time.monotonic() < deadline:
+            time.sleep(0.01)
+        launches = _counts(wrappers)
+        frame_steps = int(srv.metrics.summary()["tick_frames"]["total"])
+        admissions = int(srv._admitter.metrics.summary()["prefill_s"]["count"])
+        frames = [np.concatenate(s.frames_out) if s.frames_out
+                  else np.zeros((0, gen._cfg.audio_num_codebooks), np.int32) for s in sessions]
+        rel = []
+        for f, pcm in zip(frames, audio):
+            _check(pcm.shape[0] == f.shape[0] * gen._hop and bool(np.isfinite(pcm).all()),
+                   f"serve: {pcm.shape[0]} samples for {f.shape[0]} frames, or not finite")
+            if f.shape[0]:
+                ref = gen.decode_audio(f)
+                rel.append(float(np.abs(pcm - ref).max() / max(np.abs(ref).max(), 1e-12)))
+        ttfa = np.array([s.first_audio_at - s.submitted_at for s in sessions
+                         if s.first_audio_at is not None]) * 1e3
+        delivered = sum(int(f.shape[0]) for f in frames)
+        greedy_prefix = {}
+        for i, (ms, _, k) in enumerate(SERVE_SESSIONS):
+            if k == 1:
+                ref = gen.generate_frames(texts[i], 0, [], max_audio_length_ms=ms,
+                                          temperature=1.0, topk=1)
+                n = min(len(ref), len(frames[i]))
+                same = np.all(ref[:n] == frames[i][:n], axis=1)
+                greedy_prefix[i] = {"frames": int(frames[i].shape[0]), "b1_frames": len(ref),
+                                    "shared_prefix": int(n if same.all() else same.argmin())}
+        result["traffic"] = {
+            "card": card, "sessions": len(sessions), "wall_s": wall, "delivered_frames": delivered,
+            "aggregate_frames_per_s": delivered / wall,
+            "frame_steps": frame_steps, "admissions": admissions,
+            "slot_use": delivered / max(frame_steps * srv.B, 1),
+            "ttfa_ms": {"p50": float(np.percentile(ttfa, 50)),
+                        "p95": float(np.percentile(ttfa, 95)), "max": float(ttfa.max())},
+            "session_frames": [int(f.shape[0]) for f in frames],
+            "long_prompt_frames": int(frames[SERVE_LONG_PROMPT].shape[0]),
+            "stream_vs_offline_rel_err_max": max(rel),
+            "launches": launches,
+            "greedy_prefix_vs_b1_generate_frames": greedy_prefix,
+        }
+        print("main[serve] traffic " + json.dumps(result["traffic"]), flush=True)
+        _check(all(s.finished_at is not None or s is victim for s in sessions),
+               "serve: a session did not end")
+        _check(max(rel) < 5e-2, f"serve: delivered PCM != offline decode of its frames: {rel}")
+        _check(1 <= frames[SERVE_LONG_PROMPT].shape[0] <= SERVE_ROOM,
+               f"serve: the long-prompt session gave {frames[SERVE_LONG_PROMPT].shape[0]} "
+               f"frames with {SERVE_ROOM} rows of room")
+        want = {"quant_matmul": 576 * frame_steps, "quant4_matmul": 0, "quant_mlp": 0,
+                "flash_attention": 144 * (frame_steps + admissions)}
+        _check(launches == want, f"serve: launches {launches}, want {want} ({frame_steps} "
+                                 f"frame-steps at B={srv.B}, {admissions} admissions)")
+
+        # -- over HTTP, the watermark on
+        httpd = serve(srv, host="127.0.0.1", port=0, sample_rate=gen.sample_rate,
+                      watermarker=(wm, api.CSM_1B_WATERMARK))
+        base = f"http://127.0.0.1:{httpd.server_address[1]}"
+        http = {"card": card}
+        replies = []
+
+        def tts(i):
+            with _post(base, "/tts", {"text": f"Client {i} asks over HTTP.",
+                                      "max_audio_length_ms": 2000}) as r:
+                replies.append((r.status, r.headers["Content-Type"], r.read()))
+
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=tts, args=(i,)) for i in range(8)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+        http["tts_8_clients_s"] = time.perf_counter() - t0
+        _check(len(replies) == 8 and all(st == 200 and ct == "audio/wav" and w[:4] == b"RIFF"
+                                         and len(w) > 44 for st, ct, w in replies),
+               f"serve: /tts replies {[(st, ct, len(w)) for st, ct, w in replies]}")
+        with _post(base, "/tts/stream", {"text": "A streamed answer carries its mark.",
+                                         "max_audio_length_ms": SERVE_STREAM_MS}) as r:
+            streamed = np.frombuffer(r.read(), np.float32)
+        body = {"input": "The speech endpoint streams events.", "response_format": "pcm",
+                "stream_format": "sse", "max_audio_length_ms": SERVE_STREAM_MS}
+        with _post(base, "/v1/audio/speech", body) as r:
+            ctype = r.headers["Content-Type"]
+            raw = r.read().decode()
+        events = [json.loads(line[len("data: "):]) for line in raw.split("\n\n")
+                  if line.startswith("data: ")]
+        sse = np.frombuffer(b"".join(base64.b64decode(e["audio"]) for e in events
+                                     if e["type"] == "speech.audio.delta"),
+                            "<i2").astype(np.float32) / 32767.0
+        http["stream"] = {"seconds": streamed.size / gen.sample_rate,
+                          "peak": float(np.abs(streamed).max()),
+                          "confidence": _confidence(wm, streamed, gen.sample_rate)}
+        http["sse"] = {"seconds": sse.size / gen.sample_rate, "events": len(events),
+                       "last": events[-1]["type"] if events else None,
+                       "confidence": _confidence(wm, sse, gen.sample_rate)}
+        _check(streamed.size >= 4 * gen.sample_rate
+               and http["stream"]["confidence"] >= wm.verify_threshold,
+               f"serve: the streamed response does not verify: {http['stream']}")
+        _check(ctype == "text/event-stream" and http["sse"]["last"] == "speech.audio.done"
+               and sse.size > 0, f"serve: SSE response {ctype} {http['sse']}")
+
+        # a burst past max_pending with every slot busy: 429 + Retry-After
+        hold = [srv.submit(f"Holder {i} keeps a slot busy.", max_audio_length_ms=30_000)
+                for i in range(srv.B)]
+        deadline = time.monotonic() + 60
+        while srv.metrics_summary()["slots_occupied"] < srv.B and time.monotonic() < deadline:
+            time.sleep(0.02)
+        # an admission's wall time (prefill + first chunk + its fetch) while
+        # the full pool ticks on the card beside it; the idle figure is below
+        busy_admit_ms = []
+        for i in range(3):
+            t0 = time.perf_counter()
+            item = srv._dispatch_admission(Session(text=texts[i], speaker=0,
+                                                   max_audio_length_ms=2000))
+            _check(item is not None, "serve: an admission beside the busy pool failed")
+            item[-1].wait()
+            busy_admit_ms.append((time.perf_counter() - t0) * 1e3)
+        http["admission_ms_beside_full_pool"] = busy_admit_ms
+        codes = []
+
+        def burst(i):
+            try:
+                with _post(base, "/tts", {"text": f"Burst {i}.",
+                                          "max_audio_length_ms": 400}) as r:
+                    r.read()
+                    codes.append((r.status, None))
+            except urllib.error.HTTPError as e:
+                e.read()
+                codes.append((e.code, e.headers.get("Retry-After")))
+            except OSError as e:  # a reset connection: no reply at all
+                codes.append((0, repr(e)))
+
+        threads = [threading.Thread(target=burst, args=(i,)) for i in range(SERVE_BURST)]
+        for t in threads:
+            t.start()
+        deadline = time.monotonic() + 30
+        while (len(codes) < SERVE_BURST - SERVE_MAX_PENDING - 2 * srv.B
+               and time.monotonic() < deadline):
+            time.sleep(0.02)
+        for s in hold:
+            s.cancel()
+        for t in threads:
+            t.join(timeout=300)
+        rejected = [ra for c, ra in codes if c == 429]
+        http["burst"] = {"requests": SERVE_BURST, "replies": len(codes),
+                         "ok": sum(c == 200 for c, _ in codes), "429": len(rejected),
+                         "retry_after": sorted(set(rejected))}
+        _check(len(codes) == SERVE_BURST and all(c in (200, 429) for c, _ in codes),
+               f"serve: burst replies {http['burst']}")
+        _check(rejected and all(ra is not None and int(ra) >= 1 for ra in rejected),
+               f"serve: no 429 with Retry-After in the burst: {http['burst']}")
+        with urllib.request.urlopen(base + "/healthz?deep=1", timeout=300) as r:
+            health = json.loads(r.read())
+        with urllib.request.urlopen(base + "/metrics", timeout=60) as r:
+            http["metrics_sessions_total"] = json.loads(r.read())["sessions_total"]
+        http["healthz"] = health
+        print("main[serve] http " + json.dumps(http), flush=True)
+        _check(health["status"] == "ok" and health["canary"]["tick_batch"] == srv.B,
+               f"serve: /healthz?deep=1 gave {health}")
+        result["http"] = http
+    finally:
+        if httpd is not None:
+            httpd.shutdown()
+        srv.stop()
+    result["graphs_after_traffic"] = n_graphs()
+    _check(result["graphs_after_traffic"] == graphs_at_start,
+           f"serve: graphs were captured after start(): {graphs_at_start} → "
+           f"{result['graphs_after_traffic']}")
+
+    # -- the pool's graphs against the eager step, from 8 fresh admissions
+    admit_ms = []
+    for slot in range(srv.B):
+        ms, temp, k = SERVE_SESSIONS[slot]
+        session = Session(text=texts[slot], speaker=0, max_audio_length_ms=6000,
+                          temperature=temp, topk=k)
+        t0 = time.perf_counter()
+        item = srv._dispatch_admission(session)
+        _check(item is not None, f"serve: admission failed: {session.error}")
+        item[-1].wait()
+        admit_ms.append((time.perf_counter() - t0) * 1e3)
+        with _on(srv._ticker):
+            srv._attach(slot, item)
+    torch.cuda.synchronize()
+    ms0 = tree_map(lambda x: x.clone(), srv._mimi_state)
+    checks = {}
+    for label, greedy in (("sampled", False), ("greedy", True)):
+        if greedy:
+            srv._ticker._slot(srv.B).bufs.topk.fill_(1)
+        ticks = _pool_ticks(torch, srv, greedy, ms0)
+        (g, g_ms), (e, e_ms) = ticks["graphed"], ticks["eager"]
+        checks[label] = {"frames_bit_equal": bool(np.array_equal(g[0], e[0])),
+                         "valid_equal": bool(np.array_equal(g[1], e[1])),
+                         "pcm_max_abs_diff": float(np.abs(g[3] - e[3]).max()),
+                         "tick_ms_graphed": g_ms, "tick_ms_eager": e_ms}
+    codes = torch.from_numpy(g[0]).to(srv._ticker.device).permute(1, 2, 0)
+    with _on(srv._ticker):
+        t = srv._ticker
+        mimi_ms = []
+        for _ in range(3):
+            state = tree_map(lambda x: x.clone(), ms0)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            t._mimi.decode_streaming(t._mimi_params, codes, state)
+            torch.cuda.synchronize()
+            mimi_ms.append((time.perf_counter() - t0) * 1e3)
+    canary_b8 = srv.link_canary()
+    del srv
+    _collect(torch)
+    srv1 = BatchedTTSServer(gen, slots=1, chunk_frames=SERVE_CHUNK)
+    canary_b1 = srv1.link_canary()
+    del srv1
+    result.update({
+        "graph_vs_eager": checks,
+        "admission_ms": {"p50": float(np.median(admit_ms)), "max": max(admit_ms),
+                         "what": "prefill + first chunk + its fetch, one at a time"},
+        "mimi_ms_per_tick": min(mimi_ms),
+        "mimi_share_of_tick": min(mimi_ms) / checks["sampled"]["tick_ms_graphed"],
+        "canary": {"b8": canary_b8, "b1": canary_b1},
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "memory_gb": setup["memory_gb"],
+    })
+    print("main[serve] " + json.dumps({k: v for k, v in result.items()
+                                       if k not in ("traffic", "http")}), flush=True)
+    for label, c in checks.items():
+        _check(c["frames_bit_equal"] and c["valid_equal"],
+               f"serve: the pool's {label} tick on the graphs differs from the eager step: {c}")
+    del gen
+    _collect(torch)
+    return result
+
+
 def _collect(torch) -> None:
     """Free the device memory of generators the caller has dropped: a
     Generator holds a reference cycle (its tokenizer's audio encoder)."""
@@ -1476,7 +1859,7 @@ def _flash_entry(rows, launches: dict, cfg, peak_bw: float) -> dict:
     The bound is summed exactly over the frame's calls."""
     bb, dec = cfg.backbone, cfg.decoder
     backbone = next(r for r in rows if r["S"] == 1 and r["pos0"] == [_FRAME_CACHE_FILL])
-    decoder = [r for r in rows if r["hd"] == dec.head_dim and r["S"] == 1]
+    decoder = [r for r in rows if r["hd"] == dec.head_dim and r["S"] == 1 and r["B"] == 1]
     n_bb, n_dec = bb.num_layers, cfg.audio_num_codebooks * dec.num_layers
 
     def per_frame(key):
@@ -1514,6 +1897,31 @@ def _flash_entry(rows, launches: dict, cfg, peak_bw: float) -> dict:
     entry["kernel_ms"] = entry["ms"]
     return entry
 
+
+def _frame_step_b8(rows: dict, cfg, peak_bw: float) -> dict:
+    """One frame-step of a serving pool of 8 slots, summed over its launches
+    as ``_entry`` / ``_flash_entry`` sum a decoded frame: the quant kernels'
+    S=8 rows (int4 at its default G=2), and flash_attention's B=8 rows (the
+    backbone's rows at their own positions, the decoder's the mean of its
+    first and last codebook step; the bound summed over every step)."""
+    out = {}
+    for name in ("quant_matmul", "quant4_matmul", "quant_mlp"):
+        eight = [r for r in rows[name] if r["S"] == 8 and r.get("G", 2) == 2]
+        out[name] = {k: sum(r[k] * r["per_frame"] for r in eight)
+                     for k in ("kernel_ms", "plain_ms", "library_ms", "bound_ms")}
+    attn = [r for r in rows["flash_attention"] if r["B"] == 8]
+    backbone = next(r for r in attn if r["hd"] == cfg.backbone.head_dim)
+    decoder = [r for r in attn if r["hd"] == cfg.decoder.head_dim]
+    n_bb, n_dec = cfg.backbone.num_layers, cfg.audio_num_codebooks * cfg.decoder.num_layers
+    fa = {k: backbone[k] * n_bb + sum(r[k] for r in decoder) / len(decoder) * n_dec
+          for k in ("kernel_ms", "plain_ms", "library_ms")}
+    dec = cfg.decoder
+    fa["bound_ms"] = backbone["bound_ms"] * n_bb + sum(
+        dec.num_layers * _attn_work(8, dec.num_heads, dec.num_kv_heads, dec.head_dim, 1,
+                                    (p,) * 8, (1,) * 8, 2)[0] / peak_bw * 1e3
+        for p in range(cfg.audio_num_codebooks))
+    out["flash_attention"] = fa
+    return out
 
 def _graphed_vs_eager(paths: dict) -> dict:
     """Each path's end-to-end numbers on the graphs beside the eager twin's."""
@@ -1572,8 +1980,10 @@ def main() -> int:
                                 fields, per_frame, voice)
         paths["voice"] = timed("main[voice]", phase_voice_path, torch, wrappers, _PATHS[0][2])
         cli = timed("main[cli]", phase_cli, torch, wrappers, _PATHS[0][2])
+        serving = timed("main[serve]", phase_serve, torch, wrappers, card)
         launches = {path: r["launches"] for path, r in paths.items()}
         launches["cli"] = cli["launches"]
+        launches["serve"] = serving["traffic"]["launches"]
         print("graphed vs eager " + json.dumps(_graphed_vs_eager(paths)), flush=True)
         timed("profile", phase_profile, torch, wrappers)
         timed("qa", phase_qa, torch)
@@ -1602,6 +2012,8 @@ def main() -> int:
     print("kernel flash_attention per decoded frame " + json.dumps(
         {**{k: entries[-1][k] for k in ("ms", "plain_ms", "library_ms", "bound_ms", "timed_as")},
          "backbone_decode_2047_over_600": decode_ms[2047] / decode_ms[600]}), flush=True)
+    print("kernel per frame-step at B=8 " + json.dumps(_frame_step_b8(rows, csm_1b(), peak_bw)),
+          flush=True)
     print("kernel flash_attention prefill per call (us) " + json.dumps(
         {r["shape"]: {k: None if r[k] is None else r[k] * 1e3
                       for k in ("kernel_ms", "library_ms", "bound_ms", "plain_ms")}

@@ -18,10 +18,12 @@ import torch
 
 
 def tree_map(fn: Callable, tree):
-    """Apply ``fn`` to every leaf of nested dicts, lists and tuples (None
-    stays None)."""
+    """Apply ``fn`` to every leaf of nested dicts, lists, tuples and
+    NamedTuples (None stays None)."""
     if isinstance(tree, dict):
         return {k: tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(tree_map(fn, v) for v in tree))
     if isinstance(tree, (list, tuple)):
         return type(tree)(tree_map(fn, v) for v in tree)
     if tree is None:

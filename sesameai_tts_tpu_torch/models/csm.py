@@ -233,7 +233,14 @@ def backbone_step(params: dict, cfg: CSMConfig, state: CSMState, bufs: DecodeBuf
                   rope_cs: torch.Tensor, fused_mlp: bool = False) -> None:
     """Feed ``bufs.frame`` back through the backbone at ``state.pos`` →
     ``bufs.last_h``; the KV cache is written and ``state.pos`` advances by
-    one, both in place."""
+    one, both in place.
+
+    ``state.pos`` stops at the cache's last slot, which later steps then
+    rewrite: the JAX package's ``dynamic_update_slice`` clamps such a write
+    to the same slot.  Only rows past their last frame get there (a serving
+    pool's idle slots, and a tick's frames past a session's budget); the
+    frames a request keeps never do (``Generator`` clamps the budget to the
+    room left)."""
     B, K = bufs.frame.shape
     text = torch.zeros((B, 1, 1), dtype=bufs.frame.dtype, device=bufs.frame.device)
     tokens = torch.cat([bufs.frame[:, None, :], text], dim=-1)
@@ -241,7 +248,7 @@ def backbone_step(params: dict, cfg: CSMConfig, state: CSMState, bufs: DecodeBuf
                                      _feedback_mask(B, K, tokens.device), rope_cs=rope_cs,
                                      fused_mlp=fused_mlp)
     bufs.last_h.copy_(last_h)
-    state.pos.add_(1)
+    state.pos.add_(1).clamp_(max=state.cache.k[0].shape[2] - 1)
 
 
 def decode_step(params: dict, cfg: CSMConfig, state: CSMState, bufs: DecodeBuffers,

@@ -35,7 +35,7 @@ import math
 
 import torch
 
-from sesameai_tts_tpu_torch.ops.kernels import check_operands, launch
+from sesameai_tts_tpu_torch.ops.kernels import check_operands, count_launch, launch
 
 _HEAD_DIMS = (16, 64, 128)  # the head dims flash_attention.cu is built for
 _QUERIES_PER_BLOCK = 16  # WARPS * Tile::QPW of flash_attention.cu: G may not exceed it
@@ -300,7 +300,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, pos0: tor
            q.stride(1), q.stride(2), out.stride(0), out.stride(1), out.stride(2),
            _ROUTES[route], splits, int(q.dtype == torch.bfloat16),
            torch.cuda.current_stream(q.device).cuda_stream)
-    flash_attention.launches += 1
+    count_launch(flash_attention)
     return out
 
 

@@ -4,20 +4,22 @@ Every kernel is a CUDA C++ source with a plain C entry point of the same
 name.  ``build_kernels`` compiles each for ``sm_90a`` with ``nvcc`` into
 the checkout's git-ignored ``build/torch_kernels/`` (one ``nvcc`` per
 source, all started together) and loads it with ``ctypes``; ``launch``
-calls an entry point and raises on a non-zero CUDA error.  Nothing here
-runs when the module is imported, so importing it needs neither ``nvcc``
-nor a card.
+calls an entry point and raises on a non-zero CUDA error; ``count_launch``
+adds to a wrapper's ``launches`` count, safely across threads.  Nothing
+here runs when the module is imported, so importing it needs neither
+``nvcc`` nor a card.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import os
 import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Dict
+from typing import Callable, Dict, Iterator
 
 import torch
 
@@ -38,6 +40,10 @@ _libs: Dict[str, ctypes.CDLL] = {}
 _lib_lock = threading.Lock()
 # seconds each kernel's nvcc took in this process (kernels built from source)
 build_seconds: Dict[str, float] = {}
+# the wrappers' launch counts are read-modify-written by every thread that
+# launches (serving decodes on one thread while it admits on another)
+_count_lock = threading.Lock()
+_recording = threading.local()
 
 
 def _library(name: str) -> Path:
@@ -98,6 +104,30 @@ def launch(name: str, *args) -> None:
     err = getattr(build_kernels()[name], name)(*args)
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+
+
+def count_launch(wrapper: Callable, n: int = 1) -> None:
+    """Add ``n`` launches to ``wrapper.launches``; inside this thread's
+    ``recording()`` they go to the recording instead."""
+    counts = getattr(_recording, "counts", None)
+    if counts is not None:
+        counts[wrapper] = counts.get(wrapper, 0) + n
+        return
+    with _count_lock:
+        wrapper.launches += n
+
+
+@contextlib.contextmanager
+def recording() -> Iterator[Dict[Callable, int]]:
+    """Collect this thread's ``count_launch`` calls in a dict instead of the
+    wrappers' counts (a CUDA-graph capture records launches; other threads
+    keep counting theirs)."""
+    prev = getattr(_recording, "counts", None)
+    _recording.counts = {}
+    try:
+        yield _recording.counts
+    finally:
+        _recording.counts = prev
 
 
 def check_operands(name: str, tensors: dict, device: torch.device) -> None:

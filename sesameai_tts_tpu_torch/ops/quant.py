@@ -29,7 +29,7 @@ from typing import Optional, Union
 import torch
 import torch.nn.functional as F_
 
-from sesameai_tts_tpu_torch.ops.kernels import check_operands, launch
+from sesameai_tts_tpu_torch.ops.kernels import check_operands, count_launch, launch
 
 _MIN_SPLIT_ROWS = 32  # fewest weight rows one block reduces over
 # quant_matmul.cu: threads per tile row, widest first (a tile is tpr * vec
@@ -201,7 +201,7 @@ def quant_matmul(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor) -> torch
     launch("quant_matmul", x.data_ptr(), q.data_ptr(), scale.data_ptr(), y.data_ptr(),
            S, D, F, splits, rows, tpr, vec, s_tile, int(x.dtype == torch.bfloat16),
            torch.cuda.current_stream(x.device).cuda_stream)
-    quant_matmul.launches += 1
+    count_launch(quant_matmul)
     return y
 
 
@@ -335,7 +335,7 @@ def quant4_matmul(x: torch.Tensor, q4: torch.Tensor, scale: torch.Tensor) -> tor
     launch("quant4_matmul", x.data_ptr(), q4.data_ptr(), scale.data_ptr(), y.data_ptr(),
            S, D, F, G, splits, rows, tpr, vec, s_tile,
            torch.cuda.current_stream(x.device).cuda_stream)
-    quant4_matmul.launches += 1
+    count_launch(quant4_matmul)
     return y
 
 
@@ -534,7 +534,7 @@ def quant_mlp(x: torch.Tensor, q13: torch.Tensor, s13: torch.Tensor, q2: torch.T
            s2.data_ptr(), y.data_ptr(), part.data_ptr(), barrier.data_ptr(), S, D, F, Dout,
            block_i, cluster, threads, rows, smem, s_tile,
            torch.cuda.current_stream(x.device).cuda_stream)
-    quant_mlp.launches += 1
+    count_launch(quant_mlp)
     return y
 
 
@@ -546,33 +546,43 @@ quant_mlp.launches = 0
 # ---------------------------------------------------------------------------
 
 
+# the most rows a quantized product sends to its kernel on the card; more
+# rows (a serving pool of more than 64 slots) are compute-bound and take
+# x @ dequant(w), as the JAX package's qdot routes them
+_KERNEL_MAX_ROWS = 64
+
+
+def routes_to_kernel(device_type: str, rows: int) -> bool:
+    """Whether ``qdot`` sends a quantized product of ``rows`` rows on a
+    ``device_type`` tensor to its kernel."""
+    return device_type == "cuda" and rows <= _KERNEL_MAX_ROWS
+
+
 def qdot(x: torch.Tensor, w: Union[torch.Tensor, dict]) -> torch.Tensor:
     """Matmul against a maybe-quantized weight. x: (..., in); w: (in, out)
     tensor, int8 dict or int4 dict.
 
-    On the card every quantized product goes to its kernel (an int4 one
-    with x cast to bf16 and the result cast back).  On the CPU it is the
-    JAX package's CPU branch, ``x @ dequant(w, x.dtype)``, so the CPU tests
-    compare like with like.
+    On the card a quantized product of at most 64 rows goes to its kernel
+    (an int4 one with x cast to bf16 and the result cast back).  Otherwise
+    it is the JAX package's dequant branch, ``x @ dequant(w, x.dtype)``:
+    every product on the CPU, so the CPU tests compare like with like, and
+    on the card the compute-bound products of more rows.
 
     Precision contract (as in the JAX package): the kernels compute bf16
     activations × bf16-dequantized weights with f32 accumulation; an f32
     caller gets f32 back, not f32 dot precision.
     """
-    if is_quantized4(w):
-        if x.device.type == "cuda":
-            lead, D = x.shape[:-1], x.shape[-1]
-            out = quant4_matmul(x.reshape(-1, D).to(torch.bfloat16).contiguous(),
-                                w["q4"], w["scale"])
-            return out.reshape(*lead, out.shape[-1]).to(x.dtype)
-        return x @ _dequant4(w, x.dtype)
-    if not is_quantized(w):
+    if not (is_quantized4(w) or is_quantized(w)):
         return x @ w
-    if x.device.type == "cuda":
-        lead, D = x.shape[:-1], x.shape[-1]
-        out = quant_matmul(x.reshape(-1, D).contiguous(), w["q"], w["scale"])
-        return out.reshape(*lead, out.shape[-1])
-    return x @ _dequant(w, x.dtype)
+    lead, D = x.shape[:-1], x.shape[-1]
+    if not routes_to_kernel(x.device.type, x.numel() // D):
+        return x @ (_dequant4(w, x.dtype) if is_quantized4(w) else _dequant(w, x.dtype))
+    if is_quantized4(w):
+        out = quant4_matmul(x.reshape(-1, D).to(torch.bfloat16).contiguous(),
+                            w["q4"], w["scale"])
+        return out.reshape(*lead, out.shape[-1]).to(x.dtype)
+    out = quant_matmul(x.reshape(-1, D).contiguous(), w["q"], w["scale"])
+    return out.reshape(*lead, out.shape[-1])
 
 
 def qmlp(x: torch.Tensor, w13, w2, fused: bool = False) -> torch.Tensor:

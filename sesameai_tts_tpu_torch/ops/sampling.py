@@ -6,7 +6,8 @@ threshold (the k-th largest logit) comes from the JAX package's
 fixed-depth 32-way bracket search, ported as written so that a sample
 with injected Gumbel noise equals the JAX package's.  The mask never
 drops a top-k token; it may keep a token within range/2^20 of the k-th
-value.  With ``topk <= 1`` sampling is exact greedy argmax.
+value.  With ``topk <= 1`` sampling is exact greedy argmax, also for one
+row of a per-row ``topk`` (a greedy session in a sampled serving batch).
 """
 
 from __future__ import annotations
@@ -67,7 +68,7 @@ def sample_topk(
 
     ``topk`` and ``temperature`` may be per-slot ``(...,)`` tensors.
     ``gumbel`` injects the noise; otherwise it is drawn from ``generator``."""
-    logits = logits.float()
+    logits = raw = logits.float()
     static_k = isinstance(topk, (int, np.integer))
     if static_k and topk <= 1:
         return logits.argmax(dim=-1)
@@ -77,8 +78,8 @@ def sample_topk(
             temperature = temperature[..., None]
     logits = logits / temperature  # a Python float divides as an f32 scalar
     if not static_k:
-        # per-slot topk: k <= 1 degenerates to greedy through the
-        # threshold, k >= V keeps everything
+        # per-slot topk: k >= V keeps everything; k <= 1 is the exact argmax
+        # below (the threshold alone may keep a near-tie within its bracket)
         k = torch.as_tensor(topk, device=logits.device)[..., None]
         masked = torch.where(logits < topk_threshold(logits, k), float("-inf"), logits)
     elif topk < logits.shape[-1]:
@@ -87,4 +88,7 @@ def sample_topk(
         masked = logits
     if gumbel is None:
         gumbel = gumbel_noise(generator, logits.shape)
-    return (masked + gumbel).argmax(dim=-1)
+    sample = (masked + gumbel).argmax(dim=-1)
+    if static_k:
+        return sample
+    return torch.where(k[..., 0] <= 1, raw.argmax(dim=-1), sample)

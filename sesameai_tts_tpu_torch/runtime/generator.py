@@ -17,7 +17,11 @@ graph per frame serves every chunk size.  Graphs are captured at a
 request's start or in ``warmup``; a capture that fails raises.  On the
 CPU the same step functions run eagerly.  The static state serves one
 request at a time: a second one waits, and ``clone`` gives a Generator of
-its own over the same weights.
+its own over the same weights.  Batched serving (``runtime/serving.py``)
+runs its admissions on one clone (``_prefill_admission`` into a B=1 state
+the server owns, ``_first_chunk``) and its pool on another
+(``_serve_tick`` on the static state at B = slots), each on the clone's
+own stream (``own_stream``).
 
 ``seed`` makes an utterance reproducible and independent of the chunk
 schedule: frame i (the prefill frame is 0) draws its noise from the
@@ -253,6 +257,9 @@ class Generator:
         tok, msk, valid = self._padded(tokens, mask, bucket)
         state = csm_model.extend_state(self._prefill_params, self._cfg, self._init_state(1),
                                        tok, msk, valid, rope_cs=self._rope)
+        if self.device.type == "cuda":
+            # the handle may be read on another stream (a serving admission)
+            torch.cuda.current_stream(self.device).synchronize()
         return state, S
 
     # -- the static decode state and its graphs ----------------------------------
@@ -265,6 +272,18 @@ class Generator:
                                                              batch_size, self.device))
             self._slots[batch_size] = slot
         return slot
+
+    def own_stream(self) -> Optional["torch.cuda.Stream"]:
+        """The CUDA stream this Generator captures its graphs on (made at
+        first use); None on the CPU.  A caller that runs this Generator on
+        one thread beside another's work (``runtime/serving.py``) puts its
+        calls there."""
+        if self.device.type == "cpu":
+            return None
+        if self._graph_stream is None:
+            self._graph_stream = torch.cuda.Stream(self.device)
+            self._graph_pool = torch.cuda.graph_pool_handle()
+        return self._graph_stream
 
     def _step(self, batch_size: int, part: str, greedy: bool) -> Callable[[], None]:
         """The eager call of one part of a frame on the static state."""
@@ -298,11 +317,9 @@ class Generator:
         the static state, so only a caller that holds it and loads it
         afterwards may capture.  On the CPU it makes the state only."""
         self._slot(batch_size)
-        if self.device.type == "cpu":
+        stream = self.own_stream()
+        if stream is None:
             return {}
-        if self._graph_stream is None:
-            self._graph_stream = torch.cuda.Stream(self.device)
-            self._graph_pool = torch.cuda.graph_pool_handle()
         times = {}
         for part in parts:
             key = self._key(batch_size, part, greedy)
@@ -310,7 +327,7 @@ class Generator:
                 continue
             self._slots[batch_size].state.pos.zero_()  # the warm-up step writes at pos
             sampled = part != "backbone" and not greedy
-            captured = graphs.capture(self._step(batch_size, part, greedy), self._graph_stream,
+            captured = graphs.capture(self._step(batch_size, part, greedy), stream,
                                       self._graph_pool, self._rng if sampled else None)
             self._graphs[key] = captured
             kind = "" if part == "backbone" else "_greedy" if greedy else "_sampled"
@@ -336,11 +353,13 @@ class Generator:
 
     # -- generation -------------------------------------------------------------
 
-    def _prefill_utterance(self, text, speaker, context, cached, max_gen,
-                           temperature, topk, seed):
-        """Prompt prep + prefill into the static B=1 state → (frame (1, K),
-        whether it is EOS (a host bool: the prefill's one sync), max_gen).
-        The caller holds ``_request``."""
+    def _prefill_into(self, state, text, speaker, context, cached, max_gen, temperature,
+                      topk, seed):
+        """Prompt prep + prefill into the B=1 ``state`` (loaded here with the
+        cached context, or zeros), then the prefill's frame sampled on the
+        static B=1 buffers → (frame (1, K), done (1,) bool, max_gen), on the
+        device: no host sync.  The caller holds ``_request``; the (1, greedy)
+        graphs must exist on the card."""
         if cached is not None:
             cached_state, ctx_len = cached
             tokens, mask = self._tokenizer.text_segment(text, speaker)
@@ -360,10 +379,7 @@ class Generator:
         max_gen = min(max_gen, room)
         S = tokens.shape[0]
         bucket = _next_bucket(S, self._prefill_buckets, room=self._max_seq_len - (total - S))
-        greedy = csm_model.is_greedy(topk)
-        self._capture(1, greedy)
-        state, bufs = self._slot(1)
-        t0 = time.perf_counter()
+        _, bufs = self._slot(1)
         csm_model.load_state(state, cached_state)  # the cached context stays unchanged
         tok, msk, valid = self._padded(tokens, mask, bucket)
         last_h, prefilled = csm_model.backbone_last_hidden(
@@ -373,31 +389,91 @@ class Generator:
         bufs.done.zero_()
         csm_model.set_sampling(bufs, temperature, topk)
         self._rng.manual_seed(csm_model.frame_seed(seed, 0))
-        self._run(1, "prefill_sample", greedy)
-        frame = bufs.frame.clone()
-        finished = bool(bufs.done[0])
+        self._run(1, "prefill_sample", csm_model.is_greedy(topk))
+        return bufs.frame.clone(), bufs.done.clone(), max_gen
+
+    def _prefill_utterance(self, text, speaker, context, cached, max_gen,
+                           temperature, topk, seed):
+        """``_prefill_into`` the static B=1 state → (frame (1, K), whether it
+        is EOS (a host bool: the prefill's one sync), max_gen).  The caller
+        holds ``_request``."""
+        self._capture(1, csm_model.is_greedy(topk))
+        state, _ = self._slot(1)
+        t0 = time.perf_counter()
+        frame, done, max_gen = self._prefill_into(state, text, speaker, context, cached, max_gen,
+                                                  temperature, topk, seed)
+        finished = bool(done[0])
         self.metrics.record("prefill_s", time.perf_counter() - t0)
         return frame, finished, max_gen
+
+    def _replay_frames(self, batch_size, seed, n, start, greedy):
+        """``n`` frames from absolute index ``start`` on the static state at
+        ``batch_size`` → (frames (n, B, K), valid (n, B)), new device tensors
+        copied out of the static buffers, which the next frame overwrites."""
+        _, bufs = self._slot(batch_size)
+        frames = torch.empty((n,) + tuple(bufs.frame.shape), dtype=bufs.frame.dtype,
+                             device=self.device)
+        valid = torch.empty((n,) + tuple(bufs.valid.shape), dtype=torch.bool, device=self.device)
+        for i in range(n):
+            self._rng.manual_seed(csm_model.frame_seed(seed, start + i))
+            self._run(batch_size, "backbone", greedy)
+            self._run(batch_size, "sample", greedy)
+            frames[i].copy_(bufs.frame)
+            valid[i].copy_(bufs.valid)
+        return frames, valid
 
     def _decode_chunk(self, seed, n, start, greedy):
         """``n`` frames from absolute index ``start`` on the static B=1
         state → (frames (n, 1, K), number of valid frames (a host int: the
         chunk's one sync)).  Records the chunk's wall time, sync included."""
         t0 = time.perf_counter()
-        _, bufs = self._slot(1)
-        frames = torch.empty((n,) + tuple(bufs.frame.shape), dtype=bufs.frame.dtype,
-                             device=self.device)
-        valid = torch.empty((n,) + tuple(bufs.valid.shape), dtype=torch.bool, device=self.device)
-        for i in range(n):
-            self._rng.manual_seed(csm_model.frame_seed(seed, start + i))
-            self._run(1, "backbone", greedy)
-            self._run(1, "sample", greedy)
-            frames[i].copy_(bufs.frame)
-            valid[i].copy_(bufs.valid)
+        frames, valid = self._replay_frames(1, seed, n, start, greedy)
         n_valid = int(valid[:, 0].sum())  # host EOS check; valid frames are a prefix
         self.metrics.record("decode_s", time.perf_counter() - t0)
         self.metrics.record("decoded_frames", n)
         return frames, n_valid
+
+    # -- the hooks of batched serving (runtime/serving.py) ------------------------
+
+    def _prefill_admission(self, text, speaker, context, cached, max_gen, temperature, topk,
+                           seed):
+        """A serving admission's prefill: ``_prefill_into`` a new B=1
+        ``CSMState`` that the caller owns (the serving pool copies it into a
+        slot) → (frame (1, K), state, done (1,) bool, max_gen), all on the
+        device, no host sync; ``prefill_s`` records the host's part.  Holds
+        the static B=1 buffers while it runs; the (1, greedy) graphs of the
+        prefill's frame must exist on the card."""
+        t0 = time.perf_counter()
+        with self._request():
+            state = self._init_state(1)
+            frame, done, max_gen = self._prefill_into(state, text, speaker, context, cached,
+                                                      max_gen, temperature, topk, seed)
+        self.metrics.record("prefill_s", time.perf_counter() - t0)
+        return frame, state, done, max_gen
+
+    def _first_chunk(self, frame: torch.Tensor):
+        """The prefill's frame (1, K) through the streaming Mimi decode from a
+        fresh codec state → ((1, hop) f32 PCM on the device, the codec state
+        after it)."""
+        mimi_state = self._mimi.init_decode_state(1, self._mimi_dtype, self.device)
+        wav, mimi_state = self._mimi.decode_streaming(self._mimi_params, frame[:, :, None],
+                                                      mimi_state)
+        return wav[:, 0].float(), mimi_state
+
+    def _serve_tick(self, batch_size: int, n: int, seed: int, greedy: bool, mimi_state):
+        """One serving tick: ``n`` frames on the static state at
+        ``batch_size`` (the serving pool; on the card ``n`` replays each of
+        the ``backbone`` and ``sample`` graphs, frame i seeded
+        ``frame_seed(seed, i)``), then the batched streaming Mimi decode of
+        its (B, K, n) codes → (frames (n, B, K), valid (n, B), done (B,),
+        PCM (B, n*hop) f32, the codec state after it), new device tensors:
+        nothing the next tick overwrites.  No host sync."""
+        _, bufs = self._slot(batch_size)
+        frames, valid = self._replay_frames(batch_size, seed, n, 0, greedy)
+        done = bufs.done.clone()
+        wav, mimi_state = self._mimi.decode_streaming(self._mimi_params, frames.permute(1, 2, 0),
+                                                      mimi_state)
+        return frames, valid, done, wav[:, 0].float(), mimi_state
 
     def _generate_codes(self, text, speaker, context, max_audio_length_ms, temperature,
                         topk, cached_context, seed) -> torch.Tensor:
@@ -580,26 +656,7 @@ class Generator:
                 times.update(self._capture(1, greedy))
                 if serving_batch:
                     times.update(self._capture(serving_batch, greedy, ("backbone", "sample")))
-            state, bufs = self._slot(1)
-            for b in self._prefill_buckets:
-                if b > self._max_seq_len:
-                    break
-                S = min(8, b)
-                tokens = np.zeros((S, K + 1), np.int64)
-                mask = np.zeros((S, K + 1), bool)
-                mask[:, K] = True
-                tok, msk, valid = self._padded(tokens, mask, b)
-
-                def prefill():
-                    csm_model.load_state(state)
-                    last_h, _ = csm_model.backbone_last_hidden(
-                        self._prefill_params, self._cfg, state, tok, msk, valid,
-                        rope_cs=self._rope)
-                    bufs.last_h.copy_(last_h)
-                    self._run(1, "prefill_sample", True)
-
-                timed(f"prefill_{b}", prefill)
-            csm_model.load_state(state)
+            times.update(self._warm_prefill_buckets())
         if stream:
             timed("first_chunk", lambda: self._mimi.decode_streaming(
                 self._mimi_params, torch.zeros((1, K, 1), dtype=torch.int64, device=self.device),
@@ -608,6 +665,34 @@ class Generator:
             wav = torch.zeros((1, 1, b * self._hop), dtype=torch.float32, device=self.device)
             timed(f"mimi_encode_{b}", lambda: self._mimi.encode(self._mimi_params, wav))
         log.info("warmup: %d steps in %.1fs", len(times), sum(times.values()))
+        return times
+
+    def _warm_prefill_buckets(self) -> dict:
+        """Run the prefill at every prompt bucket that fits the KV cache once,
+        with its frame's greedy sampling, on the static B=1 state (zeroed
+        after) → {"prefill_<bucket>": seconds}.  The caller holds
+        ``_request``; the (1, greedy) prefill graph must exist on the card."""
+        K = self._cfg.audio_num_codebooks
+        state, bufs = self._slot(1)
+        times = {}
+        for b in self._prefill_buckets:
+            if b > self._max_seq_len:
+                break
+            S = min(8, b)
+            tokens = np.zeros((S, K + 1), np.int64)
+            mask = np.zeros((S, K + 1), bool)
+            mask[:, K] = True
+            tok, msk, valid = self._padded(tokens, mask, b)
+            t0 = time.perf_counter()
+            csm_model.load_state(state)
+            last_h, _ = csm_model.backbone_last_hidden(self._prefill_params, self._cfg, state,
+                                                       tok, msk, valid, rope_cs=self._rope)
+            bufs.last_h.copy_(last_h)
+            self._run(1, "prefill_sample", True)
+            if self.device.type == "cuda":
+                torch.cuda.current_stream(self.device).synchronize()
+            times[f"prefill_{b}"] = time.perf_counter() - t0
+        csm_model.load_state(state)
         return times
 
     def clone(

@@ -4,7 +4,9 @@ A replay launches the kernels its capture recorded without calling their
 wrappers, so a ``CapturedGraph`` keeps how many launches of each port
 kernel the capture recorded and adds them to the wrappers' ``launches``
 counts at every replay; the capture itself launches nothing and counts
-nothing.  Nothing here runs when the module is imported.
+nothing (its wrapper calls go to the capturing thread's
+``kernels.recording()``, so other threads' launches meanwhile still
+count).  Nothing here runs when the module is imported.
 """
 
 from __future__ import annotations
@@ -14,14 +16,7 @@ from typing import Callable, Dict, Optional
 
 import torch
 
-from sesameai_tts_tpu_torch.ops.attention import flash_attention
-from sesameai_tts_tpu_torch.ops.quant import quant4_matmul, quant_matmul, quant_mlp
-
-COUNTED = (quant_matmul, quant4_matmul, quant_mlp, flash_attention)
-
-
-def launch_counts() -> Dict[Callable, int]:
-    return {fn: fn.launches for fn in COUNTED}
+from sesameai_tts_tpu_torch.ops.kernels import count_launch, recording
 
 
 class CapturedGraph:
@@ -36,7 +31,7 @@ class CapturedGraph:
     def replay(self) -> None:
         self._graph.replay()
         for fn, n in self.launches.items():
-            fn.launches += n
+            count_launch(fn, n)
 
 
 def capture(fn: Callable[[], None], stream: "torch.cuda.Stream", pool,
@@ -54,17 +49,13 @@ def capture(fn: Callable[[], None], stream: "torch.cuda.Stream", pool,
     with torch.cuda.stream(stream):
         fn()
     torch.cuda.current_stream().wait_stream(stream)
-    before = launch_counts()
     graph = torch.cuda.CUDAGraph()
     if generator is not None:
         graph.register_generator_state(generator)
     # thread_local: another thread's work on another stream may go on
-    with torch.cuda.graph(graph, pool=pool, stream=stream, capture_error_mode="thread_local"):
+    with recording() as recorded, torch.cuda.graph(graph, pool=pool, stream=stream,
+                                                   capture_error_mode="thread_local"):
         fn()
-    recorded = {}
-    for wrapper, n in before.items():
-        recorded[wrapper] = wrapper.launches - n
-        wrapper.launches = n
-    torch.cuda.synchronize()
+    stream.synchronize()
     return CapturedGraph(graph, {f: n for f, n in recorded.items() if n},
                          time.perf_counter() - t0)

@@ -490,3 +490,66 @@ def test_quant_mlp_cluster_plain_with_more_clusters_than_lanes(cluster):
                                      cluster).float()
     want = tq.quant_mlp_plain(x, w13["q"], w13["scale"], w2["q"], w2["scale"]).float()
     assert bool(((got - want).abs() <= 2**-7 * want.abs() + 1e-5 * want.abs().max()).all())
+
+
+@pytest.mark.parametrize("device,rows,kernel", [
+    ("cuda", 1, True), ("cuda", 8, True), ("cuda", 64, True),  # decode and a serving pool
+    ("cuda", 65, False), ("cuda", 512, False),  # more rows: x @ dequant(w), as the JAX qdot
+    ("cpu", 1, False), ("cpu", 64, False),  # the CPU always takes the dequant branch
+])
+def test_qdot_kernel_routing(device, rows, kernel):
+    """On the card a quantized product of at most 64 rows goes to its kernel
+    and more rows to x @ dequant(w), the JAX package's qdot threshold
+    (``sesameai_tts_tpu/ops/quant.py::qdot``); ``qmlp`` keeps its own S <= 64."""
+    assert tq.routes_to_kernel(device, rows) is kernel
+
+
+@pytest.mark.parametrize("S", [65, 72])
+def test_qdot_over_64_rows_is_the_dequant_product(qweight, S):
+    """Past 64 rows qdot is ``x @ dequant(w)``, equal to the JAX package's
+    qdot (which takes the same branch there)."""
+    jw, tw = qweight
+    x = np.random.default_rng(S).standard_normal((S, 64)).astype(np.float32)
+    got = tq.qdot(torch.from_numpy(x), tw)
+    assert torch.equal(got, torch.from_numpy(x) @ tq._dequant(tw, torch.float32))
+    _close(got.numpy(), np.asarray(jq.qdot(jnp.asarray(x), jw)))
+
+
+def test_launch_counts_are_exact_across_threads():
+    """``count_launch`` from many threads at a short switch interval loses no
+    update, and a thread's ``recording()`` (a graph capture) takes its own
+    calls only: the others still reach the count."""
+    import sys
+    import threading
+
+    from sesameai_tts_tpu_torch.ops import kernels
+
+    def wrapper():
+        pass
+
+    wrapper.launches = 0
+    recorded = {}
+
+    def count(n):
+        for _ in range(n):
+            kernels.count_launch(wrapper)
+
+    def capture():
+        with kernels.recording() as rec:
+            count(500)
+        recorded.update(rec)
+
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=count, args=(2000,)) for _ in range(16)]
+        threads.append(threading.Thread(target=capture))
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=60)
+    finally:
+        sys.setswitchinterval(old)
+    assert not any(t.is_alive() for t in threads)
+    assert wrapper.launches == 16 * 2000
+    assert recorded == {wrapper: 500}
