@@ -45,7 +45,15 @@ Phases, each of which fails the run if it fails:
    (``phase_serve``: 12 in-process sessions with exact launches and PCM
    equal to the offline decode of their frames, the HTTP API with the
    streaming watermark and a burst answered 429, the pool's graphed tick
-   bit-equal to the eager step, no graph captured after ``start()``);
+   bit-equal to the eager step, no graph captured after ``start()``).
+   Then ``main[smoke]`` (``phase_smoke``): the silentcipher network at the
+   real grid (44.1 kHz, n_fft 2048, hop 512, 5 × 256, hidden 32) on a 12.6 s
+   clip, encode and phase-shift decode on the card against the CPU and the
+   streaming embed against the offline one; then the real-weights rehearsal,
+   ``sesame-tts-torch-fixtures`` files of CSM-1B → ``sesame-tts-torch-smoke
+   --weights-dir`` (convert, load int8, generate, quant gate, codec, the
+   network's watermark, /tts and /tts/stream), exit code 0, the network's
+   streaming blocks on the card, quant_matmul and flash_attention launched;
 5. QA at full width: teacher-forced agreement of the int4 generator with
    the dense twin of its own tree, and of the fused generator with the
    unfused one, against thresholds; the int8 and int4 acceptance reports
@@ -97,7 +105,10 @@ _MLP_SHAPES = (
     ("backbone.mlp", 2048, 8192, 2048, 16),
     ("decoder.mlp", 1024, 8192, 1024, 128),
 )
-_S_VALUES = (1, 8, 64)
+# every S tile of the three quant kernels (1, 2, 4, 8): S = 1 is the
+# single-stream decode, S = 2 the rehearsal's 2-slot serving pool, S = 8 the
+# 8-slot pool, S = 64 the widest qdot sends to a kernel
+_S_VALUES = (1, 2, 4, 8, 64)
 # kernel vs plain: both accumulate exact bf16 x integer products in f32, in
 # another order, and round to bf16, so they may differ by one bf16 ulp
 # (<= 2^-7 relative) plus f32 rounding noise of the sum; in quant_mlp a few
@@ -194,6 +205,32 @@ SERVE_SESSIONS = (
 SERVE_CANCEL, SERVE_LONG_PROMPT, SERVE_ROOM = 5, 11, 9
 SERVE_STREAM_MS = 8000  # the streamed HTTP responses (>= 4 s verify)
 SERVE_BURST = 64  # /tts requests at once against max_pending=32 with every slot busy
+
+# main[smoke]: the silentcipher network at the real grid (SilentCipherConfig(),
+# the fixture's hidden 32) on a SMOKE_CLIP_S clip made at 24 kHz and resampled
+# to 44.1 kHz: 1,086 STFT frames, bucketed to 2,048.  Card against CPU: both run
+# f32 convolutions (TF32 off) and FFTs of other libraries; the residual's
+# bound is 1e-3 of its peak and the decoded confidences' 1e-4 (the mean of
+# 5 probabilities, each a softmax of bin-averaged logits).  The stream against
+# the offline residual, both on the card: the JAX package's 5e-5 + 1e-3·max.
+# Residuals are compared at gain 1 and at the 24 kHz that watermark() ships:
+# above the carrier's ~12 kHz band the bins hold rounding noise, whose phase
+# (spec / |spec|) each FFT library and batch size draws differently, so the
+# network's residual there differs by ~20 % of its peak at 44.1 kHz (printed
+# as full_band_*; csrc/probes/net_stages.py splits it by stage), and
+# encode_wav's α, which divides by the residual's energy over the full band,
+# by ~1e-3 (printed as alpha_card_over_cpu and encode_wav_resid_*).  So α is
+# gated twice: the gain encode_wav applied on the card against the closed form
+# sqrt(Σx² / Σresid²)·10^(-sdr/20) over the clip's n samples of its own unit
+# residual, in f64 on the host (SMOKE_ALPHA_SELF_TOL: f32 sums and the
+# y - x rounding), and against the CPU's α (SMOKE_ALPHA_CPU_TOL, 5x the
+# noise-band reading of 9.9e-4; 0.05 dB of mark level).  alpha_bucket_fault
+# prints what a sum over the bucket in place of n would give.
+SMOKE_CLIP_S = 12.6
+SMOKE_RESID_TOL = 1e-3
+SMOKE_CONF_TOL = 1e-4
+SMOKE_ALPHA_SELF_TOL = 1e-4
+SMOKE_ALPHA_CPU_TOL = 5e-3
 
 QA_TEXT = "Teacher forcing holds two generators to one trajectory of frames."
 QA_STEPS = 32  # the gated pairs
@@ -1195,6 +1232,249 @@ def phase_cli(torch, wrappers, per_frame: dict):
     return result
 
 
+def _speechlike(seconds: float, rate: int, seed: int):
+    """A gliding harmonic tone under a syllable-rate envelope, plus noise."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    t = np.arange(int(seconds * rate)) / rate
+    phase = 2 * np.pi * np.cumsum(130.0 + 30.0 * np.sin(2 * np.pi * 0.4 * t)) / rate
+    tone = sum(np.sin(h * phase) / h for h in range(1, 9))
+    env = np.clip(np.sin(2 * np.pi * 2.5 * t), 0.0, None)
+    return (0.25 * env * tone + 0.01 * rng.standard_normal(t.size)).astype(np.float32)
+
+
+class _Tee:
+    """Writes to the real stdout and keeps a copy."""
+
+    def __init__(self, out):
+        self.out, self.lines = out, []
+
+    def write(self, s):
+        self.lines.append(s)
+        return self.out.write(s)
+
+    def flush(self):
+        self.out.flush()
+
+
+def _net_on_card(torch, sc_path: str) -> dict:
+    """The silentcipher network at the real grid, card against CPU and the
+    card's stream against its offline embed (see SMOKE_* above), its times
+    and peak memory on the card, and the card's residual and probabilities
+    with TF32 left on (information)."""
+    import contextlib
+    from unittest import mock
+
+    import numpy as np
+
+    from sesameai_tts_tpu_torch.audio.resample import resample
+    from sesameai_tts_tpu_torch.convert import tree_map
+    from sesameai_tts_tpu_torch.watermark import net, stream
+    from sesameai_tts_tpu_torch.watermark.api import CSM_1B_WATERMARK as key
+
+    gpu = net.load_silentcipher_checkpoint(sc_path)  # the default device: the card
+    cpu = net.load_silentcipher_checkpoint(sc_path, device="cpu")
+    cfg, sr = gpu.cfg, gpu.cfg.sample_rate
+    devices = set()
+    tree_map(lambda t: devices.add(t.device.type), gpu.params)
+    x = resample(_speechlike(SMOKE_CLIP_S, 24_000, 3), 24_000, sr)
+    nf = net._frames_for(len(x), cfg)
+
+    def probs(model, y):
+        xp, n, frames = model._padded(y)
+        return net._decode(model.params, cfg, xp, frames, n).cpu().numpy()
+
+    def unit_resid(model, whole=False):  # the offline residual at gain 1
+        xp, _, frames = model._padded(x)
+        msg = torch.tensor(key, device=model.device)
+        r = net._embed(model.params, cfg, xp, msg, frames, len(x))[0]
+        return (r if whole else r[:len(x)]).cpu().numpy()
+
+    def closed_form_alpha(resid):  # encode_wav's gain, in f64 on the host
+        x64, r64 = x.astype(np.float64), resid.astype(np.float64)
+        return float(np.sqrt((x64 @ x64) / (r64 @ r64)) * 10.0 ** (-cfg.default_message_sdr / 20))
+
+    # cuDNN's default (TF32 on), as a library user has it: the network's
+    # own scope must turn TF32 off for its convolutions
+    saved_tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        y_gpu, _ = gpu.encode_wav(x, sr, key)
+        d_gpu = gpu.decode_wav(y_gpu, sr, phase_shift_decoding=True, expected_message=key)
+        peak_gb = (torch.cuda.max_memory_allocated() - base) / 1e9
+        t0 = time.perf_counter()
+        y_cpu, _ = cpu.encode_wav(x, sr, key)
+        d_cpu = cpu.decode_wav(y_gpu, sr, phase_shift_decoding=True, expected_message=key)
+        cpu_s = time.perf_counter() - t0
+        p_gpu, p_cpu = probs(gpu, y_gpu), probs(cpu, y_gpu)
+        off, off_cpu = unit_resid(gpu), unit_resid(cpu)
+        off_bucket = unit_resid(gpu, whole=True)
+        se = stream.StreamingNetEmbedder(gpu, key, alpha=1.0)
+        rng = np.random.default_rng(5)
+        outs, i = [], 0
+        t0 = time.perf_counter()
+        while i < len(x):
+            c = int(rng.integers(2_000, 9_000))
+            outs.append(se.feed(x[i:i + c]))
+            i += c
+        outs.append(se.close())
+        stream_s = time.perf_counter() - t0
+        y_stream = np.concatenate(outs)
+        with mock.patch.object(net, "_full_f32", contextlib.nullcontext):
+            off_tf32 = unit_resid(gpu)
+            p_tf32 = probs(gpu, y_gpu)
+    finally:
+        torch.backends.cudnn.allow_tf32 = saved_tf32
+    r_gpu, r_cpu = y_gpu - x, y_cpu - x
+    # the band the service ships: watermark() resamples the marked 44.1 kHz
+    # audio to the caller's 24 kHz
+    r24_gpu, r24_cpu, s24, off24, off24_cpu, off24_tf32 = (
+        resample(r, sr, 24_000) for r in (r_gpu, r_cpu, y_stream - x, off, off_cpu, off_tf32))
+
+    def of_max(a, b):
+        return float(np.abs(a - b).max() / np.abs(b).max())
+
+    # the gain encode_wav applied: the least-squares fit of its residual
+    # to the unit one
+    alpha_gpu = float((r_gpu.astype(np.float64) @ off) / (off.astype(np.float64) @ off))
+    alpha_cpu = float((r_cpu.astype(np.float64) @ off_cpu)
+                      / (off_cpu.astype(np.float64) @ off_cpu))
+
+    out = {
+        "grid": {"sample_rate": sr, "n_fft": cfg.n_fft, "hop": cfg.hop,
+                 "message": [cfg.message_len, cfg.vocab],
+                 "hidden": int(gpu.params["enc_c"][0]["w"].shape[0])},
+        "clip_s": SMOKE_CLIP_S, "frames": nf, "bucket": net._bucket_frames(nf),
+        "params_device": sorted(devices),
+        "resid_max_abs": float(np.abs(off_cpu).max()),
+        "resid_card_vs_cpu_of_max": of_max(off24, off24_cpu),
+        "full_band_resid_card_vs_cpu_of_max": of_max(off, off_cpu),
+        # encode_wav's residual is α times the one above; α's Σresid² takes in
+        # the noise-phase band too
+        "encode_wav_resid_card_vs_cpu_of_max": of_max(r24_gpu, r24_cpu),
+        "alpha_card_over_cpu": alpha_gpu / alpha_cpu,
+        "alpha_card_over_closed_form": alpha_gpu / closed_form_alpha(off),
+        "alpha_bucket_fault_over_closed_form": (
+            float(np.sqrt((x.astype(np.float64) @ x) / (off_bucket.astype(np.float64) @ off_bucket))
+                  * 10.0 ** (-cfg.default_message_sdr / 20)) / closed_form_alpha(off)),
+        "bucket_tail_resid_energy_share": float(
+            (off_bucket[len(x):].astype(np.float64) ** 2).sum()
+            / (off_bucket.astype(np.float64) ** 2).sum()),
+        "argmax_equal": bool((p_gpu.argmax(axis=1) == p_cpu.argmax(axis=1)).all()),
+        "probs_max_abs_diff": float(np.abs(p_gpu - p_cpu).max()),
+        "confidence": {"card": d_gpu["confidence"], "cpu": d_cpu["confidence"]},
+        "expected_confidence": {"card": d_gpu["expected_confidence"],
+                                "cpu": d_cpu["expected_confidence"]},
+        "stream_vs_offline_max_abs": float(np.abs(s24 - off24).max()),
+        "stream_tolerance": 5e-5 + 1e-3 * float(np.abs(off24).max()),
+        "full_band_stream_vs_offline_max_abs": float(np.abs((y_stream - x) - off).max()),
+        "stream_len_equal": len(y_stream) == len(x),
+        "stream_ms_per_audio_s": stream_s * 1e3 / SMOKE_CLIP_S,
+        "cpu_encode_decode_s": cpu_s,
+        "peak_device_gb": peak_gb,
+        "tf32_on": {"resid_card_vs_cpu_of_max": of_max(off24_tf32, off24_cpu),
+                    "argmax_equal": bool((p_tf32.argmax(axis=1)
+                                          == p_cpu.argmax(axis=1)).all()),
+                    "probs_max_abs_diff": float(np.abs(p_tf32 - p_cpu).max())},
+        "ms_per_audio_s": _watermark_timing(torch, gpu, resample(x, sr, 24_000), 24_000),
+    }
+    del gpu, cpu
+    return out
+
+
+def phase_smoke(torch, wrappers, card: str):
+    """The real-weights rehearsal on the card, after the silentcipher network
+    alone at the real grid (``_net_on_card``): ``fixtures.write_synthetic_weights
+    (tmp, "csm-1b")`` writes upstream-layout files (a 6.2 GB f32 torchtune CSM-1B
+    checkpoint with a Llama-3-format tokenizer.json, a transformers-layout Mimi
+    file, a silentcipher .pth at ``hidden=32``), then ``smoke.main(["--weights-dir",
+    tmp])`` converts, loads (int8), generates, runs the quant gate, the codec, the
+    watermark through the network and the HTTP API, whose /tts/stream carries the
+    network's streamed mark.  Its return code must be 0; the network's streaming
+    blocks must have run on the card; quant_matmul and flash_attention must have
+    launched."""
+    import contextlib
+    import shutil
+    import tempfile
+
+    from sesameai_tts_tpu_torch.service import fixtures, smoke
+    from sesameai_tts_tpu_torch.watermark import stream
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_smoke_")
+    result = {"card": card, "tmp_free_gb": shutil.disk_usage(tmp).free / 1e9}
+    blocks = {"calls": 0, "devices": set()}
+    net_block = stream._net_block_segs
+
+    def counted(model, *a, **kw):
+        blocks["calls"] += 1
+        blocks["devices"].add(model.device.type)
+        return net_block(model, *a, **kw)
+
+    try:
+        t0 = time.perf_counter()
+        paths = fixtures.write_synthetic_weights(os.path.join(tmp, "weights"), "csm-1b", seed=0)
+        result["fixtures_s"] = time.perf_counter() - t0
+        result["fixtures_gb"] = sum(
+            os.path.getsize(os.path.join(d, f))
+            for d, _, files in os.walk(os.path.dirname(paths["marker"])) for f in files) / 1e9
+        result["net"] = _net_on_card(torch, paths["silentcipher"])
+        print("main[smoke] net " + json.dumps(result["net"]), flush=True)
+        _collect(torch)
+
+        stream._net_block_segs = counted
+        tee = _Tee(sys.stdout)
+        _reset_counts(wrappers)
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(tee):
+            rc = smoke.main(["--weights-dir", os.path.dirname(paths["marker"])])
+        torch.cuda.synchronize()
+        result["smoke_s"] = time.perf_counter() - t0
+        result["launches"] = _counts(wrappers)
+    finally:
+        stream._net_block_segs = net_block
+        shutil.rmtree(tmp, ignore_errors=True)
+        _collect(torch)
+    lines = "".join(tee.lines).splitlines()
+    result["rc"] = rc
+    result["checks"] = [ln for ln in lines if ln.startswith(("[PASS]", "[FAIL]", "[info]"))]
+    result["stream_blocks"] = {"calls": blocks["calls"], "devices": sorted(blocks["devices"])}
+    print("main[smoke] " + json.dumps(result), flush=True)
+    n = result["net"]
+    _check(n["params_device"] == ["cuda"], f"smoke: the network's params are on "
+                                           f"{n['params_device']}, not the card")
+    _check(n["resid_card_vs_cpu_of_max"] <= SMOKE_RESID_TOL,
+           f"smoke: the card's residual is {n['resid_card_vs_cpu_of_max']:.2e} of max|resid| "
+           f"from the CPU's (limit {SMOKE_RESID_TOL})")
+    _check(abs(n["alpha_card_over_closed_form"] - 1) <= SMOKE_ALPHA_SELF_TOL,
+           f"smoke: encode_wav's gain on the card is {n['alpha_card_over_closed_form']} of "
+           f"sqrt(Σx²/Σresid²)·10^(-sdr/20) over the clip (limit {SMOKE_ALPHA_SELF_TOL})")
+    _check(abs(n["alpha_card_over_cpu"] - 1) <= SMOKE_ALPHA_CPU_TOL,
+           f"smoke: encode_wav's gain on the card is {n['alpha_card_over_cpu']} of the CPU's "
+           f"(limit {SMOKE_ALPHA_CPU_TOL})")
+    _check(n["argmax_equal"], "smoke: the decoded argmax message differs, card against CPU")
+    for k in ("confidence", "expected_confidence"):
+        _check(abs(n[k]["card"] - n[k]["cpu"]) <= SMOKE_CONF_TOL,
+               f"smoke: {k} {n[k]['card']} on the card, {n[k]['cpu']} on the CPU")
+    _check(n["stream_len_equal"] and n["stream_vs_offline_max_abs"] <= n["stream_tolerance"],
+           f"smoke: the stream is {n['stream_vs_offline_max_abs']:.2e} from the offline "
+           f"residual (limit {n['stream_tolerance']:.2e})")
+    _check(rc == 0, f"smoke: sesame-tts-torch-smoke --weights-dir exited {rc}")
+    _check(any(ln.startswith("[PASS] serve") and "stream through StreamingNetEmbedder" in ln
+               for ln in lines), "smoke: /tts/stream did not stream the network's mark")
+    _check(any(ln.startswith("[PASS] watermark: NetWatermarker") for ln in lines),
+           "smoke: the watermark check did not run the network")
+    _check(blocks["calls"] > 0 and blocks["devices"] == {"cuda"},
+           f"smoke: the network's streaming blocks ran {blocks['calls']} times on "
+           f"{sorted(blocks['devices'])}")
+    for k in ("quant_matmul", "flash_attention"):
+        _check(result["launches"][k] > 0, f"smoke: {k} did not launch in the rehearsal")
+    return result
+
+
 def _post(base: str, path: str, body: dict, timeout: float = 300):
     import urllib.request
 
@@ -1981,9 +2261,11 @@ def main() -> int:
         paths["voice"] = timed("main[voice]", phase_voice_path, torch, wrappers, _PATHS[0][2])
         cli = timed("main[cli]", phase_cli, torch, wrappers, _PATHS[0][2])
         serving = timed("main[serve]", phase_serve, torch, wrappers, card)
+        rehearsal = timed("main[smoke]", phase_smoke, torch, wrappers, card)
         launches = {path: r["launches"] for path, r in paths.items()}
         launches["cli"] = cli["launches"]
         launches["serve"] = serving["traffic"]["launches"]
+        launches["smoke"] = rehearsal["launches"]
         print("graphed vs eager " + json.dumps(_graphed_vs_eager(paths)), flush=True)
         timed("profile", phase_profile, torch, wrappers)
         timed("qa", phase_qa, torch)

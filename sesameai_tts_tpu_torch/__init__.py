@@ -15,7 +15,7 @@ Entry points (the card unless the caller passes ``device="cpu"``)::
 
 Top-level conveniences, imported lazily::
 
-    from sesameai_tts_tpu_torch import load_csm_1b, Segment, TTS
+    from sesameai_tts_tpu_torch import load_csm_1b, Segment, TTS, BatchedTTSServer
 """
 
 __version__ = "0.1.0"
@@ -27,6 +27,7 @@ _LAZY = {
     "Generator": ("sesameai_tts_tpu_torch.runtime.generator", "Generator"),
     "Segment": ("sesameai_tts_tpu_torch.runtime.frames", "Segment"),
     "TTS": ("sesameai_tts_tpu_torch.service.tts", "TTS"),
+    "BatchedTTSServer": ("sesameai_tts_tpu_torch.runtime.serving", "BatchedTTSServer"),
     "generate_streaming_audio": ("sesameai_tts_tpu_torch.runtime.streaming",
                                  "generate_streaming_audio"),
     "AudioStreamWriter": ("sesameai_tts_tpu_torch.runtime.streaming", "AudioStreamWriter"),

@@ -1,9 +1,11 @@
 """Parameter trees between the JAX package and the port.
 
-``from_jax_params`` takes a CSM or Mimi parameter tree of the JAX package
-whose leaves are numpy arrays (``jax.tree.map(np.asarray, params)``) and
-returns the port's tree: the same nesting with torch tensors, and the CSM
-trunks in the port's per-layer layout.  A JAX trunk may be stacked
+``from_jax_params`` takes a CSM, Mimi or silentcipher-network parameter
+tree of the JAX package whose leaves are numpy arrays
+(``jax.tree.map(np.asarray, params)``) and returns the port's tree: the same
+nesting with torch tensors (the network's tuples of ``{"w", "b"}`` conv
+blocks, ``enc_m`` and ``dec_m`` as they are), and the CSM trunks in the
+port's per-layer layout.  A JAX trunk may be stacked
 (``{"layers": {name: (L, ...)}}``) or per-layer (``{"layers": (L ×
 {name: ...})}``); int8 ``{"q", "scale"}`` and int4 ``{"q4", "scale"}``
 leaves keep their keys.

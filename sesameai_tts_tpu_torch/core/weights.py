@@ -7,7 +7,8 @@
   stores (out, in); the tree stores (in, out)); q/k/v and w1/w3 fuse.
   ``save_csm_checkpoint`` is its inverse.
 * ``load_mimi_checkpoint(path, mimi)``: a Mimi state dict in the moshi or
-  the transformers ``MimiModel`` layout → the port's Mimi tree.
+  the transformers ``MimiModel`` layout → the port's Mimi tree;
+  ``mimi_hf_state_dict`` writes the transformers layout back.
 * ``save_pytree`` / ``load_pytree``: any tree of tensors as one
   safetensors file keyed by the flattened key paths, with the tree's
   structure in the header's metadata.  This takes the place of the JAX
@@ -311,6 +312,58 @@ def _hf_mimi_to_moshi_keys(sd: Dict[str, torch.Tensor]) -> Dict[str, torch.Tenso
             out[f"quantizer.{mo}.vq.layers.{i}._codebook.cluster_usage"] = \
                 sd[f"{base}.cluster_usage"]
     return out
+
+
+def mimi_hf_state_dict(params: dict, mimi) -> Dict[str, torch.Tensor]:
+    """The port's Mimi tree → a state dict in the transformers ``MimiModel``
+    layout (the inverse of ``load_mimi_checkpoint`` on that layout, through
+    ``_hf_mimi_to_moshi_keys``), f32 on the host.  Each codebook is written as
+    ``embed_sum`` with a ``cluster_usage`` of one and ``initialized`` set, so
+    it loads back exactly."""
+
+    def f32(t):
+        return t.detach().to("cpu", torch.float32).contiguous()
+
+    sd: Dict[str, torch.Tensor] = {}
+    for side in ("encoder", "decoder"):
+        for i, (spec, p) in enumerate(zip(getattr(mimi, side).specs, params[side])):
+            convs = ([(f"{side}.layers.{i}.conv", p)] if spec[0] in ("conv", "convtr")
+                     else [(f"{side}.layers.{i}.block.{2 * j + 1}.conv", q)
+                           for j, q in enumerate(p)] if spec[0] == "res" else [])
+            for name, q in convs:
+                sd[f"{name}.weight"] = f32(q["w"])
+                if "b" in q:
+                    sd[f"{name}.bias"] = f32(q["b"])
+    for side in ("encoder_transformer", "decoder_transformer"):
+        lay = params[side]["layers"]
+        for i in range(lay["qkv"].shape[0]):
+            p = f"{side}.layers.{i}"
+            q, k, v = f32(lay["qkv"][i]).T.chunk(3, dim=0)
+            sd[f"{p}.self_attn.q_proj.weight"] = q.contiguous()
+            sd[f"{p}.self_attn.k_proj.weight"] = k.contiguous()
+            sd[f"{p}.self_attn.v_proj.weight"] = v.contiguous()
+            sd[f"{p}.self_attn.o_proj.weight"] = f32(lay["out"][i]).T.contiguous()
+            sd[f"{p}.input_layernorm.weight"] = f32(lay["norm1_w"][i])
+            sd[f"{p}.input_layernorm.bias"] = f32(lay["norm1_b"][i])
+            sd[f"{p}.post_attention_layernorm.weight"] = f32(lay["norm2_w"][i])
+            sd[f"{p}.post_attention_layernorm.bias"] = f32(lay["norm2_b"][i])
+            sd[f"{p}.mlp.fc1.weight"] = f32(lay["lin1"][i]).T.contiguous()
+            sd[f"{p}.mlp.fc2.weight"] = f32(lay["lin2"][i]).T.contiguous()
+            sd[f"{p}.self_attn_layer_scale.scale"] = f32(lay["ls1"][i])
+            sd[f"{p}.mlp_layer_scale.scale"] = f32(lay["ls2"][i])
+    sd["downsample.conv.weight"] = f32(params["downsample"]["w"])
+    sd["upsample.conv.weight"] = f32(params["upsample"]["w"])
+    for hf, name in (("semantic_residual_vector_quantizer", "semantic"),
+                     ("acoustic_residual_vector_quantizer", "acoustic")):
+        qp = params["quantizer"][name]
+        sd[f"quantizer.{hf}.input_proj.weight"] = f32(qp["input_proj"]).T.contiguous()[..., None]
+        sd[f"quantizer.{hf}.output_proj.weight"] = f32(qp["output_proj"]).T.contiguous()[..., None]
+        for i, cb in enumerate(qp["codebooks"]):
+            base = f"quantizer.{hf}.layers.{i}.codebook"
+            sd[f"{base}.embed_sum"] = f32(cb)
+            sd[f"{base}.cluster_usage"] = torch.ones(cb.shape[0])
+            sd[f"{base}.initialized"] = torch.ones(1)
+    return sd
 
 
 def load_mimi_checkpoint(path: str, mimi, dtype=torch.float32) -> dict:

@@ -28,15 +28,18 @@ import time
 logger = logging.getLogger("sesameai_tts_tpu_torch.prewarm")
 
 
-def prewarm(gen, slots, chunk_frames, encode_buckets=(16, 32, 64)) -> dict:
+def prewarm(gen, slots, chunk_frames, offline: bool = True,
+            encode_buckets=(16, 32, 64)) -> dict:
     """The serve-start warm-up set (graphs, prefill buckets, first chunk,
     the batched codec decode) and the single-stream one (B=1 graphs, the
-    Mimi encode buckets) → {step: seconds}."""
+    Mimi encode buckets) → {step: seconds}.  ``offline`` goes to
+    ``Generator.warmup``, as in the JAX package (one graph per frame part
+    serves every chunk size here, so it adds no step)."""
     from sesameai_tts_tpu_torch.runtime.serving import BatchedTTSServer
 
     engine = BatchedTTSServer(gen, slots=slots, chunk_frames=chunk_frames)
     times = engine.warmup()
-    times.update(gen.warmup(encode_buckets=encode_buckets))
+    times.update(gen.warmup(offline=offline, encode_buckets=encode_buckets))
     return times
 
 
@@ -58,6 +61,10 @@ def main(argv=None) -> int:
                    help="tick size (default: serve's rule: 10 for <=8 slots, 5 above)")
     p.add_argument("--max-positions", type=int, default=None,
                    help="KV capacity override; match serve's")
+    p.add_argument("--no-offline", action="store_true",
+                   help="accepted so the JAX package's command lines parse; passed to "
+                        "Generator.warmup, which ignores it (one graph per frame part "
+                        "serves every chunk size, so there is no offline ramp to skip)")
     args = p.parse_args(argv)
 
     from sesameai_tts_tpu_torch.runtime.generator import resolve_device
@@ -87,7 +94,7 @@ def main(argv=None) -> int:
     logger.info("build: %.1fs", build_s)
 
     t0 = time.time()
-    times = prewarm(gen, args.slots, args.chunk_frames)
+    times = prewarm(gen, args.slots, args.chunk_frames, offline=not args.no_offline)
     wall = time.time() - t0
     slowest = sorted(times.items(), key=lambda kv: -kv[1])[:5]
     logger.info("prewarm: %d steps in %.1fs (slowest: %s)", len(times), wall,

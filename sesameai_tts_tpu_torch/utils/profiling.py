@@ -1,12 +1,14 @@
 """Profiling and structured metrics (port of
-``sesameai_tts_tpu/utils/profiling.py``): bounded per-stage metric series,
-a ``torch.profiler`` trace context for device timelines, and realtime
-factor accounting for one utterance.
+``sesameai_tts_tpu/utils/profiling.py``): bounded per-stage metric series
+with a wall-clock timer and a JSON dump, a default registry (``metrics``), a
+``torch.profiler`` trace context for device timelines, and realtime factor
+accounting for one utterance.
 """
 
 from __future__ import annotations
 
 import contextlib
+import json
 import os
 import threading
 import time
@@ -33,6 +35,15 @@ class Metrics:
             if len(s) > self._maxlen:
                 del s[: len(s) - self._maxlen]
 
+    @contextlib.contextmanager
+    def timer(self, name: str) -> Iterator[None]:
+        """Record the block's wall-clock seconds under ``name``."""
+        t0 = time.perf_counter()
+        try:
+            yield
+        finally:
+            self.record(name, time.perf_counter() - t0)
+
     def summary(self) -> Dict[str, dict]:
         with self._lock:
             out = {}
@@ -48,9 +59,16 @@ class Metrics:
                 }
             return out
 
+    def dump_json(self) -> str:
+        return json.dumps(self.summary(), indent=2)
+
     def reset(self) -> None:
         with self._lock:
             self._series.clear()
+
+
+# the module's default registry (opt-in; a Generator keeps its own)
+metrics = Metrics()
 
 
 @contextlib.contextmanager

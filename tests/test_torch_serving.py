@@ -535,6 +535,32 @@ def test_stop_ends_every_listener(gen, started):
     assert stopped >= 2  # the queued ones at least
 
 
+def test_prewarm_passes_offline_to_generator_warmup(capsys, monkeypatch):
+    """``prewarm(..., offline=)`` and ``--no-offline`` reach
+    ``Generator.warmup(offline=...)``, as in the JAX package."""
+    import inspect
+
+    from sesameai_tts_tpu.service import prewarm as j_prewarm
+    from sesameai_tts_tpu_torch.runtime.loader import build_generator, test_tiny_spec
+    from sesameai_tts_tpu_torch.service import prewarm
+
+    assert list(inspect.signature(prewarm.prewarm).parameters) == \
+        list(inspect.signature(j_prewarm.prewarm).parameters)
+    seen = []
+    monkeypatch.setattr(BatchedTTSServer, "warmup", lambda self: {"serve": 0.0})
+    monkeypatch.setattr(Generator, "warmup",
+                        lambda self, **kw: seen.append(kw) or {"gen": 0.0})
+    gen = build_generator(test_tiny_spec(), device="cpu")
+    assert prewarm.prewarm(gen, 2, 4, offline=False) == {"serve": 0.0, "gen": 0.0}
+    assert prewarm.prewarm(gen, 2, 4)["gen"] == 0.0
+    assert [kw["offline"] for kw in seen] == [False, True]
+    for argv, want in (([], True), (["--no-offline"], False)):
+        assert prewarm.main(["--device", "cpu", "--flavor", "test-tiny", "--slots", "2",
+                             "--max-positions", "128", *argv]) == 0
+        assert seen[-1]["offline"] is want
+    capsys.readouterr()
+
+
 def test_prewarm_runs_on_the_cpu_when_asked(capsys):
     """``sesame-tts-torch-prewarm --device cpu`` runs the serve-start warm-up
     set and prints its JSON line (no ``cache_dir``: nothing persists but

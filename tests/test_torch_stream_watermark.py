@@ -10,7 +10,7 @@ same chunks, and the 24 kHz ``StreamingWatermarker`` within 1e-5; the
 streamed marks verify on every prefix of 4 s or more, unmarked audio does
 not; the first marked samples leave after ~0.1 s of input; the stream is
 the offline embed past its leading edge; and the silentcipher network's
-streaming entry points raise until that network is ported."""
+streaming entry points take only that network."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -146,10 +146,14 @@ def test_stream_is_the_offline_embed_past_its_edge(wm):
 
 
 def test_net_streaming_raises_and_other_backends_get_none(wm):
+    """The DSP backend streams through StreamingWatermarker; an unknown
+    backend gets None from both dispatchers (the caller marks ≥ 4 s groups),
+    and the network's embedder refuses anything but a NetWatermarker (the
+    network's own streaming: tests/test_torch_silentcipher.py)."""
     assert isinstance(stream.make_streaming_watermarker(wm, CSM_1B_WATERMARK, 24_000),
                       stream.StreamingWatermarker)
     assert stream.make_streaming_watermarker(object(), CSM_1B_WATERMARK, 24_000) is None
-    with pytest.raises(NotImplementedError, match="silentcipher"):
-        stream.make_streaming_net_watermarker(object(), CSM_1B_WATERMARK, 24_000)
-    with pytest.raises(NotImplementedError, match="silentcipher"):
+    assert stream.make_streaming_net_watermarker(object(), CSM_1B_WATERMARK, 24_000) is None
+    assert stream.make_streaming_net_watermarker(wm, CSM_1B_WATERMARK, 24_000) is None
+    with pytest.raises(TypeError, match="NetWatermarker"):
         stream.StreamingNetEmbedder(object(), CSM_1B_WATERMARK)

@@ -2,8 +2,8 @@
 against the JAX package's on the same seeded signals: the marked audio
 agrees within 1e-4 of the signal's peak, each package verifies the
 other's marks with confidences within 1e-2, a wrong key and unmarked
-audio are rejected, the file checker round-trips, and a silentcipher
-checkpoint raises instead of falling back."""
+audio are rejected, the file checker round-trips, and a missing
+silentcipher checkpoint raises instead of falling back."""
 
 import numpy as np
 import pytest
@@ -130,10 +130,13 @@ def test_check_audio_from_file_roundtrip(wms, tmp_path, capsys):
 
 
 def test_silentcipher_checkpoint_raises(monkeypatch, tmp_path):
-    with pytest.raises(NotImplementedError, match="silentcipher"):
+    """A silentcipher checkpoint that is not there raises, by argument or by
+    SILENTCIPHER_CKPT, and never falls back to the DSP scheme (the network
+    itself: tests/test_torch_silentcipher.py)."""
+    with pytest.raises(FileNotFoundError, match="silentcipher"):
         api.load_watermarker(ckpt_path=str(tmp_path / "sc.pth"), device="cpu")
     monkeypatch.setenv("SILENTCIPHER_CKPT", str(tmp_path / "sc.pth"))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(FileNotFoundError, match="sc.pth"):
         api.load_watermarker(device="cpu")
 
 
