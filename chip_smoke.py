@@ -41,6 +41,15 @@ Phases, each of which fails the run if it fails:
    tokenizer.json, a Mimi ``save_pytree`` file, a voice) speaks two
    sentences into a watermarked WAV; its launches, the WAV, the watermark
    and greedy frames against a Generator built in memory are checked.
+   Right after the int8 path, ``main[apps]`` (``phase_apps``): the app
+   layer on a clone of its warmed Generator over a loopback LLM/STT server
+   on 127.0.0.1: ChatApp (query → sentence pump, a topk=1 re-run against
+   the engine), StorytellerApp (LLM and pasted continuations, the replay,
+   the combined WAV) and four DuplexVoiceApp turns (16 kHz user audio →
+   rolling context with a pinned voice prefix → streamed reply → one
+   frame per chunk), quant_matmul and flash_attention counted over them;
+   then Mimi.encode_streaming against Mimi.encode, f32 on the card, and
+   the native (g++) audio backend against the numpy paths.
    Then ``main[serve]``: an 8-slot ``BatchedTTSServer`` over CSM-1B int8
    (``phase_serve``: 12 in-process sessions with exact launches and PCM
    equal to the offline decode of their frames, the HTTP API with the
@@ -231,6 +240,30 @@ SMOKE_RESID_TOL = 1e-3
 SMOKE_CONF_TOL = 1e-4
 SMOKE_ALPHA_SELF_TOL = 1e-4
 SMOKE_ALPHA_CPU_TOL = 5e-3
+
+# main[apps]: the app layer on a clone of the int8 path's warmed Generator,
+# over a loopback OpenAI-compatible server on 127.0.0.1 (a stand-in for the
+# LLM and transcription endpoints; no network).  The reply is three
+# sentences; its SSE deltas split words and the decimal "2.5", which
+# sentence_stream keeps whole (the chat's split_clean_sentences, as in the
+# JAX package, spaces it to "2. 5" and queues four sentences).  Every
+# synthesized sentence is capped at AUDIO_MS, the other paths' request budget.
+APPS_REPLY = "The loopback model answers in three sentences. It costs 2.5 dollars today! " \
+             "Is that fine?"
+APPS_DELTAS = ("The loop", "back model answers in three sen", "tences. It costs 2", ".5 dol",
+               "lars today! Is that", " fine?")
+APPS_TRANSCRIPT = "Tell me something about the weather."
+APPS_PASTED = "The pasted part has two sentences. It ends right here."
+APPS_SPEED = 1.2
+APPS_TURNS = 4  # duplex user turns of APPS_TURN_S at APPS_TURN_RATE (resampled to 24 kHz)
+APPS_TURN_S, APPS_TURN_RATE = 4.0, 16_000
+APPS_PCM_TOL = 1e-3  # the topk=1 re-run against the direct call, of its peak
+# A8: a 12.6 s clip padded to whole 2-frame chunks, streamed in 2-frame chunks
+# against the offline encode, both f32 on the card with TF32 off; codebook 0
+# must agree on this share of frames (the CPU tests hold all codebooks exact)
+APPS_ENCODE_CHUNK = 2
+APPS_ENCODE_MIN_EQUAL = 0.99
+APPS_NATIVE_TOL = 5e-4  # resample_native vs resample, as tests/test_audio.py
 
 QA_TEXT = "Teacher forcing holds two generators to one trajectory of frames."
 QA_STEPS = 32  # the gated pairs
@@ -868,7 +901,8 @@ def phase_main_path(torch, wrappers, path: str, spec_fields: dict, per_frame: di
                     voice: bool):
     """One configuration of the serving path at CSM-1B width: offline and
     streamed requests (and a 2 s voice-context one) on the graphs, launch
-    counts checked exactly; then the graph checks and the eager twin."""
+    counts checked exactly; then the graph checks and the eager twin.  →
+    (result, the warmed Generator, which the caller frees)."""
     gen, setup = _build_generator(torch, path, spec_fields)
     gen.metrics.reset()
     _reset_counts(wrappers)
@@ -879,9 +913,7 @@ def phase_main_path(torch, wrappers, path: str, spec_fields: dict, per_frame: di
     result["graph_checks"] = phase_graphs(torch, gen, path, per_frame, TEXT_1)
     result["eager"] = _eager_run(torch, gen, TEXT_1, voice=voice)
     print(f"eager[{path}] " + json.dumps(result["eager"]), flush=True)
-    del gen
-    _collect(torch)
-    return result
+    return result, gen
 
 
 def _write_voice(root: str) -> str:
@@ -1833,6 +1865,373 @@ def phase_serve(torch, wrappers, card: str):
     return result
 
 
+class _Loopback:
+    """A stdlib HTTP server on 127.0.0.1 at an ephemeral port that answers as
+    an OpenAI-compatible endpoint: ``/v1/chat/completions`` gives APPS_REPLY
+    whole, or as SSE deltas (APPS_DELTAS) when the request streams;
+    ``/v1/audio/transcriptions`` gives APPS_TRANSCRIPT.  ``requests`` counts
+    the posts by path."""
+
+    def __init__(self):
+        import threading
+        from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+        loop = self
+        self.requests = {}
+        lock = threading.Lock()
+
+        class Handler(BaseHTTPRequestHandler):
+            def log_message(self, *args):
+                pass
+
+            def do_POST(self):
+                body = self.rfile.read(int(self.headers["Content-Length"]))
+                with lock:
+                    loop.requests[self.path] = loop.requests.get(self.path, 0) + 1
+                if self.path == "/v1/audio/transcriptions":
+                    return self._send("application/json",
+                                      json.dumps({"text": APPS_TRANSCRIPT}).encode())
+                if not json.loads(body)["stream"]:
+                    return self._send("application/json", json.dumps(
+                        {"choices": [{"message": {"role": "assistant",
+                                                  "content": APPS_REPLY}}]}).encode())
+                events = [json.dumps({"choices": [{"delta": {"content": d}}]})
+                          for d in APPS_DELTAS] + ["[DONE]"]
+                self._send("text/event-stream",
+                           "".join(f"data: {e}\n\n" for e in events).encode())
+
+            def _send(self, ctype, data):
+                self.send_response(200)
+                self.send_header("Content-Type", ctype)
+                self.send_header("Content-Length", str(len(data)))
+                self.end_headers()
+                self.wfile.write(data)
+
+        self.httpd = ThreadingHTTPServer(("127.0.0.1", 0), Handler)
+        self.base = f"http://127.0.0.1:{self.httpd.server_address[1]}/v1"
+        self.thread = threading.Thread(target=self.httpd.serve_forever, daemon=True)
+        self.thread.start()
+
+    def close(self):
+        self.httpd.shutdown()
+        self.httpd.server_close()
+        self.thread.join(timeout=10)
+
+
+def _apps_chat(tts, gen) -> dict:
+    """ChatApp.process_query over the loopback LLM, then the pump over its
+    sentences; then the first sentence again at topk=1 through the pump
+    against the engine called directly (codes exact, PCM within
+    APPS_PCM_TOL of its peak)."""
+    import numpy as np
+
+    from sesameai_tts_tpu_torch.apps.web_chat import ChatApp
+
+    app = ChatApp(voice="clone", model="local-default", tts=tts)
+    t0 = time.perf_counter()
+    outs = list(app.process_query("What does the loopback model say?", temperature=0.9))
+    llm_s = time.perf_counter() - t0
+    _, status, start, end, active = outs[-1]
+    _check(active and end - start == len(app.split_text_into_sentences(APPS_REPLY)),
+           f"apps/chat: process_query queued {end - start} sentences ({status!r})")
+    sentences, first_audio_s, items = [], None, []
+    t_prev = time.perf_counter()
+    for act, audio in app.sentence_generator_loop(start, end, active, temperature=0.8,
+                                                  speed_factor=APPS_SPEED, topk=40):
+        now = time.perf_counter()
+        items.append((act, audio))
+        if audio is not None:
+            if first_audio_s is None:
+                first_audio_s = now - t0
+            sr, pcm = audio
+            _check(sr == 24_000 and pcm.dtype == np.float32 and bool(np.isfinite(pcm).all())
+                   and float(np.abs(pcm).max()) > 0.0,
+                   f"apps/chat: clip {len(sentences)} is not finite non-silent f32 at 24 kHz")
+            sentences.append({"wall_s": now - t_prev, "audio_s": pcm.size / sr,
+                              "rtf": (now - t_prev) / (pcm.size / sr)})
+        t_prev = now
+    _check(len(sentences) == end - start and items[-1] == (False, None),
+           f"apps/chat: {len(sentences)} clips for {end - start} sentences, last item "
+           f"{items[-1][0]}")
+
+    codes = []
+    generate_codes = gen._generate_codes
+
+    def recording(*args, **kwargs):
+        out = generate_codes(*args, **kwargs)
+        codes.append(out.cpu().numpy())
+        return out
+
+    sentence = app.queue.get(start)
+    gen._generate_codes = recording
+    try:
+        s, e = app.queue.enqueue([sentence])
+        (_, (_, piped)), _ = list(app.sentence_generator_loop(
+            s, e, True, temperature=0.8, speed_factor=APPS_SPEED, topk=1))
+        direct = tts.generate_audio_segment(
+            sentence, temperature=0.8, topk=1, fade_duration=app.FADE_MS,
+            start_silence_duration=app.LEAD_SILENCE_MS,
+            end_silence_duration=app.TAIL_SILENCE_MS).speedup(playback_speed=APPS_SPEED).samples
+    finally:
+        del gen._generate_codes
+    codes_equal = len(codes) == 2 and np.array_equal(codes[0], codes[1])
+    pcm_err = float(np.abs(piped - direct).max() / np.abs(direct).max()) \
+        if piped.shape == direct.shape else float("inf")
+    _check(codes_equal, "apps/chat: the topk=1 re-run's codes differ from the direct call's")
+    _check(pcm_err <= APPS_PCM_TOL,
+           f"apps/chat: the topk=1 re-run's PCM is {pcm_err:.3g} of its peak from the direct "
+           f"call's (> {APPS_PCM_TOL})")
+    return {"llm_query_s": llm_s, "query_to_first_audio_s": first_audio_s,
+            "sentences": sentences,
+            "rerun_topk1": {"codes_equal": codes_equal, "frames": int(codes[0].shape[0]),
+                            "pcm_bit_equal": bool(np.array_equal(piped, direct)),
+                            "pcm_max_err_of_peak": pcm_err}}
+
+
+def _apps_story(tts) -> dict:
+    """StorytellerApp: one continuation from the loopback LLM, one of pasted
+    text, each pumped to the end, then the combined story WAV."""
+    import shutil
+
+    from sesameai_tts_tpu_torch.apps.web_storyteller import StorytellerApp
+    from sesameai_tts_tpu_torch.audio.io import read_wav
+
+    app = StorytellerApp(voice="clone", model="local-default", tts=tts)
+    try:
+        parts = []
+        for prompt, use_llm in (("Tell the story of a lighthouse.", True), (APPS_PASTED, False)):
+            narrated = sum(c.samples.size for g in app.prompt_audio_segments for c in g)
+            t0 = time.perf_counter()
+            _, status, start, end, active, replay = list(app.continue_story(prompt, use_llm))[-1]
+            replay_n = 0 if replay is None else replay[1].size
+            _check(active and end > start, f"apps/story: nothing queued ({status!r})")
+            _check(replay_n == narrated,
+                   f"apps/story: the replay holds {replay_n} samples, {narrated} were narrated")
+            items = list(app.sentence_generator_loop(start, end, active, temperature=0.8,
+                                                     speed_factor=1.0, topk=40))
+            clips = [a for _, a in items if a is not None]
+            _check(len(clips) == end - start and items[-1] == (False, None),
+                   f"apps/story: {len(clips)} clips for {end - start} sentences")
+            parts.append({"use_llm": use_llm, "sentences": end - start,
+                          "replay_samples": replay_n, "wall_s": time.perf_counter() - t0,
+                          "audio_s": sum(pcm.size for _, pcm in clips) / 24_000})
+        narrated = sum(c.samples.size for g in app.prompt_audio_segments for c in g)
+        wav, rate = read_wav(app.combine_full_story())
+        _check(rate == 24_000 and wav.shape == (1, narrated),
+               f"apps/story: the story WAV holds {wav.shape} at {rate} Hz, {narrated} samples "
+               f"were narrated")
+        return {"parts": parts, "story_samples": narrated,
+                "prompt_wavs": len(app.generated_prompt_wav_paths)}
+    finally:
+        app.reset_story()
+        shutil.rmtree(app.session_dir, ignore_errors=True)
+
+
+def _apps_duplex(gen, segments, base: str) -> dict:
+    """DuplexVoiceApp over the loopback LLM and STT: APPS_TURNS user turns of
+    APPS_TURN_RATE audio, each reply streamed one frame per chunk."""
+    import tempfile
+
+    import numpy as np
+
+    from sesameai_tts_tpu_torch.apps.audio_to_text import transcribe
+    from sesameai_tts_tpu_torch.apps.duplex import DuplexVoiceApp, sentence_stream
+    from sesameai_tts_tpu_torch.audio.io import write_wav
+
+    _check(len(list(sentence_stream(iter(APPS_DELTAS)))) == 3,
+           "apps/duplex: sentence_stream does not split the streamed reply into 3 sentences")
+
+    def stt(audio, rate):
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, "turn.wav")
+            write_wav(path, audio, rate)
+            return transcribe(path, api_base=base, api_key="loopback")
+
+    app = DuplexVoiceApp(gen, stt=stt, voice_context=segments, temperature=0.8, topk=40,
+                         max_sentence_ms=AUDIO_MS)
+    ctx = app.context
+    prefix_rows, prefix = ctx.prefix_rows, list(ctx._prefix)
+    appended = []
+    append = ctx.append
+    ctx.append = lambda pair, oversize="raise": (appended.append(int(pair[0].shape[0])),
+                                                 append(pair, oversize))
+    turns = []
+    for i in range(APPS_TURNS):
+        user = _speechlike(APPS_TURN_S, APPS_TURN_RATE, 100 + i)
+        t0 = time.perf_counter()
+        chunks = list(app.respond(user, APPS_TURN_RATE))
+        wall = time.perf_counter() - t0
+        _check(bool(chunks) and all(sr == 24_000 and pcm.dtype == np.float32
+                                    and bool(np.isfinite(pcm).all()) for sr, pcm in chunks),
+               f"apps/duplex: turn {i} gave {len(chunks)} chunks, not all finite f32 at 24 kHz")
+        _check(ctx.window_rows <= ctx.max_positions,
+               f"apps/duplex: turn {i} left {ctx.window_rows} window rows")
+        frames = sum(pcm.size for _, pcm in chunks) // gen._hop
+        turns.append({"stt_ms": app.marks["stt"] * 1e3, "ttfs_ms": app.marks["ttfs"] * 1e3,
+                      "ttff_ms": app.marks["ttff"] * 1e3, "chunks": len(chunks),
+                      "chunk_sizes": sorted({int(pcm.size) for _, pcm in chunks}),
+                      "window_rows": ctx.window_rows, "segments": len(ctx._window),
+                      "frames": frames, "frames_per_s": frames / wall, "wall_s": wall})
+    _check(len(appended) > len(ctx._window) and ctx.prefix_rows == prefix_rows
+           and ctx._prefix == prefix,
+           f"apps/duplex: {len(appended)} segments appended, {len(ctx._window)} in the window, "
+           f"prefix {ctx.prefix_rows} rows (pinned {prefix_rows})")
+    app.clear_dialog()
+    _check(ctx.window_rows == 0 and ctx.prefix_rows == prefix_rows
+           and not app.llm.history_manager.messages,
+           "apps/duplex: clear_dialog left the window or the LLM history")
+    return {"prefix_rows": prefix_rows, "max_positions": ctx.max_positions,
+            "budget": ctx.budget, "appended_rows": appended, "turns": turns}
+
+
+def _apps_encode(torch, gen) -> dict:
+    """A8: Mimi.encode_streaming in APPS_ENCODE_CHUNK-frame chunks against the
+    offline Mimi.encode, f32 on the card (TF32 off), each timed on its second
+    run."""
+    from sesameai_tts_tpu_torch.convert import tree_map
+
+    mimi, hop = gen._mimi, gen._hop
+    params = tree_map(lambda t: t.float(), gen._mimi_params)
+    clip = _speechlike(SMOKE_CLIP_S, 24_000, 7)
+    frames = -(-clip.size // (hop * APPS_ENCODE_CHUNK)) * APPS_ENCODE_CHUNK
+    wav = torch.zeros(1, 1, frames * hop, device=gen.device)
+    wav[0, 0, :clip.size] = torch.from_numpy(clip).to(gen.device)
+
+    def offline():
+        return mimi.encode(params, wav)
+
+    def streamed():
+        state = mimi.init_encode_state(1, torch.float32, gen.device)
+        out = []
+        for i in range(0, frames, APPS_ENCODE_CHUNK):
+            codes, state = mimi.encode_streaming(
+                params, wav[:, :, i * hop:(i + APPS_ENCODE_CHUNK) * hop], state)
+            out.append(codes)
+        return torch.cat(out, dim=-1)
+
+    runs = {}
+    for name, fn in (("offline", offline), ("streamed", streamed)) * 2:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        codes = fn()
+        torch.cuda.synchronize()
+        runs[name] = ((time.perf_counter() - t0) * 1e3, codes.cpu().numpy())
+    want, got = runs["offline"][1], runs["streamed"][1]
+    _check(got.shape == want.shape == (1, mimi.cfg.num_codebooks, frames),
+           f"apps/encode: streamed codes {got.shape}, offline {want.shape}")
+    equal = (got == want).mean(axis=(0, 2))
+    _check(equal[0] >= APPS_ENCODE_MIN_EQUAL,
+           f"apps/encode: codebook 0 agrees on {equal[0]:.4f} of frames "
+           f"(< {APPS_ENCODE_MIN_EQUAL})")
+    audio_s = frames * hop / 24_000
+    del params
+    return {"frames": frames, "chunk_frames": APPS_ENCODE_CHUNK, "audio_s": audio_s,
+            "equal_share_by_codebook": [float(x) for x in equal],
+            "ms_per_audio_s": {k: v[0] / audio_s for k, v in runs.items()}}
+
+
+def _apps_native() -> dict:
+    """A14: the g++-built native audio backend against the port's numpy paths
+    on a SMOKE_CLIP_S clip."""
+    import numpy as np
+
+    from sesameai_tts_tpu_torch.audio import native
+    from sesameai_tts_tpu_torch.audio.resample import resample
+    from sesameai_tts_tpu_torch.audio.segment import AudioClip
+
+    _check(native.available(), "apps/native: the native audio library did not build")
+    clip = _speechlike(SMOKE_CLIP_S, 24_000, 8)
+    out, ms = {}, {}
+    for name, fn in (("scipy", resample), ("native", native.resample_native)) * 2:
+        t0 = time.perf_counter()
+        out[name] = fn(clip, 24_000, 44_100)
+        ms[name] = (time.perf_counter() - t0) * 1e3  # the second run of each
+    err = float(np.abs(out["native"][100:-100] - out["scipy"][100:-100]).max()) \
+        if out["native"].shape == out["scipy"].shape else float("inf")
+    _check(err <= APPS_NATIVE_TOL,
+           f"apps/native: resample_native is {err:.3g} from resample (> {APPS_NATIVE_TOL})")
+    n = int(50 / 1000 * 24_000)  # the apps' 50 ms fades
+    faded = AudioClip.from_float(clip.copy(), 24_000).fade_in(50).fade_out(50)
+    fade_exact = bool(np.array_equal(native.fade_inplace(clip.copy(), n, n), faded.samples))
+    loud = clip * 5.0  # some samples clip
+    int16_exact = bool(np.array_equal(native.to_int16(loud.copy()),
+                                      AudioClip.from_float(loud, 24_000).to_int16()))
+    _check(fade_exact and int16_exact,
+           f"apps/native: fade exact {fade_exact}, int16 exact {int16_exact}")
+    return {"resample_24k_to_44k1_max_err": err, "resample_ms": ms, "fade_exact": fade_exact,
+            "int16_exact": int16_exact}
+
+
+def phase_apps(torch, wrappers, gen, card: str) -> dict:
+    """The app layer at CSM-1B width on a warmed clone of ``gen`` (int8, bf16
+    Mimi) over a loopback LLM/STT server (``_Loopback``): ChatApp
+    (process_query → pump, a topk=1 re-run against the engine),
+    StorytellerApp (LLM and pasted continuations, the replay, the combined
+    WAV) and DuplexVoiceApp (APPS_TURNS turns: transcribe → RollingContext
+    with a ~500-row pinned voice prefix → streamed LLM → sentence_stream →
+    generate_stream one frame per chunk); quant_matmul and flash_attention
+    launches counted over the three.  Then Mimi.encode_streaming against
+    Mimi.encode (A8) and the native audio backend (A14)."""
+    import functools
+    import tempfile
+
+    from sesameai_tts_tpu_torch.llm import client
+    from sesameai_tts_tpu_torch.service.tts import TTS, prepare_voice_context
+    from sesameai_tts_tpu_torch.service.voices import load_registry
+    from sesameai_tts_tpu_torch.watermark import api
+
+    t_phase = time.perf_counter()
+    app_gen = gen.clone()
+    warm = app_gen.warmup()
+    result = {"card": card, "warmup_s": sum(warm.values())}
+    saved = dict(vars(client.global_config))
+    loop = _Loopback()
+    try:
+        client.global_config.API_BASE, client.global_config.API_KEY = loop.base, "loopback"
+        with tempfile.TemporaryDirectory() as tmp:
+            voices = _write_voice(tmp)
+            tts = TTS(voices=voices, device=gen.device)
+            tts.generator = app_gen
+            tts.watermarker = api.load_watermarker(device=gen.device)
+            # every synthesized sentence (the voice warm-up's too) at the request budget
+            tts.generate_audio_segment = functools.partial(tts.generate_audio_segment,
+                                                           max_audio_length_ms=AUDIO_MS)
+            segments, _, _ = prepare_voice_context(app_gen, load_registry(voices)["clone"],
+                                                   "clone")
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            _reset_counts(wrappers)
+            t0 = time.perf_counter()
+            result["chat"] = _apps_chat(tts, app_gen)
+            print("main[apps] chat " + json.dumps(result["chat"]), flush=True)
+            result["story"] = _apps_story(tts)
+            print("main[apps] story " + json.dumps(result["story"]), flush=True)
+            result["duplex"] = _apps_duplex(app_gen, segments, loop.base)
+            torch.cuda.synchronize()
+            result["launches"] = _counts(wrappers)
+            result["apps_s"] = time.perf_counter() - t0
+            result["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+            print("main[apps] duplex " + json.dumps(result["duplex"]), flush=True)
+        result["loopback_requests"] = dict(loop.requests)
+    finally:
+        loop.close()
+        vars(client.global_config).update(saved)
+    for name in ("quant_matmul", "flash_attention"):
+        _check(result["launches"][name] > 0,
+               f"apps: {name} was not launched by the apps ({result['launches']})")
+    del tts, app_gen
+    _collect(torch)
+    result["encode"] = _apps_encode(torch, gen)
+    print("main[apps] encode_streaming " + json.dumps(result["encode"]), flush=True)
+    result["native"] = _apps_native()
+    print("main[apps] native " + json.dumps(result["native"]), flush=True)
+    result["phase_s"] = time.perf_counter() - t_phase
+    print("main[apps] " + json.dumps({k: result[k] for k in (
+        "card", "warmup_s", "launches", "apps_s", "peak_mem_gb", "loopback_requests",
+        "phase_s")}), flush=True)
+    return result
+
+
 def _collect(torch) -> None:
     """Free the device memory of generators the caller has dropped: a
     Generator holds a reference cycle (its tokenizer's audio encoder)."""
@@ -2256,8 +2655,12 @@ def main() -> int:
             ("flash_attention", phase_flash_attention, attention))}
         paths = {}
         for path, fields, per_frame, voice in _PATHS:
-            paths[path] = timed(f"main[{path}]", phase_main_path, torch, wrappers, path,
-                                fields, per_frame, voice)
+            paths[path], gen = timed(f"main[{path}]", phase_main_path, torch, wrappers, path,
+                                     fields, per_frame, voice)
+            if path == "int8":  # the apps run on a clone of this warmed Generator
+                apps = timed("main[apps]", phase_apps, torch, wrappers, gen, card)
+            del gen
+            _collect(torch)
         paths["voice"] = timed("main[voice]", phase_voice_path, torch, wrappers, _PATHS[0][2])
         cli = timed("main[cli]", phase_cli, torch, wrappers, _PATHS[0][2])
         serving = timed("main[serve]", phase_serve, torch, wrappers, card)
@@ -2266,6 +2669,7 @@ def main() -> int:
         launches["cli"] = cli["launches"]
         launches["serve"] = serving["traffic"]["launches"]
         launches["smoke"] = rehearsal["launches"]
+        launches["apps"] = apps["launches"]
         print("graphed vs eager " + json.dumps(_graphed_vs_eager(paths)), flush=True)
         timed("profile", phase_profile, torch, wrappers)
         timed("qa", phase_qa, torch)

@@ -6,7 +6,8 @@ SEANet encoder (24 kHz → 25 Hz, dim 512) → 8-layer latent transformer →
 ×2 causal downsample (replicate-padded) → split RVQ; decode mirrors it
 with a ×2 channel-wise (``groups=dim``) transposed upsample.  Streaming
 decode threads a ``Mimi.DecodeState`` of conv overlap buffers and a ring
-KV cache; the ring cache is written in place.
+KV cache, streaming encode a ``Mimi.EncodeState`` of the same parts; the
+ring caches are written in place.
 """
 
 from __future__ import annotations
@@ -178,4 +179,40 @@ class Mimi:
             tf_cache=tf_cache,
             tf_pos=state.tf_pos + latent.shape[-1],
             seanet=seanet_st,
+        )
+
+    # -- streaming encode --------------------------------------------------
+
+    class EncodeState(NamedTuple):
+        seanet: list
+        tf_cache: CodecKVCache  # written in place by encode_streaming
+        tf_pos: torch.Tensor  # (B,)
+        downsample: tuple
+
+    def init_encode_state(self, batch: int, dtype=torch.float32, device="cpu") -> "Mimi.EncodeState":
+        return Mimi.EncodeState(
+            seanet=self.encoder.init_state(batch, dtype, device),
+            tf_cache=init_codec_cache(self.cfg.transformer, batch, dtype, device=device),
+            tf_pos=torch.zeros(batch, dtype=torch.int64, device=device),
+            downsample=self.downsample.init_state(batch, dtype, device),
+        )
+
+    def encode_streaming(self, params: dict, wav: torch.Tensor,
+                         state: "Mimi.EncodeState") -> Tuple[torch.Tensor, "Mimi.EncodeState"]:
+        """Chunked encode with carried state: (B, 1, T) chunks whose codes,
+        chained, equal the offline encode of their concatenation."""
+        latent, seanet_st = self.encoder.apply_streaming(params["encoder"], wav, state.seanet)
+        h, tf_cache = codec_transformer_forward(
+            params["encoder_transformer"], self.cfg.transformer, latent.transpose(1, 2),
+            state.tf_pos, self._rope(wav.device), cache=state.tf_cache,
+        )
+        latent2, down_st = self.downsample.apply_streaming(params["downsample"],
+                                                           h.transpose(1, 2), state.downsample)
+        codes = split_rvq_encode(params["quantizer"], self.cfg.rvq, latent2,
+                                 self.cfg.num_codebooks)
+        return codes, Mimi.EncodeState(
+            seanet=seanet_st,
+            tf_cache=tf_cache,
+            tf_pos=state.tf_pos + latent.shape[-1],
+            downsample=down_st,
         )

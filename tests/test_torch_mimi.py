@@ -1,6 +1,7 @@
 """Port Mimi codec vs ``sesameai_tts_tpu/codec/mimi.py`` at
-``mimi_test_tiny`` in f32: encode codes are equal, decode PCM agrees, and
-chained streaming decode equals the offline decode."""
+``mimi_test_tiny`` in f32: encode codes are equal, decode PCM agrees, chained
+streaming decode equals the offline decode, and chained streaming encode
+gives the offline codes and the JAX package's streamed codes exactly."""
 
 import jax
 import jax.numpy as jnp
@@ -74,6 +75,31 @@ def test_streaming_decode_chained_equals_offline(codec):
         parts.append(wav)
         start += n
     _close_pcm(torch.cat(parts, dim=-1).numpy(), offline.numpy())
+
+
+@pytest.mark.parametrize("frames", [6, 10])
+def test_streaming_encode_in_two_frame_chunks_equals_offline_and_jax(codec, frames):
+    """``encode_streaming`` in 2-frame chunks: the codes equal the port's
+    offline ``encode`` and the JAX ``encode_streaming`` exactly (integer
+    codes; tests/test_codec.py holds the JAX pair the same way)."""
+    jm, jp, tm, tp = codec
+    hop = jm.cfg.hop_length
+    wav = _wav(jm, frames, 10 + frames)
+    offline = tm.encode(tp, torch.from_numpy(wav)).numpy()
+    state = tm.init_encode_state(1)
+    jstate = jm.init_encode_state(1)
+    got, want = [], []
+    for i in range(0, frames, 2):
+        chunk = wav[:, :, i * hop:(i + 2) * hop]
+        codes, state = tm.encode_streaming(tp, torch.from_numpy(chunk), state)
+        jcodes, jstate = jm.encode_streaming(jp, jnp.asarray(chunk), jstate)
+        got.append(codes.numpy())
+        want.append(np.asarray(jcodes))
+    assert state.tf_pos.tolist() == [frames * jm.cfg.downsample_stride]
+    got = np.concatenate(got, axis=-1)
+    assert got.shape == (1, 8, frames)
+    np.testing.assert_array_equal(got, offline)
+    np.testing.assert_array_equal(got, np.concatenate(want, axis=-1))
 
 
 def test_replicate_padded_conv_streaming_equals_offline():
