@@ -16,7 +16,11 @@ Phases, each of which fails the run if it fails:
    to the first call, each timed beside its plain version, a library
    yardstick and the card's bound (``quant_mlp`` also beside the port's
    unfused int8 pair: two ``quant_matmul`` calls around the silu and
-   product);
+   product); then ``flash_attention_bwd`` against
+   ``flash_attention_bwd_plain`` at the training shapes (backbone S = 256,
+   512, 2048, a right-padded row, a row without keys; decoder S = 32), bf16
+   and f32, each timed beside its plain version, the backward of one
+   ``scaled_dot_product_attention`` call and the card's bound;
 4. main paths, CSM-1B at full width with a bf16 Mimi and random weights
    from a seed, one configuration at a time: int8 trunks (offline,
    streamed and voice-context requests), int4 trunks and the fused int8
@@ -62,7 +66,12 @@ Phases, each of which fails the run if it fails:
    ``sesame-tts-torch-fixtures`` files of CSM-1B → ``sesame-tts-torch-smoke
    --weights-dir`` (convert, load int8, generate, quant gate, codec, the
    network's watermark, /tts and /tts/stream), exit code 0, the network's
-   streaming blocks on the card, quant_matmul and flash_attention launched;
+   streaming blocks on the card, quant_matmul and flash_attention launched.
+   Then ``main[train]`` (``phase_train``): ``sesame-tts-torch-finetune`` at
+   CSM-1B full width from the random init: a mixed full finetune whose loss
+   falls, an interrupted LoRA run resumed bit-equal to an unbroken one, its
+   merged export served (int8), the tiny train step card against CPU, exact
+   forward and backward attention launches;
 5. QA at full width: teacher-forced agreement of the int4 generator with
    the dense twin of its own tree, and of the fused generator with the
    unfused one, against thresholds; the int8 and int4 acceptance reports
@@ -180,6 +189,40 @@ _FRAME_CACHE_FILL = 600  # the backbone cache fill of the per-frame sum
 # rows, differ by at most 2^-8 max|v|; one bf16 rounding of the output is
 # inside the 1e-2 relative term
 _ATTN_ATOL_OF_VMAX = 2.0 ** -8
+
+# flash_attention_bwd phase: (label, B, H, KV, hd, S, valid_end per row), every
+# call cache-free (T = S, pos0 0) as in training: the backbone at the main[train]
+# bucket (S = 256), at 512 and 2048, a right-padded row, a row that sees no key,
+# and the decoder over its K = 32 positions (B = batch 2 x 4 decoder frames)
+_BWD_CASES = (
+    ("backbone S=256", 2, 32, 8, 64, 256, (256, 256)),
+    ("backbone S=512", 2, 32, 8, 64, 512, (512, 512)),
+    ("backbone S=2048", 2, 32, 8, 64, 2048, (2048, 2048)),
+    ("backbone S=512 right-padded", 2, 32, 8, 64, 512, (512, 300)),
+    ("backbone S=256 row without keys", 2, 32, 8, 64, 256, (256, 0)),
+    ("decoder S=32", 8, 8, 2, 128, 32, (32,) * 8),
+)
+# dense f32 rate outside the tensor cores, by card name (NVIDIA data sheets):
+# the bound of an f32 gradient, whose products run on CUDA cores
+_F32_FLOPS = (("H200", 67e12), ("H100 NVL", 60e12), ("H100 PCIe", 51e12), ("H100", 67e12))
+# both take the same operand values and sum in f32 in another order, then
+# round to the dtype once: bf16 within one ulp (1e-2 relative) plus f32 noise
+# under 1e-3 of the peak; f32 within 1e-4 relative plus 1e-4 of the peak
+_BWD_TOL = {"bfloat16": (1e-2, 1e-3), "float32": (1e-4, 1e-4)}
+
+# main[train]: CSM-1B at full width from the random init of seed 0; speech-like
+# 24 kHz clips with transcripts, half held out (--eval-frac 0.5), so the two
+# training clips make one batch of 2 per epoch and every step sees it
+TRAIN_CLIPS_S = (2.2, 3.1, 4.4, 5.6)
+TRAIN_STEPS = 5  # the full mixed finetune
+# its learning rate: at the CLI's default 1e-4 the random init's loss overshoots
+# within the five steps (PERF.md §6)
+TRAIN_LR = 3e-5
+LORA_STEPS, LORA_SPLIT = 4, 2  # LoRA steps, and the saved step an interrupted run resumes from
+TRAIN_SERVE_MS = 2000
+# card vs CPU at the tiny f32 flavor (TF32 off: only the order of f32 sums differs)
+TRAIN_PARITY_LOSS_RTOL = 1e-5
+TRAIN_PARITY_GRAD_TOL = 1e-4  # of each leaf's largest magnitude
 
 VOICE_CLIP_S = 16.0  # two reference clips of this length at 44.1 kHz stereo
 VOICE_TRANSCRIPTS = (
@@ -617,6 +660,96 @@ def phase_flash_attention(torch, attention, peak_bw, peak_flops):
     return rows
 
 
+def _bwd_work(B, H, KV, hd, S, valid_end, elem: int):
+    """(bytes, operations) one cache-free flash_attention_bwd call must move
+    and do: q, o, dO and dq once, k, v, dk and dv once, 10 * hd operations
+    per visible (query, key) pair and head (five products)."""
+    nbytes = (4 * B * H * S * hd + 4 * B * KV * S * hd) * elem
+    pairs = sum(sum(min(i + 1, max(e, 0)) for i in range(S)) for e in valid_end)
+    return nbytes, 10 * hd * H * pairs
+
+
+def phase_flash_attention_bwd(torch, attention, peak_bw, peak_flops, f32_flops):
+    """flash_attention_bwd vs flash_attention_bwd_plain at the training
+    shapes, in bf16 and f32: each gradient within ``_BWD_TOL``, a repeated
+    call bit-equal (no atomics), a row that sees no key exactly 0.  The
+    kernel and the plain version are timed by CUDA-graph replay; the library
+    yardstick is ``torch.autograd.grad`` through one
+    ``scaled_dot_product_attention`` call with the same boolean mask
+    (``enable_gqa``), its backward alone (a graph of forward and backward
+    less a graph of the forward), not on the row that sees no key, where it
+    gives NaN."""
+    F_ = torch.nn.functional
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    rows = []
+    for dtype in (torch.bfloat16, torch.float32):
+        for label, B, H, KV, hd, S, valid_end in _BWD_CASES:
+            def randn(*shape):
+                return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+            q = randn(B, S, H, hd).transpose(1, 2)  # as the trunk hands it over
+            k, v = randn(B, KV, S, hd), randn(B, KV, S, hd)
+            p0 = torch.zeros(B, dtype=torch.int64, device="cuda")
+            ve = torch.tensor(valid_end, device="cuda")
+            o = attention.flash_attention(q, k, v, p0, ve)
+            do = randn(B, S, H, hd).transpose(1, 2)  # the grad of the trunk's head merge
+            got = attention.flash_attention_bwd(q, k, v, o, do, p0, ve)
+            want = attention.flash_attention_bwd_plain(q, k, v, o, do, p0, ve)
+            again = attention.flash_attention_bwd(q, k, v, o, do, p0, ve)
+            torch.cuda.synchronize()
+            rtol, atol_of_peak = _BWD_TOL[str(dtype).split(".")[-1]]
+            errs, ok = [], True
+            for g, w in zip(got, want):
+                w = w.float()
+                diff = (g.float() - w).abs()
+                errs.append(diff.max().item())
+                ok &= bool((diff <= rtol * w.abs() + atol_of_peak * w.abs().max()).all())
+            deterministic = all(bool(torch.equal(a, b)) for a, b in zip(got, again))
+            empty = [b for b, e in enumerate(valid_end) if e <= 0]
+            zero = all(not bool(g[b].any()) for g in got for b in empty)
+            library_ms = None
+            if not empty:
+                positions = torch.arange(S, device="cuda")
+                mask = ((positions[None, :] <= positions[:, None])[None]
+                        & (positions[None, None, :] < ve[:, None, None]))[:, None]
+
+                def sdpa(i, backward=True):
+                    ql, kl, vl = (t.detach().requires_grad_() for t in (q, k, v))
+                    out = F_.scaled_dot_product_attention(ql, kl, vl, attn_mask=mask,
+                                                          enable_gqa=True)
+                    return torch.autograd.grad(out, (ql, kl, vl), do) if backward else out
+
+                # its backward alone: forward + backward less the forward, each
+                # by CUDA-graph replay
+                library_ms = (_device_ms(torch, sdpa, 5)
+                              - _device_ms(torch, lambda i: sdpa(i, backward=False), 5))
+            elem = q.element_size()
+            nbytes, flops = _bwd_work(B, H, KV, hd, S, valid_end, elem)
+            t_bytes = nbytes / peak_bw
+            t_ops = flops / (peak_flops if dtype == torch.bfloat16 else f32_flops)
+            row = {"shape": label, "dtype": str(dtype).split(".")[-1], "B": B, "H": H, "KV": KV,
+                   "hd": hd, "S": S, "valid_end": list(valid_end),
+                   "max_abs_err": max(errs), "errs_dq_dk_dv": errs, "ok": ok,
+                   "bit_equal_repeat": deterministic, "empty_rows_zero": zero,
+                   "kernel_ms": _device_ms(torch, lambda i: attention.flash_attention_bwd(
+                       q, k, v, o, do, p0, ve), 10),
+                   "kernel_eager_ms": _eager_ms(torch, lambda i: attention.flash_attention_bwd(
+                       q, k, v, o, do, p0, ve), 10),
+                   "plain_ms": _device_ms(torch, lambda i: attention.flash_attention_bwd_plain(
+                       q, k, v, o, do, p0, ve), 3),
+                   "library_ms": library_ms,
+                   "bound_ms": max(t_bytes, t_ops) * 1e3,
+                   "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+            print("kernel flash_attention_bwd " + json.dumps(row), flush=True)
+            _check(ok, f"flash_attention_bwd disagrees with its plain version at {row}")
+            _check(deterministic, f"flash_attention_bwd: a repeated call changed the bits at {row}")
+            _check(zero, f"flash_attention_bwd: a row that sees no key has a gradient at {row}")
+            rows.append(row)
+            del q, k, v, o, do, got, want, again
+            torch.cuda.empty_cache()
+    return rows
+
+
 def _reset_counts(wrappers):
     for fn in wrappers.values():
         fn.launches = 0
@@ -774,6 +907,9 @@ def _report(torch, gen, path: str, outputs: dict, first_chunk_s: float, launches
            f"{path}: flash_attention launched {launches['flash_attention']} times, want "
            f"{want_attention} ({decoded} decoded frames, {prefills} prefills, {extends} "
            f"context prefills)")
+    _check(launches["flash_attention_bwd"] == 0,
+           f"{path}: inference launched flash_attention_bwd {launches['flash_attention_bwd']} "
+           f"times")
     # same seed ⇒ same frames; the PCM then differs only by the bf16
     # rounding of chunked vs whole-utterance codec convolutions
     _check(streamed.shape == offline.shape and rel < 5e-2,
@@ -1684,7 +1820,7 @@ def phase_serve(torch, wrappers, card: str):
                f"serve: the long-prompt session gave {frames[SERVE_LONG_PROMPT].shape[0]} "
                f"frames with {SERVE_ROOM} rows of room")
         want = {"quant_matmul": 576 * frame_steps, "quant4_matmul": 0, "quant_mlp": 0,
-                "flash_attention": 144 * (frame_steps + admissions)}
+                "flash_attention": 144 * (frame_steps + admissions), "flash_attention_bwd": 0}
         _check(launches == want, f"serve: launches {launches}, want {want} ({frame_steps} "
                                  f"frame-steps at B={srv.B}, {admissions} admissions)")
 
@@ -2232,6 +2368,290 @@ def phase_apps(torch, wrappers, gen, card: str) -> dict:
     return result
 
 
+class _Interrupted(Exception):
+    """A training run stopped from outside, as a killed job stops."""
+
+
+class _StepProbe:
+    """Wraps the train step's two halves (``train_step._accum_grads``: the
+    forward and backward; ``train_step._apply_update``: the optimizer) with
+    device synchronizations and host clocks, and keeps every step's loss
+    and the last TrainState.  With ``stop_after`` the run is interrupted
+    (``_Interrupted``) when it starts the step after that many."""
+
+    def __init__(self, torch, ts, stop_after=None):
+        self.torch, self.ts, self.stop_after = torch, ts, stop_after
+        self.grads, self.update = ts._accum_grads, ts._apply_update
+        self.fwd_bwd_s, self.opt_s, self.losses, self.c0, self.state = [], [], [], [], None
+
+    def __enter__(self):
+        torch = self.torch
+
+        def grads(*a, **kw):
+            if self.stop_after is not None and len(self.losses) >= self.stop_after:
+                raise _Interrupted()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = self.grads(*a, **kw)
+            torch.cuda.synchronize()
+            self.fwd_bwd_s.append(time.perf_counter() - t0)
+            return out
+
+        def update(tx, state, g, metrics):
+            t0 = time.perf_counter()
+            out = self.update(tx, state, g, metrics)
+            torch.cuda.synchronize()
+            self.opt_s.append(time.perf_counter() - t0)
+            self.losses.append(float(metrics["loss"]))
+            self.c0.append(float(metrics["c0_loss"]))
+            self.state = out[0]
+            return out
+
+        self.ts._accum_grads, self.ts._apply_update = grads, update
+        return self
+
+    def __exit__(self, *exc):
+        self.ts._accum_grads, self.ts._apply_update = self.grads, self.update
+
+    def timing(self, rows_per_step: int) -> dict:
+        step_s = [a + b for a, b in zip(self.fwd_bwd_s, self.opt_s)]
+        steady = step_s[1:] or step_s  # the first step warms the allocator and cuBLAS
+        mean = sum(steady) / len(steady)
+        return {"steps": len(step_s), "s_per_step": step_s,
+                "fwd_bwd_s": self.fwd_bwd_s, "optimizer_s": self.opt_s,
+                "steps_per_s": 1.0 / mean, "rows_per_s": rows_per_step / mean,
+                "losses": self.losses, "c0_losses": self.c0}
+
+
+def _write_clips(root: str) -> str:
+    """Speech-like 24 kHz clips of ``TRAIN_CLIPS_S`` seconds with transcripts."""
+    from sesameai_tts_tpu_torch.audio.io import write_wav
+
+    os.makedirs(root)
+    for i, sec in enumerate(TRAIN_CLIPS_S):
+        write_wav(os.path.join(root, f"clip{i}.wav"), _speechlike(sec, 24_000, 40 + i), 24_000)
+        with open(os.path.join(root, f"clip{i}.txt"), "w") as f:
+            f.write(f"Clip number {i} of the training phase says a few plain words.")
+    return root
+
+
+def _tree_diff(ts, a, b) -> dict:
+    """Largest absolute difference of each differing leaf of two trees."""
+    leaves = []
+    for i, (x, y) in enumerate(zip(ts.tree_leaves(a), ts.tree_leaves(b))):
+        if not bool(x.equal(y)):
+            leaves.append((i, (x.float() - y.float()).abs().max().item()))
+    return {"leaves": len(ts.tree_leaves(a)), "differing": leaves[:10]}
+
+
+def _train_parity(torch, wrappers) -> dict:
+    """One train step's loss and every gradient leaf at the tiny f32 flavor,
+    on the card (the attention's kernels forward and backward) against the
+    CPU (their plain versions)."""
+    import numpy as np
+
+    from sesameai_tts_tpu_torch.convert import to_device
+    from sesameai_tts_tpu_torch.core.config import csm_test_tiny
+    from sesameai_tts_tpu_torch.models.csm import init_csm_params
+    from sesameai_tts_tpu_torch.training import train_step as ts
+    from sesameai_tts_tpu_torch.training.loss import Batch, csm_loss
+
+    cfg = csm_test_tiny()
+    K = cfg.audio_num_codebooks
+    rng = np.random.default_rng(0)
+    B, S, text = 2, 40, 12
+    tokens = np.zeros((B, S, K + 1), np.int32)
+    mask = np.zeros((B, S, K + 1), bool)
+    tokens[:, :text, K] = rng.integers(1, cfg.text_vocab_size, (B, text))
+    mask[:, :text, K] = True
+    tokens[:, text:, :K] = rng.integers(1, cfg.audio_vocab_size, (B, S - text, K))
+    mask[:, text:, :K] = True
+    loss_mask = np.ones((B, S), bool)
+    loss_mask[1, 30:] = False  # a right-padded example
+    params = init_csm_params(cfg, torch.Generator().manual_seed(0), torch.float32)
+    r = ts._subset_scores(0, B, S, seed=0)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        batch = ts.batch_to(Batch(tokens, mask, loss_mask), dev)
+        _reset_counts(wrappers)
+        out[dev] = ts._value_and_grad(
+            lambda p: csm_loss(p, cfg, batch, 2, subset_r=r.to(dev)), to_device(params, dev))
+        torch.cuda.synchronize()
+        out[dev] = out[dev] + (_counts(wrappers),)
+    (m_cpu, g_cpu, _), (m_gpu, g_gpu, launches) = out["cpu"], out["cuda"]
+    rel = [((a - b.cpu()).abs().max() / a.abs().max().clamp_min(1e-30)).item()
+           for a, b in zip(ts.tree_leaves(g_cpu), ts.tree_leaves(g_gpu))]
+    loss_rel = abs(float(m_gpu["loss"]) - float(m_cpu["loss"])) / abs(float(m_cpu["loss"]))
+    layers = cfg.backbone.num_layers + cfg.decoder.num_layers
+    result = {"loss_cpu": float(m_cpu["loss"]), "loss_card": float(m_gpu["loss"]),
+              "loss_rel_err": loss_rel, "grad_leaves": len(rel), "grad_max_rel_err": max(rel),
+              "launches": launches, "want_attention_launches": layers}
+    _check(loss_rel <= TRAIN_PARITY_LOSS_RTOL, f"train parity: loss differs {result}")
+    _check(max(rel) <= TRAIN_PARITY_GRAD_TOL, f"train parity: a gradient leaf differs {result}")
+    _check(launches["flash_attention"] == layers and launches["flash_attention_bwd"] == layers,
+           f"train parity: the tiny step did not go through the kernels {result}")
+    return result
+
+
+def phase_train(torch, wrappers, card: str) -> dict:
+    """main[train]: ``sesame-tts-torch-finetune`` at CSM-1B full width (the
+    random init of seed 0, the bench Llama-3-format tokenizer), on the card.
+
+    (a) a full finetune, ``--dtype mixed``, batch 2 of the one training batch
+    at the 256 bucket, ``TRAIN_STEPS`` steps at ``TRAIN_LR``: the loss finite and below the
+    first step's at the end, the c0 loss of step 2 equal to step 1's (the
+    first update has lr 0), exact launches (per step 20 flash_attention
+    forward and 20 flash_attention_bwd, per eval batch 20 forward);
+    (b) LoRA rank 16 at f32 with ``--remat``: an unbroken ``LORA_STEPS``-step
+    run against one interrupted after its save at ``LORA_SPLIT`` and resumed
+    with ``--resume`` (both ``--steps LORA_STEPS``, one schedule): adapters,
+    Adam moments and counts bit-equal; forward launches 36 per step with
+    remat (the backbone's 16 recomputed);
+    (c) the resumed run's merged export served through
+    ``csm_1b_spec(csm_checkpoint=<ckpt>/params)`` (int8): one request;
+    (d) the tiny f32 flavor's train step, card against CPU.
+    cuDNN runs deterministic algorithms for the phase, so the codec's encodes
+    are equal across runs."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from sesameai_tts_tpu_torch.core.config import csm_1b
+    from sesameai_tts_tpu_torch.runtime.loader import build_generator, csm_1b_spec
+    from sesameai_tts_tpu_torch.training import finetune
+    from sesameai_tts_tpu_torch.training import train_step as ts
+
+    t_phase = time.perf_counter()
+    cfg = csm_1b()
+    per_pass = cfg.backbone.num_layers + cfg.decoder.num_layers
+    tokenizer = os.path.join(HERE, "sesameai_tts_tpu_torch", "assets", "bench_tokenizer.json")
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    saved_cudnn = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    result = {"card": card}
+    try:
+        data = _write_clips(os.path.join(tmp, "clips"))
+        common = ["--data", data, "--flavor", "csm-1b", "--tokenizer", tokenizer,
+                  "--batch-size", "2", "--buckets", "256,512", "--eval-frac", "0.5",
+                  "--warmup", "1", "--log-every", "1", "-d", "cuda"]
+        rows_per_step = 2 * 256
+
+        # (a) the full mixed finetune
+        _reset_counts(wrappers)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with _StepProbe(torch, ts) as probe:
+            metrics = finetune.main(common + ["--dtype", "mixed", "--steps", str(TRAIN_STEPS),
+                                              "--lr", str(TRAIN_LR)])
+        torch.cuda.synchronize()
+        full = {"run_s": time.perf_counter() - t0, "final": metrics,
+                "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+                "launches": _counts(wrappers), **probe.timing(rows_per_step)}
+        del probe.state
+        _collect(torch)
+        print("main[train] full " + json.dumps(full), flush=True)
+        losses = full["losses"]
+        _check(len(losses) == TRAIN_STEPS and all(np.isfinite(losses)),
+               f"train: {len(losses)} steps or a loss not finite: {losses}")
+        _check(losses[-1] < losses[0], f"train: the full finetune's loss did not fall: {losses}")
+        _check(full["c0_losses"][1] == full["c0_losses"][0],
+               f"train: the first update (lr 0) moved the params: {full['c0_losses']}")
+        evals = 1  # one held-out batch, evaluated once at the end
+        want = {"flash_attention": per_pass * (TRAIN_STEPS + evals),
+                "flash_attention_bwd": per_pass * TRAIN_STEPS}
+        got = {k: full["launches"][k] for k in want}
+        _check(got == want, f"train: launches {got}, want {want}")
+        _check(all(full["launches"][k] == 0 for k in ("quant_matmul", "quant4_matmul",
+                                                        "quant_mlp")),
+               f"train: a quant kernel ran in dense training: {full['launches']}")
+        result["full"] = full
+
+        # (b) LoRA at f32: an unbroken run against one interrupted after its
+        # save at LORA_SPLIT and resumed, both with --steps LORA_STEPS (one
+        # schedule)
+        lora = common + ["--dtype", "f32", "--lora-rank", "16", "--remat",
+                         "--steps", str(LORA_STEPS)]
+        ckpt = ["--ckpt-dir", os.path.join(tmp, "lora"), "--save-every", str(LORA_SPLIT)]
+        runs = {}
+        for name, argv, stop in (("unbroken", [], None), ("interrupted", ckpt, LORA_SPLIT),
+                                 ("resumed", ckpt + ["--resume"], None)):
+            _reset_counts(wrappers)
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            metrics = None
+            with _StepProbe(torch, ts, stop_after=stop) as probe:
+                try:
+                    metrics = finetune.main(lora + argv)
+                except _Interrupted:
+                    pass
+            torch.cuda.synchronize()
+            runs[name] = {"run_s": time.perf_counter() - t0, "final": metrics,
+                          "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+                          "launches": _counts(wrappers), **probe.timing(rows_per_step)}
+            runs[name]["state"] = probe.state
+            steps = len(runs[name]["losses"])
+            evals = 0 if stop else 1
+            want = {"flash_attention": (per_pass + cfg.backbone.num_layers) * steps
+                    + per_pass * evals, "flash_attention_bwd": per_pass * steps}
+            got = {k: runs[name]["launches"][k] for k in want}
+            _check(got == want, f"train: LoRA {name}: launches {got}, want {want}")
+            print(f"main[train] lora {name} " + json.dumps(
+                {k: v for k, v in runs[name].items() if k != "state"}), flush=True)
+            _collect(torch)
+        a, b = runs["unbroken"]["state"], runs["resumed"]["state"]
+        diff = {"adapters": _tree_diff(ts, a.params, b.params),
+                "opt_state": _tree_diff(ts, a.opt_state, b.opt_state),
+                "step": [int(a.step), int(b.step)]}
+        print("main[train] lora resume vs unbroken " + json.dumps(diff), flush=True)
+        _check(not diff["adapters"]["differing"] and not diff["opt_state"]["differing"]
+               and int(a.step) == int(b.step) == LORA_STEPS,
+               f"train: the resumed LoRA run is not bit-equal to the unbroken one: {diff}")
+        _check(runs["resumed"]["losses"] == runs["unbroken"]["losses"][LORA_SPLIT:],
+               f"train: resumed losses {runs['resumed']['losses']} != "
+               f"{runs['unbroken']['losses']}")
+        result["lora"] = {k: {x: y for x, y in r.items() if x != "state"} for k, r in runs.items()}
+        result["lora"]["resume_vs_unbroken"] = diff
+        del runs, a, b
+        _collect(torch)
+
+        # (c) serve the merged export (int8)
+        t0 = time.perf_counter()
+        gen = build_generator(csm_1b_spec(csm_checkpoint=os.path.join(tmp, "lora", "params"),
+                                          tokenizer=tokenizer), device="cuda")
+        built_s = time.perf_counter() - t0
+        pcm = gen.generate("The finetuned model speaks one sentence.", 0, [],
+                           max_audio_length_ms=TRAIN_SERVE_MS, topk=1)
+        torch.cuda.synchronize()
+        result["serve"] = {"build_s": built_s, "samples": int(pcm.size),
+                           "rms": float(np.sqrt(np.mean(pcm.astype(np.float64) ** 2)))
+                           if pcm.size else 0.0,
+                           "export_gb": os.path.getsize(os.path.join(tmp, "lora", "params")) / 1e9}
+        print("main[train] serve " + json.dumps(result["serve"]), flush=True)
+        _check(pcm.size > 0 and bool(np.isfinite(pcm).all()),
+               "train: the served export gave no or non-finite audio")
+        del gen
+        _collect(torch)
+
+        # (d) card against CPU, tiny
+        result["parity"] = _train_parity(torch, wrappers)
+        print("main[train] parity " + json.dumps(result["parity"]), flush=True)
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = saved_cudnn
+        shutil.rmtree(tmp, ignore_errors=True)
+    result["phase_s"] = time.perf_counter() - t_phase
+    print(f"main[train] summary " + json.dumps({
+        "full_steps_per_s": result["full"]["steps_per_s"],
+        "full_rows_per_s": result["full"]["rows_per_s"],
+        "full_s_per_step_fwd_bwd": result["full"]["fwd_bwd_s"],
+        "full_s_per_step_optimizer": result["full"]["optimizer_s"],
+        "full_peak_mem_gb": result["full"]["peak_mem_gb"],
+        "lora_steps_per_s": result["lora"]["unbroken"]["steps_per_s"],
+        "lora_peak_mem_gb": result["lora"]["unbroken"]["peak_mem_gb"],
+        "phase_s": result["phase_s"], "card": card}), flush=True)
+    return result
+
+
 def _collect(torch) -> None:
     """Free the device memory of generators the caller has dropped: a
     Generator holds a reference cycle (its tokenizer's audio encoder)."""
@@ -2577,6 +2997,52 @@ def _flash_entry(rows, launches: dict, cfg, peak_bw: float) -> dict:
     return entry
 
 
+def _bwd_entry(rows, launches: dict, cfg) -> dict:
+    """flash_attention_bwd's line: times summed over one main[train] step's
+    launches, the backbone's layers at the 256 bucket and the decoder's
+    layers over its K positions, in bf16 (the full mixed finetune, whose
+    launches it reports) and in f32 (the LoRA runs); shape rows beside."""
+    n_bb, n_dec = cfg.backbone.num_layers, cfg.decoder.num_layers
+
+    def per_step(key, dtype):
+        bb = next(r for r in rows if r["shape"] == "backbone S=256" and r["dtype"] == dtype)
+        dec = next(r for r in rows if r["shape"] == "decoder S=32" and r["dtype"] == dtype)
+        if bb[key] is None or dec[key] is None:
+            return None
+        return bb[key] * n_bb + dec[key] * n_dec
+
+    backbone = next(r for r in rows if r["shape"] == "backbone S=256" and r["dtype"] == "bfloat16")
+    entry = {
+        "name": "flash_attention_bwd",
+        "route": "cuda",
+        "source": "sesameai_tts_tpu_torch/csrc/flash_attention_bwd.cu",
+        "replaces": "sesameai_tts_tpu/models/transformer.py:230 (no Pallas counterpart: the "
+                    "gradient XLA's autodiff gives _attention)",
+        "launches": launches["train"]["flash_attention_bwd"],
+        "launches_by_path": {p: c["flash_attention_bwd"] for p, c in launches.items()},
+        "max_abs_err": max(r["max_abs_err"] for r in rows),
+        "ms": per_step("kernel_ms", "bfloat16"),
+        "plain_ms": per_step("plain_ms", "bfloat16"),
+        "bound_ms": per_step("bound_ms", "bfloat16"),
+        "bound_by": backbone["bound_by"],
+        "library_ms": per_step("library_ms", "bfloat16"),
+        "library": "torch.autograd.grad through one "
+                   "torch.nn.functional.scaled_dot_product_attention call, boolean mask, "
+                   "enable_gqa=True (its backward alone: CUDA-graph replays of forward and "
+                   "backward less the forward's)",
+        "f32_step": {k: per_step(k, "float32") for k in ("kernel_ms", "plain_ms", "library_ms",
+                                                         "bound_ms")},
+        "timed_as": f"device time (CUDA graph replay) summed over one main[train] step's "
+                    f"{n_bb} backbone calls at S=256 and {n_dec} decoder calls at S=32 (bf16)",
+        "shapes": [{k: r[k] for k in ("shape", "dtype", "S", "valid_end", "kernel_ms",
+                                      "kernel_eager_ms", "plain_ms", "library_ms", "bound_ms",
+                                      "bound_by", "max_abs_err")} for r in rows],
+    }
+    entry["max_err"] = entry["max_abs_err"]
+    entry["kernel_ms"] = entry["ms"]
+    return entry
+
+
 def _frame_step_b8(rows: dict, cfg, peak_bw: float) -> dict:
     """One frame-step of a serving pool of 8 slots, summed over its launches
     as ``_entry`` / ``_flash_entry`` sum a decoded frame: the quant kernels'
@@ -2642,7 +3108,7 @@ def main() -> int:
         phase_s[label] = round(time.perf_counter() - t0, 1)
         return out
 
-    wrappers = {name: getattr(attention if name == "flash_attention" else quant, name)
+    wrappers = {name: getattr(attention if name.startswith("flash_attention") else quant, name)
                 for name in kernels.KERNELS}
     try:
         name, card = phase_device(torch)
@@ -2653,6 +3119,9 @@ def main() -> int:
             ("quant4_matmul", phase_quant4_matmul, quant),
             ("quant_mlp", phase_quant_mlp, quant),
             ("flash_attention", phase_flash_attention, attention))}
+        rows["flash_attention_bwd"] = timed(
+            "flash_attention_bwd", phase_flash_attention_bwd, torch, attention, peak_bw,
+            peak_flops, next(f for key, f in _F32_FLOPS if key in name))
         paths = {}
         for path, fields, per_frame, voice in _PATHS:
             paths[path], gen = timed(f"main[{path}]", phase_main_path, torch, wrappers, path,
@@ -2665,7 +3134,10 @@ def main() -> int:
         cli = timed("main[cli]", phase_cli, torch, wrappers, _PATHS[0][2])
         serving = timed("main[serve]", phase_serve, torch, wrappers, card)
         rehearsal = timed("main[smoke]", phase_smoke, torch, wrappers, card)
+        _collect(torch)
+        training = timed("main[train]", phase_train, torch, wrappers, card)
         launches = {path: r["launches"] for path, r in paths.items()}
+        launches["train"] = training["full"]["launches"]
         launches["cli"] = cli["launches"]
         launches["serve"] = serving["traffic"]["launches"]
         launches["smoke"] = rehearsal["launches"]
@@ -2692,11 +3164,12 @@ def main() -> int:
                "sesameai_tts_tpu/ops/quant.py:286", rows["quant_mlp"], launches, "fused",
                "several calls: torch.matmul x3, silu and a product on dense bf16 weights"),
         _flash_entry(rows["flash_attention"], launches, csm_1b(), peak_bw),
+        _bwd_entry(rows["flash_attention_bwd"], launches, csm_1b()),
     ]
     decode_ms = {r["pos0"][0]: r["kernel_ms"] for r in rows["flash_attention"]
                  if r["S"] == 1 and r["B"] == 1 and r["hd"] == 64}
     print("kernel flash_attention per decoded frame " + json.dumps(
-        {**{k: entries[-1][k] for k in ("ms", "plain_ms", "library_ms", "bound_ms", "timed_as")},
+        {**{k: entries[3][k] for k in ("ms", "plain_ms", "library_ms", "bound_ms", "timed_as")},
          "backbone_decode_2047_over_600": decode_ms[2047] / decode_ms[600]}), flush=True)
     print("kernel per frame-step at B=8 " + json.dumps(_frame_step_b8(rows, csm_1b(), peak_bw)),
           flush=True)
@@ -2704,6 +3177,11 @@ def main() -> int:
         {r["shape"]: {k: None if r[k] is None else r[k] * 1e3
                       for k in ("kernel_ms", "library_ms", "bound_ms", "plain_ms")}
          for r in rows["flash_attention"] if r["S"] > 1}), flush=True)
+    print("kernel flash_attention_bwd per call (us) " + json.dumps(
+        {f"{r['shape']} {r['dtype']}": {k: None if r[k] is None else r[k] * 1e3
+                                        for k in ("kernel_ms", "library_ms", "bound_ms",
+                                                  "plain_ms")}
+         for r in rows["flash_attention_bwd"]}), flush=True)
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s "
           f"{json.dumps(phase_s)}", flush=True)
     print(card, flush=True)

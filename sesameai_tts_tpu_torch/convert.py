@@ -8,7 +8,9 @@ blocks, ``enc_m`` and ``dec_m`` as they are), and the CSM trunks in the
 port's per-layer layout.  A JAX trunk may be stacked
 (``{"layers": {name: (L, ...)}}``) or per-layer (``{"layers": (L ×
 {name: ...})}``); int8 ``{"q", "scale"}`` and int4 ``{"q4", "scale"}``
-leaves keep their keys.
+leaves keep their keys.  ``from_jax_lora`` does the same for a LoRA
+adapter tree (``training/lora.py``), whose stacked ``(L, din, r)`` and
+``(L, r, dout)`` adapters become one ``{"a", "b"}`` pair per layer.
 """
 
 from __future__ import annotations
@@ -19,18 +21,26 @@ import numpy as np
 import torch
 
 
-def tree_map(fn: Callable, tree):
+def tree_map(fn: Callable, tree, *rest):
     """Apply ``fn`` to every leaf of nested dicts, lists, tuples and
-    NamedTuples (None stays None)."""
+    NamedTuples (None stays None), and to the leaves at the same places of
+    the trees in ``rest``: ``fn(leaf, *rest_leaves)``."""
     if isinstance(tree, dict):
-        return {k: tree_map(fn, v) for k, v in tree.items()}
+        return {k: tree_map(fn, v, *(r[k] for r in rest)) for k, v in tree.items()}
     if isinstance(tree, tuple) and hasattr(tree, "_fields"):
-        return type(tree)(*(tree_map(fn, v) for v in tree))
+        return type(tree)(*(tree_map(fn, v, *(r[i] for r in rest)) for i, v in enumerate(tree)))
     if isinstance(tree, (list, tuple)):
-        return type(tree)(tree_map(fn, v) for v in tree)
+        return type(tree)(tree_map(fn, v, *(r[i] for r in rest)) for i, v in enumerate(tree))
     if tree is None:
         return None
-    return fn(tree)
+    return fn(tree, *rest)
+
+
+def tree_leaves(tree) -> list:
+    """The leaves of ``tree`` in ``tree_map``'s order."""
+    out = []
+    tree_map(out.append, tree)
+    return out
 
 
 def to_device(tree, device):
@@ -71,4 +81,19 @@ def from_jax_params(tree, device="cpu"):
         for k, v in out.items():
             if _is_trunk(v):
                 out[k] = _per_layer(v)
+    return out
+
+
+def from_jax_lora(tree, device="cpu"):
+    """JAX LoRA adapter tree with numpy leaves → the port's on ``device``:
+    each trunk's stacked ``{"layers": {name: {"a": (L, din, r), "b": (L, r,
+    dout)}}}`` becomes ``{"layers": (L × {name: {"a": (din, r), "b": (r,
+    dout)}})}``; adapters outside ``layers`` keep their shapes."""
+    out = tree_map(lambda a: _tensor(a).to(device), tree)
+    for trunk in out.values():
+        layers = trunk.get("layers") if isinstance(trunk, dict) else None
+        if isinstance(layers, dict):
+            L = next(iter(layers.values()))["a"].shape[0]
+            trunk["layers"] = tuple(tree_map(lambda a, l=l: a[l].clone(), layers)
+                                    for l in range(L))
     return out

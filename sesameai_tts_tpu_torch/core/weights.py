@@ -33,6 +33,7 @@ from typing import Dict, Optional
 
 import torch
 
+from sesameai_tts_tpu_torch.convert import tree_map
 from sesameai_tts_tpu_torch.core.config import CSMConfig, TransformerConfig
 
 _ST_DTYPES = {
@@ -147,6 +148,10 @@ def _read_state_dict(path: str) -> Dict[str, torch.Tensor]:
     return _strip_prefixes(dict(sd))
 
 
+_CSM_KEYS = {"backbone", "decoder", "text_embeddings", "audio_embeddings", "projection",
+             "codebook0_head", "audio_head"}
+
+
 def _is_orbax_dir(path: str) -> bool:
     """An orbax pytree directory (what the JAX package's ``save_pytree``
     and its finetune export write), vs a hub-style weights directory."""
@@ -202,11 +207,42 @@ def _trunk(sd: Dict[str, torch.Tensor], prefix: str, cfg: TransformerConfig, dty
     return {"layers": layers, "final_norm": _expect_shape(sd[key], (D,), key, dtype)}
 
 
+def _is_pytree_file(path: str) -> bool:
+    """Whether ``path`` is a file written by ``save_pytree``."""
+    if not os.path.isfile(path):
+        return False
+    with open(path, "rb") as f:
+        head = f.read(8)
+        if len(head) < 8:
+            return False
+        (n,) = struct.unpack("<Q", head)
+        if n > min(os.path.getsize(path) - 8, 1 << 26):  # not a safetensors header
+            return False
+        try:
+            header = json.loads(f.read(n))
+        except ValueError:
+            return False
+    return isinstance(header, dict) and "tree" in header.get("__metadata__", {})
+
+
 def load_csm_checkpoint(path: str, cfg: CSMConfig, dtype=torch.bfloat16) -> dict:
     """sesame/csm-1b torch checkpoint (a file or a model directory) → the
     port's CSM tree on the host at ``dtype``.  A missing key raises
-    ``KeyError``, a wrong shape ``ValueError``."""
+    ``KeyError``, a wrong shape ``ValueError``.
+
+    Also takes a port ``save_pytree`` file of the CSM tree (the finetune
+    CLI's ``<ckpt-dir>/params`` export), which is already in the port's
+    layout, as the JAX loader takes an orbax export."""
     _refuse_orbax(path)
+    if _is_pytree_file(path):
+        tree = load_pytree(path)
+        if not isinstance(tree, dict) or set(tree) != _CSM_KEYS:
+            raise ValueError(f"{path}: a save_pytree file, but not of a CSM parameter tree")
+        for trunk, tcfg in (("backbone", cfg.backbone), ("decoder", cfg.decoder)):
+            if len(tree[trunk]["layers"]) != tcfg.num_layers:
+                raise ValueError(f"{path}: {trunk} has {len(tree[trunk]['layers'])} layers, "
+                                 f"the config {tcfg.num_layers}")
+        return tree_map(lambda t: t.to(dtype), tree)
     sd = _read_state_dict(path)
     bb, dec = cfg.backbone, cfg.decoder
     K, V = cfg.audio_num_codebooks, cfg.audio_vocab_size

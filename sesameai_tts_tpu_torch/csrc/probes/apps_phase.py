@@ -26,7 +26,7 @@ t0 = time.time()
 kernels.build_kernels()
 print(f"kernels built in {time.time() - t0:.1f} s {kernels.build_seconds}", flush=True)
 _, card = cs.phase_device(torch)
-wrappers = {n: getattr(attention if n == "flash_attention" else quant, n) for n in kernels.KERNELS}
+wrappers = {n: getattr(attention if n.startswith("flash_attention") else quant, n) for n in kernels.KERNELS}
 gen, _ = cs._build_generator(torch, "apps", {})
 t0 = time.time()
 cs.phase_apps(torch, wrappers, gen, card)

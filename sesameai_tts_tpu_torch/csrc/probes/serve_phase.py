@@ -24,7 +24,7 @@ t0 = time.time()
 kernels.build_kernels()
 print(f"kernels built in {time.time() - t0:.1f} s {kernels.build_seconds}", flush=True)
 _, card = cs.phase_device(torch)
-wrappers = {n: getattr(attention if n == "flash_attention" else quant, n) for n in kernels.KERNELS}
+wrappers = {n: getattr(attention if n.startswith("flash_attention") else quant, n) for n in kernels.KERNELS}
 t0 = time.time()
 cs.phase_serve(torch, wrappers, card)
 print(f"main[serve] phase {time.time() - t0:.1f} s", flush=True)

@@ -10,7 +10,10 @@ attention goes to ``ops/attention.py::flash_attention``: the CUDA kernel
 for tensors on the card, its plain version on the CPU.
 
 The KV cache is ``KVCache(k, v)`` of L per-layer ``(B, KV, T, hd)``
-buffers, written IN PLACE by ``transformer_forward``.
+buffers, written IN PLACE by ``transformer_forward``.  Without a cache
+(``cache=None``, training) each layer attends over its window's own keys
+and values, and ``remat=True`` recomputes each layer's activations in the
+backward pass.
 """
 
 from __future__ import annotations
@@ -19,6 +22,7 @@ import math
 from typing import List, NamedTuple, Optional, Tuple
 
 import torch
+import torch.utils.checkpoint
 
 from sesameai_tts_tpu_torch.core.config import RoPEConfig, TransformerConfig
 from sesameai_tts_tpu_torch.ops.attention import flash_attention
@@ -106,23 +110,34 @@ def transformer_forward(
     cfg: TransformerConfig,
     x: torch.Tensor,  # (B, S, D) hidden states
     pos0: torch.Tensor,  # (B,) int — first position of this window
-    cache: KVCache,  # written in place
+    cache: Optional[KVCache],  # written in place; None = cache-free (training)
     rope_cs: torch.Tensor,  # (max_seq, hd/2, 2)
     valid_len: Optional[torch.Tensor] = None,  # (B,) real rows (right-padded prefill)
     fused_mlp: bool = False,  # int8 MLPs through the fused quant_mlp kernel
-) -> Tuple[torch.Tensor, KVCache]:
+    remat: bool = False,  # cache-free only: recompute each layer in the backward pass
+) -> Tuple[torch.Tensor, Optional[KVCache]]:
     """Run the trunk over the window [pos0, pos0+S) of every row: prefill,
-    S=1 decode, or a right-padded batch with ``valid_len``."""
+    S=1 decode, or a right-padded batch with ``valid_len``.
+
+    With ``cache=None`` (training) the keys and values are the window's own
+    and the mask is the JAX package's ``tril & (key < valid_len)`` over the
+    window (attention at ``pos0 = 0``, RoPE at the real positions); the
+    result is ``(h, None)``.  ``remat`` wraps each layer in a non-reentrant
+    ``torch.utils.checkpoint``, as ``jax.checkpoint`` per layer."""
     B, S, D = x.shape
     positions = pos0[:, None] + torch.arange(S, device=x.device)[None, :]  # (B, S)
     rope_win = rope_cs[positions]  # (B, S, hd/2, 2)
-    # keys at or past valid_end are masked: a right-padded prefill's padded
-    # rows never become attendable; without valid_len this is the causal mask
-    valid_end = pos0 + (valid_len if valid_len is not None else S)
-
     H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    h = x
-    for wl, lk, lv in zip(params["layers"], cache.k, cache.v):
+    if cache is None:
+        attn_pos0 = torch.zeros_like(pos0)
+        valid_end = valid_len if valid_len is not None else torch.full_like(pos0, S)
+    else:
+        attn_pos0 = pos0
+        # keys at or past valid_end are masked: a right-padded prefill's padded
+        # rows never become attendable; without valid_len this is the causal mask
+        valid_end = pos0 + (valid_len if valid_len is not None else S)
+
+    def layer(h, wl, lk=None, lv=None):
         hn = rms_norm(h, wl["attn_norm"], cfg.norm_eps)
         qkv = qdot(hn, wl["qkv"])
         q = qkv[..., : H * hd].reshape(B, S, H, hd)
@@ -131,12 +146,26 @@ def transformer_forward(
         q = apply_rope(q, rope_win).transpose(1, 2)  # (B, H, S, hd)
         k = apply_rope(k, rope_win).transpose(1, 2)
         v = v.transpose(1, 2)
-        _update_cache(lk, k, positions)
-        _update_cache(lv, v, positions)
-        attn = flash_attention(q, lk, lv, pos0, valid_end)
+        if lk is None:  # the kernel reads k and v as contiguous (B, KV, S, hd)
+            lk, lv = k.contiguous(), v.contiguous()
+        else:
+            _update_cache(lk, k, positions)
+            _update_cache(lv, v, positions)
+        attn = flash_attention(q, lk, lv, attn_pos0, valid_end)
         h = h + qdot(attn.transpose(1, 2).reshape(B, S, H * hd), wl["o_proj"])
         hn = rms_norm(h, wl["mlp_norm"], cfg.norm_eps)
-        h = h + qmlp(hn, wl["w13"], wl["w2"], fused=fused_mlp)
+        return h + qmlp(hn, wl["w13"], wl["w2"], fused=fused_mlp)
+
+    h = x
+    if cache is None:
+        for wl in params["layers"]:
+            if remat:
+                h = torch.utils.checkpoint.checkpoint(layer, h, wl, use_reentrant=False)
+            else:
+                h = layer(h, wl)
+    else:
+        for wl, lk, lv in zip(params["layers"], cache.k, cache.v):
+            h = layer(h, wl, lk, lv)
     return rms_norm(h, params["final_norm"], cfg.norm_eps), cache
 
 

@@ -17,7 +17,13 @@ operands' values with f32 accumulation, and a row that sees no slot gives
   torch ops (an online softmax over 64-key tiles);
 - ``flash_attention``: for CUDA tensors it launches
   ``csrc/flash_attention.cu`` (or raises); for CPU tensors it runs the
-  plain version.  ``flash_attention.launches`` counts launches.
+  plain version.  ``flash_attention.launches`` counts launches.  With grad
+  enabled and q, k or v requiring grad it goes through
+  ``FlashAttentionFn``, whose backward is ``flash_attention_bwd``;
+- ``flash_attention_bwd_plain``: the analytic gradient as torch ops;
+- ``flash_attention_bwd``: for CUDA tensors it launches
+  ``csrc/flash_attention_bwd.cu`` (or raises); for CPU tensors it runs the
+  plain version.  ``flash_attention_bwd.launches`` counts launches.
 
 They differ only in where the softmax weights are rounded to v's dtype
 before the PV product: the plain version rounds the normalized
@@ -237,7 +243,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, pos0: tor
                     valid_end: torch.Tensor) -> torch.Tensor:
     """Causal GQA attention of q (B, H, S, hd) over the cache k, v (B, KV,
     T, hd) → (B, H, S, hd) in q's dtype.  CUDA tensors launch the kernel
-    (or raise); CPU tensors run ``flash_attention_plain``.
+    (or raise); CPU tensors run ``flash_attention_plain``.  With grad
+    enabled and q, k or v requiring grad the call goes through
+    ``FlashAttentionFn`` (the same forward, ``flash_attention_bwd`` as its
+    backward); otherwise the result has no ``grad_fn``.
 
     On the card q, k and v are all bf16 or all f32, hd is 16, 64 or 128,
     at most 16 heads share a KV head, k and v are contiguous and 16-byte
@@ -248,6 +257,15 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, pos0: tor
     kernel reads them itself, so a call never waits for the host.  The result is a
     (B, H, S, hd) view of a (B, S, H, hd) buffer, so that the caller's
     merge of the heads is free."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        return FlashAttentionFn.apply(q, k, v, pos0, valid_end)
+    return _flash_attention_fwd(q, k, v, pos0, valid_end)
+
+
+def _flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         pos0: torch.Tensor, valid_end: torch.Tensor) -> torch.Tensor:
+    """``flash_attention`` without autograd: the plain version on the CPU,
+    the kernel on the card."""
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, pos0, valid_end)
     if q.device.type != "cuda":
@@ -305,3 +323,118 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, pos0: tor
 
 
 flash_attention.launches = 0
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """``flash_attention`` with a gradient: the forward is the kernel on the
+    card (the plain version on the CPU), the backward
+    ``flash_attention_bwd`` from q, k, v, the output and its gradient.
+    ``pos0`` and ``valid_end`` get none."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, pos0, valid_end):
+        out = _flash_attention_fwd(q, k, v, pos0, valid_end)
+        ctx.save_for_backward(q, k, v, out, pos0, valid_end)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, pos0, valid_end = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, dout, pos0, valid_end)
+        return dq, dk, dv, None, None
+
+
+def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                              o: torch.Tensor, do: torch.Tensor, pos0: torch.Tensor,
+                              valid_end: torch.Tensor):
+    """The analytic gradient of ``flash_attention`` as torch ops, in f32:
+    ``P = softmax(mask(q kᵀ · scale))`` recomputed, ``dV = Σ_g Pᵀ dO``,
+    ``dP = dO vᵀ``, ``dS = P ∘ (dP − rowsum(dO ∘ O))``, ``dQ = dS k ·
+    scale``, ``dK = Σ_g dSᵀ q · scale`` → (dq, dk, dv) in the operands'
+    dtypes.  A row that sees no slot has P = 0, so it gives zero gradients,
+    not NaN.  ``o`` is the forward's output: ``rowsum(dO ∘ O)`` stands for
+    ``rowsum(P ∘ dP)``, as in the kernel."""
+    B, H, S, hd = q.shape
+    KV, T = k.shape[1], k.shape[2]
+    G = H // KV
+    scale = 1.0 / math.sqrt(hd)
+    positions = pos0[:, None] + torch.arange(S, device=q.device)[None, :]  # (B, S)
+    key_pos = torch.arange(T, device=q.device)
+    mask = ((key_pos[None, None, :] <= positions[:, :, None])
+            & (key_pos[None, None, :] < valid_end[:, None, None]))[:, None, None]
+    qf = q.reshape(B, KV, G, S, hd).float()
+    dof = do.reshape(B, KV, G, S, hd).float()
+    kf, vf = k.float(), v.float()
+    logits = torch.einsum("bkgsh,bkth->bkgst", qf, kf) * scale
+    probs = torch.softmax(logits.masked_fill(~mask, float("-inf")), dim=-1)
+    probs = torch.where(mask.any(dim=-1, keepdim=True), probs, 0.0)
+    dv = torch.einsum("bkgst,bkgsh->bkth", probs, dof)
+    dp = torch.einsum("bkgsh,bkth->bkgst", dof, vf)
+    delta = (dof * o.reshape(B, KV, G, S, hd).float()).sum(dim=-1, keepdim=True)
+    ds = probs * (dp - delta)
+    dq = torch.einsum("bkgst,bkth->bkgsh", ds, kf) * scale
+    dk = torch.einsum("bkgst,bkgsh->bkth", ds, qf) * scale
+    return dq.reshape(B, H, S, hd).to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor,
+                        do: torch.Tensor, pos0: torch.Tensor,
+                        valid_end: torch.Tensor):
+    """The gradient of ``flash_attention`` (q (B, H, S, hd), k, v (B, KV, T,
+    hd), its output o and the output's gradient do, both (B, H, S, hd)) →
+    (dq, dk, dv) in the operands' dtype.  CUDA tensors launch
+    ``csrc/flash_attention_bwd.cu`` (or raise); CPU tensors run
+    ``flash_attention_bwd_plain``.  On the card the operands take the
+    forward's dtypes, head dims and G; q, o and do are copied to contiguous
+    buffers where they are views."""
+    if q.device.type == "cpu":
+        return flash_attention_bwd_plain(q, k, v, o, do, pos0, valid_end)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention_bwd: unsupported device {q.device}")
+    if any(t.dim() != 4 for t in (q, k, v, o, do)) or pos0.dim() != 1 or valid_end.dim() != 1:
+        raise ValueError("flash_attention_bwd: want q, o, do (B, H, S, hd), k and v (B, KV, "
+                         "T, hd), pos0 and valid_end (B,)")
+    B, H, S, hd = q.shape
+    KV, T = k.shape[1], k.shape[2]
+    if (k.shape != v.shape or k.shape[0] != B or k.shape[3] != hd or H % KV != 0
+            or o.shape != q.shape or do.shape != q.shape or pos0.shape[0] != B
+            or valid_end.shape[0] != B or min(B, S, T) < 1):
+        raise ValueError(
+            f"flash_attention_bwd: shape mismatch q {tuple(q.shape)}, k {tuple(k.shape)}, "
+            f"v {tuple(v.shape)}, o {tuple(o.shape)}, do {tuple(do.shape)}"
+        )
+    if q.dtype not in (torch.bfloat16, torch.float32) or any(
+            t.dtype != q.dtype for t in (k, v, o, do)):
+        raise TypeError(f"flash_attention_bwd: want q, k, v, o, do all bf16 or all f32; got "
+                        f"{q.dtype}, {k.dtype}, {v.dtype}, {o.dtype}, {do.dtype}")
+    if pos0.dtype.is_floating_point or valid_end.dtype.is_floating_point or (
+        torch.bool in (pos0.dtype, valid_end.dtype)
+    ):
+        raise TypeError("flash_attention_bwd: pos0 and valid_end must be integer tensors")
+    if hd not in _HEAD_DIMS:
+        raise ValueError(f"flash_attention_bwd: head dim {hd} not in {_HEAD_DIMS}")
+    if H // KV > _QUERIES_PER_BLOCK:
+        raise ValueError(f"flash_attention_bwd: {H // KV} heads per KV head exceed "
+                         f"{_QUERIES_PER_BLOCK}")
+    if B * H * max(S, T) * hd >= 2**31:
+        raise ValueError("flash_attention_bwd: operands of 2^31 elements or more")
+    q, o, do = (t.contiguous() for t in (q, o, do))
+    pos0 = pos0.to(torch.int64).contiguous()
+    valid_end = valid_end.to(torch.int64).contiguous()
+    check_operands("flash_attention_bwd", {"k": k, "v": v, "o": o, "do": do, "pos0": pos0,
+                                           "valid_end": valid_end}, q.device)
+    dq = torch.empty_like(q)
+    dk = torch.empty_like(k)
+    dv = torch.empty_like(v)
+    # each query row's log-sum-exp of its visible logits and rowsum(dO ∘ O)
+    stats = torch.empty((2, B, H, S), dtype=torch.float32, device=q.device)
+    launch("flash_attention_bwd", q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+           do.data_ptr(), pos0.data_ptr(), valid_end.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+           dv.data_ptr(), stats[0].data_ptr(), stats[1].data_ptr(), B, H, KV, S, T, hd,
+           _QUERIES_PER_BLOCK // (H // KV), int(q.dtype == torch.bfloat16),
+           torch.cuda.current_stream(q.device).cuda_stream)
+    count_launch(flash_attention_bwd)
+    return dq, dk, dv
+
+
+flash_attention_bwd.launches = 0

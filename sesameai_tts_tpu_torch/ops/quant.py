@@ -158,6 +158,15 @@ def _sms(device: torch.device) -> int:
 # ---------------------------------------------------------------------------
 
 
+def _refuse_grad(name: str, x: torch.Tensor) -> None:
+    """A quant kernel has no gradient: on the card, a call with grad enabled
+    on an x that requires grad raises rather than detach silently (the JAX
+    package has no quantized training path either)."""
+    if torch.is_grad_enabled() and x.requires_grad:
+        raise TypeError(f"{name}: the kernel has no gradient, and x requires grad; train "
+                        f"dense weights and quantize them afterwards")
+
+
 def quant_matmul_plain(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     """The kernel's arithmetic as torch ops: bf16(x) @ bf16(q) with f32
     accumulation (bf16 × bf16 products are exact in f32), × scale in f32,
@@ -174,6 +183,7 @@ def quant_matmul(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor) -> torch
         return quant_matmul_plain(x, q, scale)
     if x.device.type != "cuda":
         raise ValueError(f"quant_matmul: unsupported device {x.device}")
+    _refuse_grad("quant_matmul", x)
     if x.dim() != 2 or q.dim() != 2 or scale.dim() != 1:
         raise ValueError(
             f"quant_matmul: want x (S, D), q (D, F), scale (F,); got "
@@ -307,6 +317,7 @@ def quant4_matmul(x: torch.Tensor, q4: torch.Tensor, scale: torch.Tensor) -> tor
         return quant4_matmul_plain(x, q4, scale)
     if x.device.type != "cuda":
         raise ValueError(f"quant4_matmul: unsupported device {x.device}")
+    _refuse_grad("quant4_matmul", x)
     if x.dim() != 2 or q4.dim() != 2 or scale.dim() != 2:
         raise ValueError(
             f"quant4_matmul: want x (S, D), q4 (D/2, F), scale (G, F); got "
@@ -504,6 +515,7 @@ def quant_mlp(x: torch.Tensor, q13: torch.Tensor, s13: torch.Tensor, q2: torch.T
         return quant_mlp_plain(x, q13, s13, q2, s2)
     if x.device.type != "cuda":
         raise ValueError(f"quant_mlp: unsupported device {x.device}")
+    _refuse_grad("quant_mlp", x)
     if x.dim() != 2 or q13.dim() != 2 or s13.dim() != 1 or q2.dim() != 2 or s2.dim() != 1:
         raise ValueError("quant_mlp: want x (S, D), q13 (D, 2F), s13 (2F,), q2 (F, Dout), "
                          "s2 (Dout,)")

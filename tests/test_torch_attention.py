@@ -274,3 +274,75 @@ def test_mma_tile_plan(S, G, T, pos0, valid_len):
 ])
 def test_route_by_dtype_and_head_dim(dtype, hd, G, S, want):
     assert ta._route(dtype, hd, G, S) == want
+
+
+# -- the gradient ------------------------------------------------------------------
+
+# (B, H, KV, S, T, hd, pos0 per row, valid_end per row): training's cache-free
+# window (pos0 0, valid_end S), right padding, a row that sees no slot, G = 4 and
+# G = 1, a window after a cached context, hd 64
+_GRAD_CASES = {
+    "window, G=2": (2, 4, 2, 12, 12, 16, (0, 0), (12, 12)),
+    "right-padded row beside an empty one, G=4": (2, 8, 2, 10, 10, 16, (0, 0), (6, 0)),
+    "after a context, G=1": (1, 2, 2, 6, 20, 16, (9,), (13,)),
+    "hd 64, G=4": (1, 8, 2, 9, 9, 64, (0,), (9,)),
+}
+
+
+def _grad_inputs(case, seed=5):
+    B, H, KV, S, T, hd, pos0, valid_end = case
+    q, k, v = _inputs(seed, B, H, KV, S, T, hd)
+    do = np.random.default_rng(seed + 1).standard_normal((B, H, S, hd)).astype(np.float32)
+    return q, k, v, do, np.array(pos0), np.array(valid_end)
+
+
+@pytest.mark.parametrize("case", list(_GRAD_CASES.values()), ids=list(_GRAD_CASES))
+def test_bwd_plain_is_autograd_of_the_plain_version(case):
+    """f32: the analytic gradient (D = rowsum(dO o O)) against torch.autograd
+    through flash_attention_plain; only the order of f32 sums differs."""
+    q, k, v, do, pos0, valid_end = _grad_inputs(case)
+    qt, kt, vt = (torch.from_numpy(a).requires_grad_() for a in (q, k, v))
+    p0, ve = torch.from_numpy(pos0), torch.from_numpy(valid_end)
+    out = ta.flash_attention_plain(qt, kt, vt, p0, ve)
+    want = torch.autograd.grad(out, (qt, kt, vt), torch.from_numpy(do))
+    got = ta.flash_attention_bwd_plain(qt.detach(), kt.detach(), vt.detach(), out.detach(),
+                                       torch.from_numpy(do), p0, ve)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and torch.isfinite(g).all()
+        np.testing.assert_allclose(g.numpy(), w.numpy(), rtol=1e-5, atol=1e-5)
+    for b in np.flatnonzero(valid_end <= 0):  # a row that sees no slot: zero gradients
+        assert not got[0][b].any() and not got[1][b].any() and not got[2][b].any()
+
+
+@pytest.mark.parametrize("case", list(_GRAD_CASES.values()), ids=list(_GRAD_CASES))
+def test_function_gradient_matches_jax_attention(case):
+    """The port's flash_attention with grad (FlashAttentionFn: the plain
+    forward, flash_attention_bwd on the CPU) against jax.vjp of the JAX
+    package's _attention under the same mask, f32."""
+    import jax
+
+    q, k, v, do, pos0, valid_end = _grad_inputs(case, seed=7)
+    S, T = q.shape[2], k.shape[2]
+    mask = jnp.asarray(_mask(pos0, valid_end, S, T))
+    out, vjp = jax.vjp(lambda a, b, c: j_attention(a, b, c, mask), *map(jnp.asarray, (q, k, v)))
+    want = vjp(jnp.asarray(do))
+    qt, kt, vt = (torch.from_numpy(a).requires_grad_() for a in (q, k, v))
+    got_out = ta.flash_attention(qt, kt, vt, torch.from_numpy(pos0), torch.from_numpy(valid_end))
+    assert "FlashAttentionFn" in type(got_out.grad_fn).__name__
+    np.testing.assert_allclose(got_out.detach().numpy(), np.asarray(out), rtol=TOL, atol=TOL)
+    got = torch.autograd.grad(got_out, (qt, kt, vt), torch.from_numpy(do))
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=TOL, atol=TOL)
+
+
+def test_no_function_without_grad():
+    """Decode and prefill (no grad, or no operand requiring grad) take the
+    bare forward: no graph node."""
+    q, k, v = (torch.from_numpy(a) for a in _inputs(3, 1, 4, 2, 5, 12, 16))
+    p0, ve = torch.tensor([0]), torch.tensor([5])
+    assert ta.flash_attention(q, k, v, p0, ve).grad_fn is None
+    with torch.no_grad():
+        assert ta.flash_attention(q.requires_grad_(), k, v, p0, ve).grad_fn is None
+    before = ta.flash_attention_bwd.launches
+    ta.flash_attention(q, k, v, p0, ve).sum().backward()
+    assert q.grad is not None and ta.flash_attention_bwd.launches == before  # the CPU: plain

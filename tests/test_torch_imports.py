@@ -32,7 +32,9 @@ for want in ("runtime.qa", "ops.kernels", "ops.attention", "audio.io", "audio.re
              "service.http_api", "service.prewarm", "watermark.stream", "watermark.net",
              "service.fixtures", "service.convert", "service.smoke", "audio.native",
              "llm", "llm.client", "apps", "apps.audio_to_text", "apps.tts_base",
-             "apps.web_base", "apps.web_chat", "apps.web_storyteller", "apps.duplex"):
+             "apps.web_base", "apps.web_chat", "apps.web_storyteller", "apps.duplex",
+             "training", "training.loss", "training.train_step", "training.lora",
+             "training.data", "training.checkpoint", "training.finetune"):
     assert "sesameai_tts_tpu_torch." + want in names, (want, names)
 print(len(names), bad)
 """
@@ -107,6 +109,48 @@ def test_entry_points_default_to_cuda():
     with pytest.raises(RuntimeError, match="CUDA"):
         resolve_device("cuda")
     assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_finetune_defaults_to_cuda(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default device is usable")
+    from sesameai_tts_tpu_torch.training.finetune import main
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        main(["--data", str(tmp_path), "--flavor", "test-tiny"])
+
+
+def test_attention_with_grad_takes_the_function(monkeypatch):
+    """With grad enabled and q requiring grad, flash_attention goes through
+    FlashAttentionFn whatever the device (here "meta" tensors and a stub
+    forward stand in for the card's); without, the bare forward runs."""
+    from sesameai_tts_tpu_torch.ops import attention as ta
+
+    seen = []
+    monkeypatch.setattr(ta, "_flash_attention_fwd",
+                        lambda q, *a: seen.append(q.device.type) or torch.empty_like(q))
+    q = torch.empty((1, 4, 3, 16), device="meta", requires_grad=True)
+    k = v = torch.empty((1, 2, 3, 16), device="meta")
+    pos0 = valid_end = torch.zeros(1, dtype=torch.int64, device="meta")
+    out = ta.flash_attention(q, k, v, pos0, valid_end)
+    assert type(out.grad_fn).__name__ == "FlashAttentionFnBackward" and seen == ["meta"]
+    with torch.no_grad():
+        assert ta.flash_attention(q, k, v, pos0, valid_end).grad_fn is None
+    assert ta.flash_attention(q.detach(), k, v, pos0, valid_end).grad_fn is None
+    assert len(seen) == 3
+
+
+def test_quant_kernels_refuse_grad_on_the_card():
+    """The check the three quant wrappers make on a CUDA tensor before they
+    launch (tests/test_torch_kernels.py calls them on the card)."""
+    from sesameai_tts_tpu_torch.ops import quant as tq
+
+    x = torch.zeros(2, 8, requires_grad=True)
+    with pytest.raises(TypeError, match="quant_mlp: the kernel has no gradient"):
+        tq._refuse_grad("quant_mlp", x)
+    with torch.no_grad():
+        tq._refuse_grad("quant_mlp", x)
+    tq._refuse_grad("quant_mlp", x.detach())
 
 
 def test_fused_mlp_needs_int8_trunks():

@@ -499,3 +499,114 @@ def test_graphed_tiny_generator_equals_its_eager_step(cuda):
     replayed = sum(gen._graphs[(1, part, False)].launches.get(ta.flash_attention, 0)
                    for part in ("backbone", "sample"))
     assert replayed == per_frame
+
+
+# -- flash_attention_bwd ------------------------------------------------------
+
+
+def _assert_grad_close(got, want):
+    # both take the same operand values and compute every sum in f32, in
+    # another order; each rounds its f32 result to the dtype once (bf16: one
+    # ulp, < 1e-2 relative, plus f32 noise well under 1e-3 of the peak)
+    bf16 = want.dtype == torch.bfloat16
+    want = want.float()
+    tol = (1e-2 if bf16 else 1e-4) * want.abs() + (1e-3 if bf16 else 1e-4) * want.abs().max()
+    assert bool(((got.float() - want).abs() <= tol).all()), float((got.float() - want).abs().max())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,H,KV,S,T,hd,pos0,valid_end", [
+    (2, 32, 8, 512, 512, 64, (0, 0), (512, 512)),  # the backbone's training window
+    (2, 32, 8, 256, 256, 64, (0, 0), (256, 200)),  # a right-padded row
+    (8, 8, 2, 32, 32, 128, (0,) * 8, (32,) * 8),  # the decoder's K positions
+    (2, 8, 2, 64, 64, 128, (0, 0), (64, 0)),  # a row that sees no key
+    (2, 4, 2, 37, 37, 16, (0, 0), (37, 30)),  # tiny flavor, ragged tiles
+    (1, 4, 4, 40, 100, 64, (30,), (70,)),  # G = 1, a window after a context
+    (1, 16, 1, 20, 20, 64, (0,), (20,)),  # G = 16: one row a block
+])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_attention_bwd_matches_plain(cuda, B, H, KV, S, T, hd, pos0, valid_end, dtype):
+    q, k, v = _attn_inputs(cuda, B, H, KV, S, T, hd, dtype)
+    p0, ve = torch.tensor(pos0, device="cuda"), torch.tensor(valid_end, device="cuda")
+    o = ta.flash_attention(q, k, v, p0, ve)
+    do = torch.randn(o.shape, generator=cuda, device="cuda").to(dtype)
+    before = ta.flash_attention_bwd.launches
+    got = ta.flash_attention_bwd(q, k, v, o, do, p0, ve)
+    assert ta.flash_attention_bwd.launches == before + 1
+    want = ta.flash_attention_bwd_plain(q, k, v, o, do, p0, ve)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and g.dtype == dtype
+        _assert_grad_close(g, w)
+    again = ta.flash_attention_bwd(q, k, v, o, do, p0, ve)  # no atomics: bit-equal
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    for b, e in enumerate(valid_end):
+        if e <= 0:
+            assert not any(g[b].any() for g in got)
+
+
+@pytest.mark.gpu
+def test_attention_gradient_goes_through_the_kernels(cuda):
+    """A cache-free trunk on the card: its flash_attention calls with grad
+    take FlashAttentionFn, whose backward launches flash_attention_bwd, and
+    the gradients equal the CPU's (f32, TF32 off)."""
+    from sesameai_tts_tpu_torch.convert import to_device
+    from sesameai_tts_tpu_torch.core.config import test_tiny
+    from sesameai_tts_tpu_torch.models import transformer as tt
+
+    cfg = test_tiny()
+    params = tt.init_transformer_params(cfg, torch.Generator().manual_seed(0), torch.float32)
+    x = torch.randn((2, 9, cfg.embed_dim), generator=torch.Generator().manual_seed(1))
+    # a fixed projection of the output: (h ** 2).mean() of an RMS-normed h is
+    # nearly constant, and its gradients are rounding noise
+    w = torch.randn((2, 9, cfg.embed_dim), generator=torch.Generator().manual_seed(2))
+    grads = []
+    for dev in ("cpu", "cuda"):
+        p = to_device(params, dev)  # new dicts: the leaves set below are this device's
+        for layer, name in ((0, "qkv"), (1, "w2")):
+            p["layers"][layer][name] = p["layers"][layer][name].detach().clone().requires_grad_()
+        leaves = [p["layers"][0]["qkv"], p["layers"][1]["w2"]]
+        before = (ta.flash_attention.launches, ta.flash_attention_bwd.launches)
+        h, cache = tt.transformer_forward(p, cfg, x.to(dev), torch.zeros(2, dtype=torch.int64,
+                                                                       device=dev),
+                                          None, tt.precompute_rope(cfg, device=dev),
+                                          valid_len=torch.tensor([9, 5], device=dev))
+        assert cache is None
+        grads.append([g.cpu() for g in torch.autograd.grad((h * w.to(dev)).sum(), leaves)])
+        n = cfg.num_layers if dev == "cuda" else 0
+        assert (ta.flash_attention.launches - before[0],
+                ta.flash_attention_bwd.launches - before[1]) == (n, n)
+    for a, b in zip(*grads):
+        torch.testing.assert_close(b, a, rtol=1e-4, atol=1e-5 * a.abs().max().item())
+
+
+@pytest.mark.gpu
+def test_quant_kernels_refuse_grad(cuda):
+    """A kernel without a gradient raises rather than detach silently."""
+    q, scale = _int8_weight(cuda, 64, 64)
+    x = torch.randn((2, 64), generator=cuda, device="cuda").requires_grad_()
+    with pytest.raises(TypeError, match="gradient"):
+        tq.quant_matmul(x, q, scale)
+    with torch.no_grad():
+        tq.quant_matmul(x, q, scale)
+    q4 = torch.randint(-128, 128, (32, 64), generator=cuda, device="cuda", dtype=torch.int8)
+    with pytest.raises(TypeError, match="gradient"):
+        tq.quant4_matmul(x.detach().to(torch.bfloat16).requires_grad_(), q4,
+                         torch.rand((2, 64), device="cuda"))
+    with pytest.raises(TypeError, match="gradient"):
+        tq.quant_mlp(x.detach().to(torch.bfloat16).requires_grad_(), q.repeat(1, 2),
+                     scale.repeat(2), q, scale)
+
+
+@pytest.mark.gpu
+def test_flash_attention_bwd_rejects_bad_inputs(cuda):
+    q, k, v = _attn_inputs(cuda, 1, 8, 2, 4, 4, 64, torch.bfloat16)
+    p0, ve = torch.tensor([0], device="cuda"), torch.tensor([4], device="cuda")
+    o = ta.flash_attention(q, k, v, p0, ve)
+    with pytest.raises(TypeError):
+        ta.flash_attention_bwd(q, k, v, o, o.float(), p0, ve)
+    with pytest.raises(ValueError):
+        ta.flash_attention_bwd(q, k, v, o[:, :, :2], o, p0, ve)
+    with pytest.raises(ValueError):
+        ta.flash_attention_bwd(q, k.transpose(2, 3).contiguous().transpose(2, 3), v, o, o,
+                               p0, ve)
