@@ -20,7 +20,11 @@ Phases, each of which fails the run if it fails:
    ``flash_attention_bwd_plain`` at the training shapes (backbone S = 256,
    512, 2048, a right-padded row, a row without keys; decoder S = 32), bf16
    and f32, each timed beside its plain version, the backward of one
-   ``scaled_dot_product_attention`` call and the card's bound;
+   ``scaled_dot_product_attention`` call and the card's bound; then
+   ``quant_matmul``, ``quant_mlp`` and ``flash_attention`` at one rank's
+   shard shapes of a tp = 2 mesh (``phase_shards``: the eight trunk linears
+   at S = 1 and 2, the MLPs at I/2, decode and prefill attention over the
+   local heads), the same checks and times;
 4. main paths, CSM-1B at full width with a bf16 Mimi and random weights
    from a seed, one configuration at a time: int8 trunks (offline,
    streamed and voice-context requests), int4 trunks and the fused int8
@@ -71,7 +75,16 @@ Phases, each of which fails the run if it fails:
    CSM-1B full width from the random init: a mixed full finetune whose loss
    falls, an interrupted LoRA run resumed bit-equal to an unbroken one, its
    merged export served (int8), the tiny train step card against CPU, exact
-   forward and backward attention launches;
+   forward and backward attention launches.
+   Then ``main[mesh]`` (``phase_mesh``): processes that this script spawns
+   share the one card over gloo as a mesh, CSM-1B int8 from seed 0 on each:
+   (a) dp 1, tp 2: a Generator serves a greedy 2 s and a sampled request,
+   both ranks' frames identical, the PCM finite and 80 ms per frame, exact
+   launches per step on each rank, the teacher-forced logits over the
+   greedy frames within 30 dB SNR of the parent's single-process Generator;
+   (b) dp 2, tp 1: a 4-slot ``BatchedTTSServer``, 2 slots and CUDA graphs
+   per rank, six greedy sessions (one cancelled), each finished session's
+   codes equal to a one-process 2-slot pool's;
 5. QA at full width: teacher-forced agreement of the int4 generator with
    the dense twin of its own tree, and of the fused generator with the
    unfused one, against thresholds; the int8 and int4 acceptance reports
@@ -127,6 +140,33 @@ _MLP_SHAPES = (
 # single-stream decode, S = 2 the rehearsal's 2-slot serving pool, S = 8 the
 # 8-slot pool, S = 64 the widest qdot sends to a kernel
 _S_VALUES = (1, 2, 4, 8, 64)
+# one rank's shards at tp = 2 (parallel/mesh.py): the trunk linears (qkv
+# holds H/2 q heads and their kv heads: the decoder's one of its 2; w13 I/2
+# columns of w1 and of w3; o_proj and w2 half their rows), the MLPs at I/2,
+# and the attention of the local heads; the main[mesh] path's shapes
+_TP2_SHAPES = (
+    ("backbone.qkv tp2", 2048, 1536, 16),
+    ("backbone.o_proj tp2", 1024, 2048, 16),
+    ("backbone.w13 tp2", 2048, 8192, 16),
+    ("backbone.w2 tp2", 4096, 2048, 16),
+    ("decoder.qkv tp2", 1024, 768, 128),
+    ("decoder.o_proj tp2", 512, 1024, 128),
+    ("decoder.w13 tp2", 1024, 8192, 128),
+    ("decoder.w2 tp2", 4096, 1024, 128),
+)
+_TP2_MLP_SHAPES = (
+    ("backbone.mlp tp2", 2048, 4096, 2048, 16),
+    ("decoder.mlp tp2", 1024, 4096, 1024, 128),
+)
+# S = 1 a rank's decode; S = 2 its rows of a 4-slot pool; S = 64 a prompt's
+# rows through the backbone's shards in (a)'s prefill (qdot's kernel route)
+_TP2_S_VALUES = (1, 2, 64)
+_TP2_ATTN_CASES = (
+    ("backbone decode tp2 pos 600", 1, 16, 4, 64, 2048, 1, (600,), (1,)),
+    ("decoder step tp2 pos 0", 1, 4, 1, 128, 32, 1, (0,), (1,)),
+    ("decoder step tp2 pos 31", 1, 4, 1, 128, 32, 1, (31,), (1,)),
+    ("backbone prefill tp2 S=512", 1, 16, 4, 64, 2048, 512, (0,), (500,)),
+)
 # kernel vs plain: both accumulate exact bf16 x integer products in f32, in
 # another order, and round to bf16, so they may differ by one bf16 ulp
 # (<= 2^-7 relative) plus f32 rounding noise of the sum; in quant_mlp a few
@@ -308,6 +348,27 @@ APPS_ENCODE_CHUNK = 2
 APPS_ENCODE_MIN_EQUAL = 0.99
 APPS_NATIVE_TOL = 5e-4  # resample_native vs resample, as tests/test_audio.py
 
+# main[mesh]: CSM-1B int8 at full width on a mesh of processes that share the
+# one card over gloo.  (a) dp 1, tp 2: a greedy request of MESH_MS and a
+# sampled one of MESH_SAMPLED_MS on a Generator, teacher-forced logits over the greedy frames held
+# against the parent's single-process Generator (both prefill through the
+# int8 trunks, so the two differ only in the order of the tp partial sums);
+# (b) dp 2, tp 1: a 4-slot BatchedTTSServer, 2 slots per rank, warmed up on
+# every rank, over MESH_SESSIONS (text, ms) greedy, one cancelled at its
+# first audio, each finished session's codes equal to a one-process 2-slot
+# pool's, on a mesh of one and on no mesh (the single-card server)
+MESH_TEXT = "The mesh speaks."
+MESH_SAMPLED_TEXT = "Two ranks, one voice."
+MESH_MS = 2000
+MESH_SAMPLED_MS = 800
+MESH_MIN_SNR_DB = 30.0
+MESH_SESSIONS = (("First of six.", 1600), ("The second one is longer.", 2400),
+                 ("Third.", 800), ("The fourth runs the longest of them all.", 3200),
+                 ("Five, cancelled.", 2000), ("And six.", 1200))
+MESH_CANCEL = 4
+MESH_CHUNK = 10
+MESH_TIMEOUT_S = 420  # a world of ranks, set-up included
+
 QA_TEXT = "Teacher forcing holds two generators to one trajectory of frames."
 QA_STEPS = 32  # the gated pairs
 QA_INFO_STEPS = 16  # the informational acceptance reports
@@ -471,18 +532,19 @@ def _measure(torch, label: str, row: dict, got, want, kernel, plain, library, co
     return row
 
 
-def phase_quant_matmul(torch, quant, peak_bw, peak_flops):
+def phase_quant_matmul(torch, quant, peak_bw, peak_flops, shapes=_FLAGSHIP_SHAPES,
+                       s_values=_S_VALUES):
     """quant_matmul vs quant_matmul_plain at every flagship shape."""
     gen = torch.Generator(device="cuda").manual_seed(0)
     rows = []
-    for name, D, F, per_frame in _FLAGSHIP_SHAPES:
+    for name, D, F, per_frame in shapes:
         q = torch.randint(-127, 128, (D, F), generator=gen, device="cuda", dtype=torch.int8)
         scale = torch.rand(F, generator=gen, device="cuda") * 1e-2 + 1e-3
         copies = _copies(D * F)
         qs = [q] + [q.clone() for _ in range(copies - 1)]
         w = quant._dequant({"q": q, "scale": scale}, torch.bfloat16)
         ws = [w] + [w.clone() for _ in range(copies - 1)]
-        for S in _S_VALUES:
+        for S in s_values:
             x = torch.randn((S, D), generator=gen, device="cuda").to(torch.bfloat16)
             vec, tpr, splits, _, s_tile = quant._qmm_geometry(S, D, F, quant._sms(x.device))
             blocks = splits * math.ceil(F / (vec * tpr)) * math.ceil(S / s_tile)
@@ -536,7 +598,7 @@ def phase_quant4_matmul(torch, quant, peak_bw, peak_flops):
     return rows
 
 
-def phase_quant_mlp(torch, quant, peak_bw, peak_flops):
+def phase_quant_mlp(torch, quant, peak_bw, peak_flops, shapes=_MLP_SHAPES, s_values=_S_VALUES):
     """quant_mlp vs quant_mlp_plain at the backbone and decoder MLPs, with
     the launch geometry in each row.  The library yardstick is the dense
     bf16 SwiGLU sequence: three torch.matmul calls, silu and a product.  A
@@ -545,7 +607,7 @@ def phase_quant_mlp(torch, quant, peak_bw, peak_flops):
     F_ = torch.nn.functional
     gen = torch.Generator(device="cuda").manual_seed(2)
     rows = []
-    for name, D, F, Dout, per_frame in _MLP_SHAPES:
+    for name, D, F, Dout, per_frame in shapes:
         q13 = torch.randint(-127, 128, (D, 2 * F), generator=gen, device="cuda",
                             dtype=torch.int8)
         q2 = torch.randint(-127, 128, (F, Dout), generator=gen, device="cuda", dtype=torch.int8)
@@ -564,7 +626,7 @@ def phase_quant_mlp(torch, quant, peak_bw, peak_flops):
             w1, w3, w2_ = dense[i % len(dense)]
             return torch.matmul(F_.silu(torch.matmul(x, w1)) * torch.matmul(x, w3), w2_)
 
-        for S in _S_VALUES:
+        for S in s_values:
             x = torch.randn((S, D), generator=gen, device="cuda").to(torch.bfloat16)
             block_i, cluster, threads, prefetch, smem, _ = quant._qmlp_geometry(
                 S, D, F, Dout, quant._sms(x.device))
@@ -603,7 +665,7 @@ def _attn_work(B, H, KV, hd, S, pos0, valid_len, elem: int):
     return nbytes, 4 * hd * H * pairs
 
 
-def phase_flash_attention(torch, attention, peak_bw, peak_flops):
+def phase_flash_attention(torch, attention, peak_bw, peak_flops, cases=_ATTN_CASES):
     """flash_attention vs flash_attention_plain at the trunks' shapes, in
     bf16.  The backbone's cache is cycled through copies past the 50 MB L2
     (on the decode path it is read after a frame's GBs of weights); the
@@ -618,7 +680,7 @@ def phase_flash_attention(torch, attention, peak_bw, peak_flops):
     def randn(*shape):
         return torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
 
-    for label, B, H, KV, hd, T, S, pos0, valid_len in _ATTN_CASES:
+    for label, B, H, KV, hd, T, S, pos0, valid_len in cases:
         q = randn(B, S, H, hd).transpose(1, 2)  # as the trunk hands it over
         cache_bytes = 2 * B * KV * T * hd * 2
         copies = _copies(cache_bytes) if T > 32 else 2
@@ -2652,6 +2714,359 @@ def phase_train(torch, wrappers, card: str) -> dict:
     return result
 
 
+def phase_shards(torch, quant, attention, peak_bw, peak_flops):
+    """The kernels at one rank's tp = 2 shard shapes (``_TP2_*``), against
+    their plain versions as in the phases above, then each kernel's time
+    summed over one decoded frame's launches on one rank of a tp = 2 mesh."""
+    rows = {
+        "quant_matmul": phase_quant_matmul(torch, quant, peak_bw, peak_flops, _TP2_SHAPES,
+                                           _TP2_S_VALUES),
+        "quant_mlp": phase_quant_mlp(torch, quant, peak_bw, peak_flops, _TP2_MLP_SHAPES,
+                                     _TP2_S_VALUES),
+        "flash_attention": phase_flash_attention(torch, attention, peak_bw, peak_flops,
+                                                 _TP2_ATTN_CASES),
+    }
+    keys = ("kernel_ms", "plain_ms", "library_ms", "bound_ms")
+    frame = {name: {k: sum(r[k] * r["per_frame"] for r in rows[name] if r["S"] == 1)
+                    for k in keys} for name in ("quant_matmul", "quant_mlp")}
+    attn = rows["flash_attention"]
+    backbone = next(r for r in attn if r["S"] == 1 and r["hd"] == 64)
+    decoder = [r for r in attn if r["hd"] == 128]
+    frame["flash_attention"] = {k: backbone[k] * 16 + sum(r[k] for r in decoder) / len(decoder)
+                                * 128 for k in keys}
+    print("kernel per decoded frame on one rank at tp=2 " + json.dumps(frame), flush=True)
+    rows["per_frame"] = frame
+    return rows
+
+
+def _snr_db(np, got, want) -> float:
+    """Median over steps of 10 log10(sum want^2 / sum (got - want)^2)."""
+    err = got - want
+    return float(np.median(10.0 * np.log10(np.sum(want * want, axis=-1)
+                                           / np.maximum(np.sum(err * err, axis=-1), 1e-20))))
+
+
+def _teacher_logits(torch, gen, text: str, teacher):
+    """The teacher-forced codebook-0 logits over ``teacher`` (T, 1, K) after
+    the unpadded prompt of ``text``, prefilled through the int8 trunks
+    (``gen._params``, on a mesh this rank's shards) → (T, V) f32 numpy."""
+    from sesameai_tts_tpu_torch.models import csm
+
+    tokens, mask = gen._tokenize_prompt(text, 0, [])
+    with gen._request(), torch.no_grad():
+        state = gen._init_state(1)
+        _, state = csm.backbone_last_hidden(
+            gen._params, gen._cfg, state, torch.from_numpy(tokens[None]).to(gen.device),
+            torch.from_numpy(mask[None]).to(gen.device), rope_cs=gen._rope, tp=gen._tp)
+        _, logits = csm.teacher_forced_eval(gen._params, gen._cfg, state,
+                                            torch.from_numpy(teacher).to(gen.device),
+                                            rope_cs=gen._rope, tp=gen._tp)
+    return logits[:, 0].float().cpu().numpy()
+
+
+def _mesh_rank(rank: int, world: int, tmp: str, case: str) -> None:
+    """One rank of main[mesh] (a process the phase spawns): joins a gloo
+    group of ``world`` at a FileStore in ``tmp``, sharing cuda:0 with the
+    other ranks, builds CSM-1B int8 from seed 0 on the case's mesh, runs the
+    case and writes its results to ``tmp/rank<r>.json``."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, HERE)
+    from sesameai_tts_tpu_torch.ops import attention, kernels, quant
+    from sesameai_tts_tpu_torch.parallel.mesh import make_mesh
+    from sesameai_tts_tpu_torch.runtime.loader import build_generator, csm_1b_spec
+    from sesameai_tts_tpu_torch.runtime.serving import BatchedTTSServer
+
+    if not torch.cuda.is_available():
+        raise RuntimeError(f"main[mesh] rank {rank}: no CUDA device (a rank on the CPU)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(0)
+    torch.zeros(1, device="cuda:0")  # the context exists before the mesh
+    store = dist.FileStore(os.path.join(tmp, "store"), world)
+    # the ranks share one card: NCCL refuses that, so the caller asks for gloo
+    dist.init_process_group("gloo", store=store, rank=rank, world_size=world)
+    wrappers = {name: getattr(attention if name.startswith("flash_attention") else quant, name)
+                for name in kernels.KERNELS}
+    out = {"rank": rank}
+    try:
+        dp, tp = (1, 2) if case == "tp" else (2, 1)
+        t0 = time.perf_counter()
+        gen = build_generator(csm_1b_spec(), device="cuda:0", mesh=make_mesh(dp, tp))
+        torch.cuda.synchronize()
+        out.update(build_s=time.perf_counter() - t0, graphed=gen.graphed,
+                   built_gb=torch.cuda.memory_allocated() / 1e9,
+                   build_peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+                   device=str(gen.device))
+        torch.cuda.reset_peak_memory_stats()
+        if case == "tp":
+            out.update(_mesh_tp_case(torch, np, gen, wrappers))
+        else:
+            srv = BatchedTTSServer(gen, slots=4, chunk_frames=MESH_CHUNK)
+            t0 = time.perf_counter()
+            srv.warmup()  # every rank: its graphs, prefill buckets and codec, before traffic
+            out["warmup_s"] = time.perf_counter() - t0
+            if rank == 0:
+                out.update(_mesh_serve(torch, np, srv))
+            else:
+                t0 = time.perf_counter()
+                srv.start()  # the follower loop, until rank 0 stops the server
+                out["follower_s"] = time.perf_counter() - t0
+        out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        with open(os.path.join(tmp, f"rank{rank}.json"), "w") as f:
+            json.dump(out, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def _mesh_tp_case(torch, np, gen, wrappers) -> dict:
+    """main[mesh] (a) on one rank: the greedy and the sampled request with
+    launches counted, then the teacher-forced logits over the greedy frames."""
+    from sesameai_tts_tpu_torch.ops.quant import routes_to_kernel
+    from sesameai_tts_tpu_torch.runtime.generator import _next_bucket
+
+    buckets = [_next_bucket(gen._tokenize_prompt(text, 0, [])[0].shape[0], gen._prefill_buckets,
+                            room=gen.max_seq_len) for text in (MESH_TEXT, MESH_SAMPLED_TEXT)]
+    _reset_counts(wrappers)
+    t0 = time.perf_counter()
+    greedy = gen.generate_frames(MESH_TEXT, 0, [], max_audio_length_ms=MESH_MS,
+                                 temperature=1.0, topk=1, seed=1)
+    greedy_s = time.perf_counter() - t0
+    sampled = gen.generate_frames(MESH_SAMPLED_TEXT, 0, [], max_audio_length_ms=MESH_SAMPLED_MS,
+                                  temperature=0.8, topk=40, seed=5)
+    torch.cuda.synchronize()
+    launches = _counts(wrappers)
+    m = gen.metrics.summary()
+    decoded = int(m["decoded_frames"]["total"])
+    pcm = gen.decode_audio(greedy)
+    teacher = np.zeros((len(greedy), 1, greedy.shape[1]), np.int64)
+    teacher[:, 0] = greedy
+    t0 = time.perf_counter()
+    logits = _teacher_logits(torch, gen, MESH_TEXT, teacher)
+    return {
+        "greedy": greedy.tolist(), "sampled": sampled.tolist(), "buckets": buckets,
+        # a prefill of at most 64 rows sends the backbone's linears to the kernel
+        "prefills_to_kernel": sum(routes_to_kernel("cuda", b) for b in buckets),
+        "launches": launches, "decoded_frames": decoded, "requests": 2,
+        "ms_per_decoded_frame": m["decode_s"]["total"] / decoded * 1e3,
+        "prefill_ms": m["prefill_s"]["mean"] * 1e3, "greedy_request_s": greedy_s,
+        "pcm_samples": int(pcm.shape[0]), "pcm_finite": bool(np.isfinite(pcm).all()),
+        "pcm_peak": float(np.abs(pcm).max()), "hop": gen._hop,
+        "teacher_forced_s": time.perf_counter() - t0, "logits": logits.tolist(),
+    }
+
+
+def _mesh_sessions(np, srv) -> dict:
+    """MESH_SESSIONS on a started server, greedy, the MESH_CANCEL-th one
+    cancelled at its first audio → {"codes": per session (None: the
+    cancelled one), timing}."""
+    t0 = time.perf_counter()
+    sessions = [srv.submit(text, max_audio_length_ms=ms, temperature=1.0, topk=1)
+                for text, ms in MESH_SESSIONS]
+    first = sessions[MESH_CANCEL].chunks.get(timeout=300)
+    sessions[MESH_CANCEL].cancel()
+    codes = []
+    for i, s in enumerate(sessions):
+        audio = s.audio(timeout=300)
+        _check(np.isfinite(audio).all(), f"main[mesh]: session {i} PCM is not finite")
+        frames = np.concatenate(s.frames_out) if s.frames_out else np.zeros((0, 32), np.int32)
+        if i == MESH_CANCEL:
+            _check(first is not None, "main[mesh]: the cancelled session had no first audio")
+            codes.append(None)
+            continue
+        _check(len(audio) == len(frames) * srv.gen._hop,
+               f"main[mesh]: session {i}: {len(audio)} samples for {len(frames)} frames")
+        codes.append(frames.tolist())
+    wall = time.perf_counter() - t0
+    m = srv.metrics.summary()
+    frames_total = srv.metrics_summary()["frames_total"]
+    return {"codes": codes, "wall_s": wall, "frames_total": frames_total,
+            "frames_per_s": frames_total / wall, "ticks": m["tick_frames"]["count"],
+            "frame_steps": m["tick_frames"]["total"],
+            "ms_per_frame_step": wall / m["tick_frames"]["total"] * 1e3,
+            "ttfa_p50_s": m["ttfa_s"]["p50"], "ttfa_max_s": m["ttfa_s"]["max"]}
+
+
+def _mesh_serve(torch, np, srv) -> dict:
+    """main[mesh] (b) on rank 0: start the pool (graphs captured per rank),
+    serve MESH_SESSIONS, stop (the followers leave their loops)."""
+    t0 = time.perf_counter()
+    srv.start()
+    start_s = time.perf_counter() - t0
+    try:
+        out = _mesh_sessions(np, srv)
+    finally:
+        srv.stop()
+    out.update(start_s=start_s, graphs=len(srv._ticker._graphs),
+               rows=[srv._rows.start, srv._rows.stop])
+    return out
+
+
+def _run_world(torch, world: int, case: str) -> list:
+    """Spawn ``world`` ranks of case ``case`` on the one card and wait for
+    them (MESH_TIMEOUT_S at most; a rank that fails or outlives it fails
+    the phase, and every rank is stopped) → their results by rank."""
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    with tempfile.TemporaryDirectory() as tmp:
+        ctx = mp.start_processes(_mesh_rank, args=(world, tmp, case), nprocs=world, join=False,
+                                 start_method="spawn")
+        deadline = time.monotonic() + MESH_TIMEOUT_S
+        try:
+            while not ctx.join(timeout=5):
+                _check(time.monotonic() < deadline,
+                       f"main[mesh] {case}: the ranks outlived {MESH_TIMEOUT_S} s")
+        finally:
+            for p in ctx.processes:
+                if p.is_alive():
+                    p.kill()
+                p.join()
+        out = []
+        for r in range(world):
+            with open(os.path.join(tmp, f"rank{r}.json")) as f:
+                out.append(json.load(f))
+    return out
+
+
+def phase_mesh(torch, wrappers, card: str) -> dict:
+    """main[mesh]: the port's Generator and BatchedTTSServer on a mesh of two
+    processes sharing the one H100 over gloo (see MESH_*), held against the
+    parent's single-process int8 Generator and a one-process 2-slot pool, on
+    a mesh of one and as the single-card server."""
+    import tempfile
+
+    import numpy as np
+    import torch.distributed as dist
+
+    from sesameai_tts_tpu_torch.parallel.mesh import make_mesh
+    from sesameai_tts_tpu_torch.runtime.generator import Generator
+    from sesameai_tts_tpu_torch.runtime.loader import build_generator, csm_1b_spec
+    from sesameai_tts_tpu_torch.runtime.serving import BatchedTTSServer
+
+    print(f"main[mesh]: two ranks share the one card ({card}) over backend=gloo, "
+          "spawned by this script", flush=True)
+    t0 = time.perf_counter()
+    tp_ranks = _run_world(torch, 2, "tp")
+    tp_s = time.perf_counter() - t0
+    r0, r1 = tp_ranks
+    for key in ("greedy", "sampled"):
+        _check(r0[key] == r1[key], f"main[mesh] (a): the ranks' {key} frames differ")
+    greedy = np.asarray(r0["greedy"], np.int64)
+    _check(len(greedy) > 1, "main[mesh] (a): the greedy request gave no frames")
+    _check(r0["pcm_finite"] and r0["pcm_samples"] == len(greedy) * r0["hop"]
+           and r0["hop"] * 1000 == 80 * 24000,
+           f"main[mesh] (a): PCM {r0['pcm_samples']} samples for {len(greedy)} frames")
+    _check(not r0["graphed"] and not r1["graphed"], "main[mesh] (a): a tp step was graphed")
+    steps = r0["decoded_frames"] + r0["requests"]  # the prefill's frame is a step too
+    # a decoded frame: 64 backbone and 512 decoder linears, 16 + 128 attentions;
+    # a prefill step: the backbone over the prompt (its 64 linears on the
+    # kernel at <= 64 rows), then the prefill frame's decoder
+    want = {"quant_matmul": 576 * steps - 64 * (r0["requests"] - r0["prefills_to_kernel"]),
+            "flash_attention": 144 * steps}
+    for r in tp_ranks:
+        for name, n in want.items():
+            _check(r["launches"][name] == n,
+                   f"main[mesh] (a) rank {r['rank']}: {r['launches'][name]} {name} launches, "
+                   f"want {n}")
+        _check(r["launches"]["quant4_matmul"] == r["launches"]["quant_mlp"] == 0
+               and r["launches"]["flash_attention_bwd"] == 0,
+               f"main[mesh] (a) rank {r['rank']}: other kernels launched {r['launches']}")
+    # the parent's single-process int8 Generator: the teacher-forced logits
+    # over the mesh's greedy frames, and its own greedy codes beside them
+    t0 = time.perf_counter()
+    gen = build_generator(csm_1b_spec(), device="cuda")
+    cfg = gen._cfg
+    teacher = greedy[:, None, :]
+    ref = _teacher_logits(torch, gen, MESH_TEXT, teacher)
+    snrs = [_snr_db(np, np.asarray(r["logits"], np.float32), ref) for r in tp_ranks]
+    single = gen.generate_frames(MESH_TEXT, 0, [], max_audio_length_ms=MESH_MS,
+                                 temperature=1.0, topk=1, seed=1)
+    n = min(len(single), len(greedy))
+    agreement = {"code_match": float((single[:n] == greedy[:n]).mean()),
+                 "frame_match": float((single[:n] == greedy[:n]).all(axis=1).mean()),
+                 "frames": [len(greedy), len(single)]}
+    a = {"seconds": tp_s, "logit_snr_db": snrs, "min_logit_snr_db": MESH_MIN_SNR_DB,
+         "greedy_agreement_with_single": agreement, "frames": len(greedy),
+         **{k: r0[k] for k in ("ms_per_decoded_frame", "prefill_ms", "buckets",
+                               "decoded_frames", "teacher_forced_s", "pcm_peak")},
+         "per_rank": [{k: r[k] for k in ("rank", "build_s", "built_gb", "build_peak_gb",
+                                         "peak_gb", "ms_per_decoded_frame", "launches",
+                                         "device")}
+                      for r in tp_ranks],
+         "expected_launches": want}
+    print("main[mesh] (a) dp 1 tp 2 " + json.dumps(a), flush=True)
+    for snr in snrs:
+        _check(snr >= MESH_MIN_SNR_DB,
+               f"main[mesh] (a): teacher-forced logit SNR {snr:.2f} dB < {MESH_MIN_SNR_DB}")
+    # (b): the ranks' pool, then the one-process pool of 2 slots on a mesh of
+    # one (its prefill is a mesh's: no dense shadow), the per-rank pool
+    t0 = time.perf_counter()
+    dp_ranks = _run_world(torch, 2, "dp")
+    dp_s = time.perf_counter() - t0
+    got = dp_ranks[0]
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("gloo", store=dist.FileStore(os.path.join(tmp, "store"), 1),
+                                rank=0, world_size=1)
+        try:
+            one = Generator(gen._params, cfg, gen._mimi, gen._mimi_params,
+                            gen._tokenizer.text_tokenizer, device="cuda",
+                            mesh=make_mesh(1, 1))
+            ref_srv = BatchedTTSServer(one, slots=2, chunk_frames=MESH_CHUNK)
+            ref_srv.warmup()
+            ref_srv.start()
+            try:
+                ref_out = _mesh_sessions(np, ref_srv)
+            finally:
+                ref_srv.stop()
+        finally:
+            dist.destroy_process_group()
+    # and the single-card server (no mesh, no plan, its pipelined admissions)
+    # on a clone of the parent's Generator that prefills through the int8
+    # trunks, the route a mesh's prefill takes, in place of its dense shadow
+    solo = gen.clone()
+    solo._prefill_params = solo._params
+    card_srv = BatchedTTSServer(solo, slots=2, chunk_frames=MESH_CHUNK)
+    card_srv.warmup()
+    card_srv.start()
+    try:
+        card_out = _mesh_sessions(np, card_srv)
+    finally:
+        card_srv.stop()
+    equal, card_equal = [], []
+    for i, (g, w, c) in enumerate(zip(got["codes"], ref_out["codes"], card_out["codes"])):
+        if i == MESH_CANCEL:
+            continue
+        equal.append(g == w)
+        card_equal.append(g == c)
+    b = {"seconds": dp_s, "graphed": [r["graphed"] for r in dp_ranks],
+         "graphs_rank0": got["graphs"], "rows_rank0": got["rows"],
+         "sessions_equal_to_one_process_pool": equal,
+         "sessions_equal_to_single_card_server": card_equal,
+         "frames": [None if c is None else len(c) for c in got["codes"]],
+         **{k: got[k] for k in ("ticks", "frame_steps", "ms_per_frame_step", "frames_per_s",
+                                "ttfa_p50_s", "ttfa_max_s", "wall_s", "start_s")},
+         "one_process_pool": {k: ref_out[k] for k in ("ticks", "ms_per_frame_step",
+                                                      "frames_per_s", "ttfa_p50_s")},
+         "single_card_server": {k: card_out[k] for k in ("ticks", "ms_per_frame_step",
+                                                         "frames_per_s", "ttfa_p50_s")},
+         "per_rank": [{k: r.get(k) for k in ("rank", "build_s", "built_gb", "build_peak_gb",
+                                             "peak_gb", "warmup_s", "follower_s")}
+                      for r in dp_ranks]}
+    print("main[mesh] (b) dp 2 tp 1 " + json.dumps(b), flush=True)
+    _check(all(r["graphed"] for r in dp_ranks), "main[mesh] (b): a tp = 1 rank is not graphed")
+    _check(all(equal), f"main[mesh] (b): session codes differ from the one-process pool: "
+                       f"{equal}")
+    _check(all(card_equal), f"main[mesh] (b): session codes differ from the single-card "
+                            f"server's: {card_equal}")
+    del gen, one, ref_srv, solo, card_srv
+    return {"tp": a, "dp": b, "launches": {**{name: 0 for name in wrappers},
+                                           **r0["launches"]}}
+
+
 def _collect(torch) -> None:
     """Free the device memory of generators the caller has dropped: a
     Generator holds a reference cycle (its tokenizer's audio encoder)."""
@@ -3122,6 +3537,7 @@ def main() -> int:
         rows["flash_attention_bwd"] = timed(
             "flash_attention_bwd", phase_flash_attention_bwd, torch, attention, peak_bw,
             peak_flops, next(f for key, f in _F32_FLOPS if key in name))
+        shards = timed("tp2 shards", phase_shards, torch, quant, attention, peak_bw, peak_flops)
         paths = {}
         for path, fields, per_frame, voice in _PATHS:
             paths[path], gen = timed(f"main[{path}]", phase_main_path, torch, wrappers, path,
@@ -3136,7 +3552,10 @@ def main() -> int:
         rehearsal = timed("main[smoke]", phase_smoke, torch, wrappers, card)
         _collect(torch)
         training = timed("main[train]", phase_train, torch, wrappers, card)
+        _collect(torch)
+        mesh = timed("main[mesh]", phase_mesh, torch, wrappers, card)
         launches = {path: r["launches"] for path, r in paths.items()}
+        launches["mesh"] = mesh["launches"]
         launches["train"] = training["full"]["launches"]
         launches["cli"] = cli["launches"]
         launches["serve"] = serving["traffic"]["launches"]
@@ -3166,6 +3585,15 @@ def main() -> int:
         _flash_entry(rows["flash_attention"], launches, csm_1b(), peak_bw),
         _bwd_entry(rows["flash_attention_bwd"], launches, csm_1b()),
     ]
+    for entry in entries:  # one rank's shard shapes on a tp = 2 mesh (main[mesh] (a))
+        if entry["name"] in shards:
+            entry["tp2"] = {
+                **shards["per_frame"][entry["name"]],
+                "launches": launches["mesh"][entry["name"]],
+                "timed_as": "device time summed over one decoded frame's launches on one rank",
+                "shapes": [{k: r[k] for k in ("shape", "S", "kernel_ms", "plain_ms",
+                                              "library_ms", "bound_ms", "max_abs_err") if k in r}
+                           for r in shards[entry["name"]]]}
     decode_ms = {r["pos0"][0]: r["kernel_ms"] for r in rows["flash_attention"]
                  if r["S"] == 1 and r["B"] == 1 and r["hd"] == 64}
     print("kernel flash_attention per decoded frame " + json.dumps(

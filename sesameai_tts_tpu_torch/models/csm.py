@@ -10,6 +10,15 @@ and is what the Generator captures as CUDA graphs; ``decode_frames`` and
 index) only (``frame_seed``), so every chunk schedule gives the same
 frames: the c0 draw first, then one ``(K-1, B, V)`` Gumbel draw for the
 codebook decoder.
+
+Every function that runs a trunk or an embedding takes ``tp``, a
+tensor-parallel group (``parallel/``): the params are then this rank's
+shards and the state holds this rank's kv heads (``init_state``'s
+``num_kv_heads``, ``init_decode_buffers``).  An embedding table is split
+by vocabulary rows: each rank looks up the rows it holds, zeros elsewhere,
+and one ``all_reduce`` sums the lookups before the frame's masked sum, so
+each value has one nonzero contributor and the embedding is bit-equal to
+the unsharded one.  The heads and the projection are replicated.
 """
 
 from __future__ import annotations
@@ -18,6 +27,7 @@ from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from sesameai_tts_tpu_torch.core.config import CSMConfig
 from sesameai_tts_tpu_torch.models.transformer import (
@@ -28,6 +38,7 @@ from sesameai_tts_tpu_torch.models.transformer import (
     transformer_forward,
 )
 from sesameai_tts_tpu_torch.ops.sampling import gumbel_noise, sample_topk
+from sesameai_tts_tpu_torch.parallel.mesh import local_heads, tp_rank, tp_size, trunk_group
 
 
 def init_csm_params(cfg: CSMConfig, generator: torch.Generator, dtype=None) -> dict:
@@ -64,10 +75,13 @@ class CSMState(NamedTuple):
     pos: torch.Tensor
 
 
-def init_state(cfg: CSMConfig, batch_size: int, dtype=None, device="cpu") -> CSMState:
+def init_state(cfg: CSMConfig, batch_size: int, dtype=None, device="cpu",
+               num_kv_heads: Optional[int] = None) -> CSMState:
+    """Zeros; ``num_kv_heads`` is a tensor-parallel rank's local count."""
     bb = cfg.backbone
     return CSMState(
-        cache=init_kv_cache(bb, batch_size, dtype or bb.dtype, device=device),
+        cache=init_kv_cache(bb, batch_size, dtype or bb.dtype, device=device,
+                            num_kv_heads=num_kv_heads),
         pos=torch.zeros(batch_size, dtype=torch.int64, device=device),
     )
 
@@ -95,16 +109,48 @@ def frame_generator(seed: int, index: int, device) -> torch.Generator:
     return torch.Generator(device=device).manual_seed(frame_seed(seed, index))
 
 
+def _local_lookup(table: torch.Tensor, ids: torch.Tensor, vocab: int,
+                  tp: Optional[dist.ProcessGroup]) -> torch.Tensor:
+    """``table[ids]`` of a table split by rows over ``tp`` (rows ``[r·c,
+    r·c + len)`` with ``c = ceil(vocab / n)`` on rank r): the rows this rank
+    holds, zeros elsewhere; the caller sums over ``tp``."""
+    off = tp_rank(tp) * -(-vocab // tp_size(tp))
+    local = ids - off
+    hit = (local >= 0) & (local < table.shape[0])
+    return table[local.clamp(0, table.shape[0] - 1)] * hit[..., None]
+
+
+def _lookup(table: torch.Tensor, ids: torch.Tensor, vocab: int,
+            tp: Optional[dist.ProcessGroup]) -> torch.Tensor:
+    """``table[ids]`` of a table of ``vocab`` rows, split over ``tp`` when given."""
+    if tp is None:
+        return table[ids]
+    rows = _local_lookup(table, ids, vocab, tp)
+    dist.all_reduce(rows, group=tp)
+    return rows
+
+
 def embed_frames(params: dict, cfg: CSMConfig, tokens: torch.Tensor,
-                 tokens_mask: torch.Tensor) -> torch.Tensor:
+                 tokens_mask: torch.Tensor,
+                 tp: Optional[dist.ProcessGroup] = None) -> torch.Tensor:
     """(B, S, K+1) tokens + bool mask → (B, S, D) masked-sum embedding.
     Columns 0..K-1 are the audio codebooks (flat table indexed ``token +
-    codebook*vocab``), column K is the text token."""
+    codebook*vocab``), column K is the text token.  With ``tp`` the tables
+    are vocab shards; the lookups are summed over ``tp`` (one all_reduce)
+    before the masked sum."""
     K = cfg.audio_num_codebooks
     audio_tok = tokens[..., :K] + torch.arange(K, device=tokens.device) * cfg.audio_vocab_size
-    audio_emb = params["audio_embeddings"][audio_tok]  # (B, S, K, D)
-    text_emb = params["text_embeddings"][tokens[..., K]][..., None, :]  # (B, S, 1, D)
-    embeds = torch.cat([audio_emb, text_emb], dim=-2)
+    if tp is None:
+        audio_emb = params["audio_embeddings"][audio_tok]  # (B, S, K, D)
+        text_emb = params["text_embeddings"][tokens[..., K]][..., None, :]  # (B, S, 1, D)
+        embeds = torch.cat([audio_emb, text_emb], dim=-2)
+    else:
+        embeds = torch.cat([
+            _local_lookup(params["audio_embeddings"], audio_tok,
+                          cfg.audio_vocab_size * K, tp),
+            _local_lookup(params["text_embeddings"], tokens[..., K:],
+                          cfg.text_vocab_size, tp)], dim=-2)
+        dist.all_reduce(embeds, group=tp)
     return (embeds * tokens_mask[..., None]).sum(dim=-2)
 
 
@@ -134,11 +180,13 @@ class DecodeBuffers(NamedTuple):
 
 
 def init_decode_buffers(params: dict, cfg: CSMConfig, batch_size: int,
-                        device="cpu") -> DecodeBuffers:
+                        device="cpu", tp: Optional[dist.ProcessGroup] = None) -> DecodeBuffers:
     """Buffers for batch ``batch_size`` in the params' dtype; the sampling
-    parameters start at temperature 1, topk 1."""
+    parameters start at temperature 1, topk 1.  With ``tp`` the decoder's
+    cache holds this rank's kv heads."""
     dec, K = cfg.decoder, cfg.audio_num_codebooks
     dtype = params["projection"].dtype
+    _, kv = local_heads(dec, trunk_group(params["decoder"], tp))
     return DecodeBuffers(
         frame=torch.zeros((batch_size, K), dtype=torch.int64, device=device),
         done=torch.zeros(batch_size, dtype=torch.bool, device=device),
@@ -146,7 +194,8 @@ def init_decode_buffers(params: dict, cfg: CSMConfig, batch_size: int,
         last_h=torch.zeros((batch_size, cfg.backbone.embed_dim), dtype=dtype, device=device),
         temperature=torch.ones(batch_size, dtype=torch.float32, device=device),
         topk=torch.ones(batch_size, dtype=torch.int64, device=device),
-        dec_cache=init_kv_cache(dec, batch_size, dtype, max_seq_len=K, device=device),
+        dec_cache=init_kv_cache(dec, batch_size, dtype, max_seq_len=K, device=device,
+                                num_kv_heads=kv),
         dec_rope=precompute_rope(dec, max_len=K, device=device),
     )
 
@@ -176,6 +225,7 @@ def _decode_codebooks(
     temperature,
     topk,
     fused_mlp: bool = False,
+    tp: Optional[dist.ProcessGroup] = None,
 ) -> torch.Tensor:
     """Run the decoder AR over codebooks 1..K-1 from ``bufs.last_h`` →
     (B, K-1) samples, positions 0..K-1 of ``bufs.dec_cache``."""
@@ -188,7 +238,7 @@ def _decode_codebooks(
     def dec_step(x, pos):
         pos0 = torch.full((B,), pos, dtype=torch.int64, device=dev)
         h, _ = transformer_forward(params["decoder"], dec, x, pos0, bufs.dec_cache,
-                                   bufs.dec_rope, fused_mlp=fused_mlp)
+                                   bufs.dec_rope, fused_mlp=fused_mlp, tp=tp)
         return h[:, 0, :]
 
     # position 0: the projected backbone hidden; its output is unused
@@ -199,7 +249,8 @@ def _decode_codebooks(
     prev_c = c0
     cs = []
     for i in range(K - 1):
-        emb = params["audio_embeddings"][prev_c + i * cfg.audio_vocab_size]
+        emb = _lookup(params["audio_embeddings"], prev_c + i * cfg.audio_vocab_size,
+                      cfg.audio_vocab_size * K, tp)
         h = dec_step((emb[:, None, :] @ params["projection"]).to(dtype), i + 1)
         logits = _head_logits(h, params["audio_head"][i])
         prev_c = sample_topk(None, logits, topk, temperature,
@@ -210,7 +261,7 @@ def _decode_codebooks(
 
 def sample_step(params: dict, cfg: CSMConfig, bufs: DecodeBuffers,
                 generator: Optional[torch.Generator], greedy: bool,
-                fused_mlp: bool = False) -> None:
+                fused_mlp: bool = False, tp: Optional[dist.ProcessGroup] = None) -> None:
     """Sample a frame from ``bufs.last_h`` (c0 from the backbone's head, then
     codebooks 1..K-1 through the decoder) and apply the all-zero-frame EOS
     rule in place: ``bufs.valid`` = not (done or EOS), ``bufs.done`` |= EOS,
@@ -220,7 +271,7 @@ def sample_step(params: dict, cfg: CSMConfig, bufs: DecodeBuffers,
     temperature, topk = (1.0, 1) if greedy else (bufs.temperature, bufs.topk)
     c0 = sample_topk(generator, _head_logits(bufs.last_h, params["codebook0_head"]),
                      topk, temperature)
-    cs = _decode_codebooks(params, cfg, bufs, c0, generator, temperature, topk, fused_mlp)
+    cs = _decode_codebooks(params, cfg, bufs, c0, generator, temperature, topk, fused_mlp, tp)
     frame = torch.cat([c0[:, None], cs], dim=1)
     is_eos = (frame == 0).all(dim=-1)
     torch.logical_not(bufs.done | is_eos, out=bufs.valid)
@@ -230,7 +281,8 @@ def sample_step(params: dict, cfg: CSMConfig, bufs: DecodeBuffers,
 
 
 def backbone_step(params: dict, cfg: CSMConfig, state: CSMState, bufs: DecodeBuffers,
-                  rope_cs: torch.Tensor, fused_mlp: bool = False) -> None:
+                  rope_cs: torch.Tensor, fused_mlp: bool = False,
+                  tp: Optional[dist.ProcessGroup] = None) -> None:
     """Feed ``bufs.frame`` back through the backbone at ``state.pos`` →
     ``bufs.last_h``; the KV cache is written and ``state.pos`` advances by
     one, both in place.
@@ -246,34 +298,35 @@ def backbone_step(params: dict, cfg: CSMConfig, state: CSMState, bufs: DecodeBuf
     tokens = torch.cat([bufs.frame[:, None, :], text], dim=-1)
     last_h, _ = backbone_last_hidden(params, cfg, state, tokens,
                                      _feedback_mask(B, K, tokens.device), rope_cs=rope_cs,
-                                     fused_mlp=fused_mlp)
+                                     fused_mlp=fused_mlp, tp=tp)
     bufs.last_h.copy_(last_h)
     state.pos.add_(1).clamp_(max=state.cache.k[0].shape[2] - 1)
 
 
 def decode_step(params: dict, cfg: CSMConfig, state: CSMState, bufs: DecodeBuffers,
                 generator: Optional[torch.Generator], greedy: bool, rope_cs: torch.Tensor,
-                fused_mlp: bool = False) -> None:
+                fused_mlp: bool = False, tp: Optional[dist.ProcessGroup] = None) -> None:
     """One decoded frame on static buffers (the body of the JAX package's
     ``decode_frames`` scan): ``backbone_step`` then ``sample_step``.  It
     allocates nothing that outlives it, copies nothing from the host and
     reads the sampling parameters from ``bufs``, so a CUDA graph can
     capture it."""
-    backbone_step(params, cfg, state, bufs, rope_cs, fused_mlp)
-    sample_step(params, cfg, bufs, generator, greedy, fused_mlp)
+    backbone_step(params, cfg, state, bufs, rope_cs, fused_mlp, tp)
+    sample_step(params, cfg, bufs, generator, greedy, fused_mlp, tp)
 
 
 def extend_state(params: dict, cfg: CSMConfig, state: CSMState, tokens: torch.Tensor,
                  tokens_mask: torch.Tensor, valid_len: Optional[torch.Tensor] = None,
-                 rope_cs: Optional[torch.Tensor] = None) -> CSMState:
+                 rope_cs: Optional[torch.Tensor] = None,
+                 tp: Optional[dist.ProcessGroup] = None) -> CSMState:
     """Run the backbone over rows without sampling (a voice-context prefix)."""
     bb = cfg.backbone
     S = tokens.shape[1]
     if rope_cs is None:
         rope_cs = precompute_rope(bb, device=tokens.device)
-    x = embed_frames(params, cfg, tokens, tokens_mask).to(params["projection"].dtype)
+    x = embed_frames(params, cfg, tokens, tokens_mask, tp).to(params["projection"].dtype)
     _, cache = transformer_forward(params["backbone"], bb, x, state.pos, state.cache,
-                                   rope_cs, valid_len=valid_len)
+                                   rope_cs, valid_len=valid_len, tp=tp)
     return CSMState(cache=cache, pos=state.pos + (valid_len if valid_len is not None else S))
 
 
@@ -286,6 +339,7 @@ def backbone_last_hidden(
     valid_len: Optional[torch.Tensor] = None,  # (B,) for right-padded prefill
     rope_cs: Optional[torch.Tensor] = None,
     fused_mlp: bool = False,
+    tp: Optional[dist.ProcessGroup] = None,
 ) -> Tuple[torch.Tensor, CSMState]:
     """The backbone over a window of rows → ((B, D) hidden state of each
     row's last valid row, new state); the cache is written in place."""
@@ -293,9 +347,9 @@ def backbone_last_hidden(
     B, S, _ = tokens.shape
     if rope_cs is None:
         rope_cs = precompute_rope(bb, device=tokens.device)
-    x = embed_frames(params, cfg, tokens, tokens_mask).to(params["projection"].dtype)
+    x = embed_frames(params, cfg, tokens, tokens_mask, tp).to(params["projection"].dtype)
     h, cache = transformer_forward(params["backbone"], bb, x, state.pos, state.cache,
-                                   rope_cs, valid_len=valid_len, fused_mlp=fused_mlp)
+                                   rope_cs, valid_len=valid_len, fused_mlp=fused_mlp, tp=tp)
     if valid_len is None:
         return h[:, -1, :], CSMState(cache=cache, pos=state.pos + S)
     # clamp: a valid_len=0 row (an idle slot of a batched prefill) would
@@ -317,16 +371,17 @@ def generate_frame(
     valid_len: Optional[torch.Tensor] = None,  # (B,) for right-padded prefill
     rope_cs: Optional[torch.Tensor] = None,
     fused_mlp: bool = False,
+    tp: Optional[dist.ProcessGroup] = None,
 ) -> Tuple[torch.Tensor, CSMState]:
     """One frame of K codes from a window of input rows (prefill: S prompt
     rows; decode: S=1 feedback row) → ((B, K) frame, new state).
     ``fused_mlp`` sends the int8 MLPs to the fused ``quant_mlp`` kernel."""
     last_h, state = backbone_last_hidden(params, cfg, state, tokens, tokens_mask, valid_len,
-                                         rope_cs, fused_mlp)
-    bufs = init_decode_buffers(params, cfg, tokens.shape[0], tokens.device)
+                                         rope_cs, fused_mlp, tp)
+    bufs = init_decode_buffers(params, cfg, tokens.shape[0], tokens.device, tp)
     set_sampling(bufs, temperature, topk)
     bufs.last_h.copy_(last_h)
-    sample_step(params, cfg, bufs, generator, is_greedy(topk), fused_mlp)
+    sample_step(params, cfg, bufs, generator, is_greedy(topk), fused_mlp, tp)
     return bufs.frame, state
 
 
@@ -350,6 +405,7 @@ def decode_frames(
     rope_cs: Optional[torch.Tensor] = None,
     start_index: int = 0,
     fused_mlp: bool = False,
+    tp: Optional[dist.ProcessGroup] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, CSMState]:
     """Generate ``num_frames`` more frames on the device, eagerly, one
     ``decode_step`` each, the all-zero-frame EOS rule applied as masking.
@@ -361,7 +417,7 @@ def decode_frames(
     dev = prev_frame.device
     if rope_cs is None:
         rope_cs = precompute_rope(cfg.backbone, device=dev)
-    bufs = init_decode_buffers(params, cfg, B, dev)
+    bufs = init_decode_buffers(params, cfg, B, dev, tp)
     set_sampling(bufs, temperature, topk)
     bufs.frame.copy_(prev_frame)
     bufs.done.copy_(prev_done)
@@ -371,7 +427,7 @@ def decode_frames(
     frames, valids = [], []
     for i in range(num_frames):
         generator.manual_seed(frame_seed(seed, start_index + i))
-        decode_step(params, cfg, state, bufs, generator, greedy, rope_cs, fused_mlp)
+        decode_step(params, cfg, state, bufs, generator, greedy, rope_cs, fused_mlp, tp)
         frames.append(bufs.frame.clone())
         valids.append(bufs.valid.clone())
     return torch.stack(frames), torch.stack(valids), bufs.done.clone(), state
@@ -384,6 +440,7 @@ def teacher_forced_eval(
     teacher: torch.Tensor,  # (T, B, K) fixed feedback trajectory
     rope_cs: Optional[torch.Tensor] = None,
     fused_mlp: bool = False,
+    tp: Optional[dist.ProcessGroup] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Greedy decode with the feedback forced to ``teacher`` → ((T, B, K)
     greedy frames, (T, B, V) f32 codebook-0 logits)."""
@@ -394,16 +451,16 @@ def teacher_forced_eval(
         rope_cs = precompute_rope(cfg.backbone, device=dev)
     mask_row = _feedback_mask(B, K, dev)
     zero_text = torch.zeros((B, 1, 1), dtype=teacher.dtype, device=dev)
-    bufs = init_decode_buffers(params, cfg, B, dev)
+    bufs = init_decode_buffers(params, cfg, B, dev, tp)
     frames, logits_all = [], []
     for fin in teacher:
         tokens = torch.cat([fin[:, None, :], zero_text], dim=-1)
         last_h, state = backbone_last_hidden(params, cfg, state, tokens, mask_row,
-                                             rope_cs=rope_cs, fused_mlp=fused_mlp)
+                                             rope_cs=rope_cs, fused_mlp=fused_mlp, tp=tp)
         bufs.last_h.copy_(last_h)
         c0_logits = _head_logits(last_h, params["codebook0_head"])
         c0 = c0_logits.argmax(dim=-1)
-        cs = _decode_codebooks(params, cfg, bufs, c0, None, 1.0, 1, fused_mlp)
+        cs = _decode_codebooks(params, cfg, bufs, c0, None, 1.0, 1, fused_mlp, tp)
         frames.append(torch.cat([c0[:, None], cs], dim=1))
         logits_all.append(c0_logits)
     return torch.stack(frames), torch.stack(logits_all)

@@ -14,6 +14,13 @@ buffers, written IN PLACE by ``transformer_forward``.  Without a cache
 (``cache=None``, training) each layer attends over its window's own keys
 and values, and ``remat=True`` recomputes each layer's activations in the
 backward pass.
+
+With a tensor-parallel group (``tp=``, ``parallel/``) each rank holds its
+shards of the layer's weights (``parallel/mesh.py`` gives the layout): its
+q heads and the kv heads they read, its slice of the MLP, and the matching
+rows of ``o_proj`` and ``w2``.  The layer then runs on the local heads and
+sums the attention output's and the MLP's partial products with one
+``all_reduce`` each.  Without a group the ops are the single-card ones.
 """
 
 from __future__ import annotations
@@ -22,11 +29,13 @@ import math
 from typing import List, NamedTuple, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 import torch.utils.checkpoint
 
 from sesameai_tts_tpu_torch.core.config import RoPEConfig, TransformerConfig
 from sesameai_tts_tpu_torch.ops.attention import flash_attention
 from sesameai_tts_tpu_torch.ops.quant import qdot, qmlp
+from sesameai_tts_tpu_torch.parallel.mesh import local_heads, trunk_group
 
 
 def _scaled_rope_freqs(cfg: RoPEConfig, head_dim: int) -> torch.Tensor:
@@ -81,9 +90,12 @@ class KVCache(NamedTuple):
 
 
 def init_kv_cache(cfg: TransformerConfig, batch_size: int, dtype=None,
-                  max_seq_len: Optional[int] = None, device="cpu") -> KVCache:
+                  max_seq_len: Optional[int] = None, device="cpu",
+                  num_kv_heads: Optional[int] = None) -> KVCache:
+    """Zeros; ``num_kv_heads`` is a tensor-parallel rank's local count."""
     dtype = dtype or cfg.dtype
-    shape = (batch_size, cfg.num_kv_heads, max_seq_len or cfg.max_seq_len, cfg.head_dim)
+    shape = (batch_size, num_kv_heads or cfg.num_kv_heads, max_seq_len or cfg.max_seq_len,
+             cfg.head_dim)
     return KVCache(
         k=[torch.zeros(shape, dtype=dtype, device=device) for _ in range(cfg.num_layers)],
         v=[torch.zeros(shape, dtype=dtype, device=device) for _ in range(cfg.num_layers)],
@@ -115,6 +127,7 @@ def transformer_forward(
     valid_len: Optional[torch.Tensor] = None,  # (B,) real rows (right-padded prefill)
     fused_mlp: bool = False,  # int8 MLPs through the fused quant_mlp kernel
     remat: bool = False,  # cache-free only: recompute each layer in the backward pass
+    tp: Optional[dist.ProcessGroup] = None,  # tensor-parallel group of sharded params
 ) -> Tuple[torch.Tensor, Optional[KVCache]]:
     """Run the trunk over the window [pos0, pos0+S) of every row: prefill,
     S=1 decode, or a right-padded batch with ``valid_len``.
@@ -123,11 +136,15 @@ def transformer_forward(
     and the mask is the JAX package's ``tril & (key < valid_len)`` over the
     window (attention at ``pos0 = 0``, RoPE at the real positions); the
     result is ``(h, None)``.  ``remat`` wraps each layer in a non-reentrant
-    ``torch.utils.checkpoint``, as ``jax.checkpoint`` per layer."""
+    ``torch.utils.checkpoint``, as ``jax.checkpoint`` per layer.  With
+    ``tp`` the params and cache are this rank's shards (module docstring); a
+    replicated (int4) trunk runs whole on every rank."""
     B, S, D = x.shape
     positions = pos0[:, None] + torch.arange(S, device=x.device)[None, :]  # (B, S)
     rope_win = rope_cs[positions]  # (B, S, hd/2, 2)
-    H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    tp = trunk_group(params, tp)
+    H, KV = local_heads(cfg, tp)
+    hd = cfg.head_dim
     if cache is None:
         attn_pos0 = torch.zeros_like(pos0)
         valid_end = valid_len if valid_len is not None else torch.full_like(pos0, S)
@@ -152,9 +169,15 @@ def transformer_forward(
             _update_cache(lk, k, positions)
             _update_cache(lv, v, positions)
         attn = flash_attention(q, lk, lv, attn_pos0, valid_end)
-        h = h + qdot(attn.transpose(1, 2).reshape(B, S, H * hd), wl["o_proj"])
+        out = qdot(attn.transpose(1, 2).reshape(B, S, H * hd), wl["o_proj"])
+        if tp is not None:
+            dist.all_reduce(out, group=tp)
+        h = h + out
         hn = rms_norm(h, wl["mlp_norm"], cfg.norm_eps)
-        return h + qmlp(hn, wl["w13"], wl["w2"], fused=fused_mlp)
+        out = qmlp(hn, wl["w13"], wl["w2"], fused=fused_mlp)
+        if tp is not None:
+            dist.all_reduce(out, group=tp)
+        return h + out
 
     h = x
     if cache is None:

@@ -23,6 +23,16 @@ the server owns, ``_first_chunk``) and its pool on another
 (``_serve_tick`` on the static state at B = slots), each on the clone's
 own stream (``own_stream``).
 
+On a mesh (``mesh=``, ``parallel/``) every rank builds the same Generator
+and calls it the same way: the CSM params are this rank's tensor-parallel
+shards (there is no dense prefill shadow: the prefill multiplies by the
+dequantized shards, ``qdot``'s route for more than 64 rows), Mimi is
+replicated, a batch of B rows splits over 'dp' when dp divides B, and
+every rank returns the same frames and PCM.  With tp = 1 each rank keeps
+its CUDA graphs; with tp > 1 the step runs eagerly (``graphed`` is
+False): its all_reduces go through the process group between the
+kernels.
+
 ``seed`` makes an utterance reproducible and independent of the chunk
 schedule: frame i (the prefill frame is 0) draws its noise from the
 Generator's one ``torch.Generator`` reseeded with ``frame_seed(seed, i)``
@@ -109,16 +119,36 @@ class Generator:
         seed: int = 0,
         device="cuda",
         fused_mlp: bool = False,
+        mesh=None,
     ):
         self.device = resolve_device(device)
+        # multi-card inference: the CSM params' tp shards moved to this rank's
+        # card, the codec replicated, states dp-split (parallel/infer.py);
+        # without a mesh the single-card paths are untouched
+        self.mesh = mesh
+        self._tp = None
+        if mesh is not None:
+            from sesameai_tts_tpu_torch.parallel.infer import (
+                shard_csm_params,
+                shard_replicated,
+                tp_group,
+            )
+
+            csm_params = shard_csm_params(csm_params, mesh, csm_cfg, self.device)
+            mimi_params = shard_replicated(mimi_params, mesh, self.device)
+            self._tp = tp_group(mesh)
+        # a tp step issues collectives between its kernels: it runs eagerly
+        self.graphed = self.device.type == "cuda" and self._tp is None
         self._params = csm_params
         # the decode sends int8 MLPs to the fused quant_mlp kernel
         self._fused_mlp = fused_mlp
         # quantized trunks: a persistent dense shadow serves prefill (and
         # the voice-context extend), which is compute-bound; the decode
-        # streams the int8 or int4 weights through their kernels
+        # streams the int8 or int4 weights through their kernels.  On a mesh
+        # there is none, as in the JAX package
         trunk_layers = csm_params["backbone"]["layers"] + csm_params["decoder"]["layers"]
-        if any(is_quantized(w) or is_quantized4(w) for wl in trunk_layers for w in wl.values()):
+        if mesh is None and any(is_quantized(w) or is_quantized4(w)
+                                for wl in trunk_layers for w in wl.values()):
             # the shadow is bf16, as the JAX package's; a model of another
             # dtype multiplies by its exact upcast, as JAX's type promotion does
             dtype = csm_params["projection"].dtype
@@ -189,9 +219,25 @@ class Generator:
         with self._seed_lock:
             return int(self._seed_rng.integers(2**63))
 
+    def _rows(self, batch_size: int) -> range:
+        """The rows of a batch of ``batch_size`` that this rank decodes: all of
+        them, or its 'dp' share on a mesh (``parallel/infer.py::state_sharding``)."""
+        if self.mesh is None:
+            return range(batch_size)
+        from sesameai_tts_tpu_torch.parallel.infer import state_sharding
+
+        return state_sharding(self.mesh, self._cfg, batch_size, self._params).rows
+
     def _init_state(self, batch_size: int) -> csm_model.CSMState:
+        """Fresh backbone state: on a mesh this rank's rows and kv heads."""
+        kv = None
+        if self.mesh is not None:
+            from sesameai_tts_tpu_torch.parallel.infer import state_sharding
+
+            sh = state_sharding(self.mesh, self._cfg, batch_size, self._params)
+            batch_size, kv = len(sh.rows), len(sh.kv_heads)
         return csm_model.init_state(self._cfg, batch_size, self._params["projection"].dtype,
-                                    device=self.device)
+                                    device=self.device, num_kv_heads=kv)
 
     def _padded(self, tokens: np.ndarray, mask: np.ndarray, bucket: int):
         K = self._cfg.audio_num_codebooks
@@ -256,7 +302,7 @@ class Generator:
         bucket = _next_bucket(S, self._prefill_buckets, room=self._max_seq_len)
         tok, msk, valid = self._padded(tokens, mask, bucket)
         state = csm_model.extend_state(self._prefill_params, self._cfg, self._init_state(1),
-                                       tok, msk, valid, rope_cs=self._rope)
+                                       tok, msk, valid, rope_cs=self._rope, tp=self._tp)
         if self.device.type == "cuda":
             # the handle may be read on another stream (a serving admission)
             torch.cuda.current_stream(self.device).synchronize()
@@ -267,9 +313,9 @@ class Generator:
     def _slot(self, batch_size: int) -> _DecodeSlot:
         slot = self._slots.get(batch_size)
         if slot is None:
-            slot = _DecodeSlot(self._init_state(batch_size),
-                               csm_model.init_decode_buffers(self._params, self._cfg,
-                                                             batch_size, self.device))
+            state = self._init_state(batch_size)
+            slot = _DecodeSlot(state, csm_model.init_decode_buffers(
+                self._params, self._cfg, state.pos.shape[0], self.device, self._tp))
             self._slots[batch_size] = slot
         return slot
 
@@ -290,14 +336,14 @@ class Generator:
         state, bufs = self._slot(batch_size)
         if part == "backbone":
             return lambda: csm_model.backbone_step(self._params, self._cfg, state, bufs,
-                                                   self._rope, self._fused_mlp)
+                                                   self._rope, self._fused_mlp, self._tp)
         if part == "sample":
             return lambda: csm_model.sample_step(self._params, self._cfg, bufs, self._rng,
-                                                 greedy, self._fused_mlp)
+                                                 greedy, self._fused_mlp, self._tp)
         # the prefill's frame samples through the prefill weights, as the
         # JAX package's prefill program does
         return lambda: csm_model.sample_step(self._prefill_params, self._cfg, bufs, self._rng,
-                                             greedy)
+                                             greedy, tp=self._tp)
 
     @staticmethod
     def _key(batch_size: int, part: str, greedy: bool) -> tuple:
@@ -305,8 +351,8 @@ class Generator:
 
     def _run(self, batch_size: int, part: str, greedy: bool) -> None:
         """One part of a frame: its graph's replay on the card, the eager
-        call on the CPU."""
-        if self.device.type == "cpu":
+        call on the CPU and on a tp mesh."""
+        if not self.graphed:
             self._step(batch_size, part, greedy)()
         else:
             self._graphs[self._key(batch_size, part, greedy)].replay()
@@ -315,11 +361,12 @@ class Generator:
         """Capture the graphs of ``parts`` at (batch size, greedy) that do
         not exist yet → {name: seconds}.  The capture's warm-up call writes
         the static state, so only a caller that holds it and loads it
-        afterwards may capture.  On the CPU it makes the state only."""
+        afterwards may capture.  On the CPU and on a tp mesh it makes the
+        state only."""
         self._slot(batch_size)
-        stream = self.own_stream()
-        if stream is None:
+        if not self.graphed:
             return {}
+        stream = self.own_stream()
         times = {}
         for part in parts:
             key = self._key(batch_size, part, greedy)
@@ -363,27 +410,38 @@ class Generator:
         if cached is not None:
             cached_state, ctx_len = cached
             tokens, mask = self._tokenizer.text_segment(text, speaker)
-            total = ctx_len + tokens.shape[0]
         else:
             tokens, mask = self._tokenize_prompt(text, speaker, context)
-            cached_state = None
-            total = tokens.shape[0]
-        # only a truly over-long prompt raises; an oversized budget is
-        # clamped to the room left
+            cached_state, ctx_len = None, 0
+        return self._prefill_rows(state, tokens, mask, cached_state, ctx_len, max_gen,
+                                  temperature, topk, seed)
+
+    def _room(self, total: int, max_gen: int) -> int:
+        """The frame budget of a prompt of ``total`` rows: ``max_gen`` clamped
+        to the room the KV cache has left.  Only a truly over-long prompt
+        raises (ValueError)."""
         room = self._max_seq_len - total
         if room <= 8:
             raise ValueError(
                 "Inputs too long, must be below max_seq_len - max_generation_len: "
                 f"{self._max_seq_len - max_gen}"
             )
-        max_gen = min(max_gen, room)
+        return min(max_gen, room)
+
+    def _prefill_rows(self, state, tokens, mask, cached_state, ctx_len, max_gen, temperature,
+                      topk, seed):
+        """``_prefill_into`` from tokenized prompt rows (S, K+1) after
+        ``ctx_len`` rows of ``cached_state`` (None: none)."""
+        total = ctx_len + tokens.shape[0]
+        max_gen = self._room(total, max_gen)
         S = tokens.shape[0]
         bucket = _next_bucket(S, self._prefill_buckets, room=self._max_seq_len - (total - S))
         _, bufs = self._slot(1)
         csm_model.load_state(state, cached_state)  # the cached context stays unchanged
         tok, msk, valid = self._padded(tokens, mask, bucket)
         last_h, prefilled = csm_model.backbone_last_hidden(
-            self._prefill_params, self._cfg, state, tok, msk, valid, rope_cs=self._rope)
+            self._prefill_params, self._cfg, state, tok, msk, valid, rope_cs=self._rope,
+            tp=self._tp)
         bufs.last_h.copy_(last_h)
         state.pos.copy_(prefilled.pos)
         bufs.done.zero_()
@@ -436,18 +494,23 @@ class Generator:
     # -- the hooks of batched serving (runtime/serving.py) ------------------------
 
     def _prefill_admission(self, text, speaker, context, cached, max_gen, temperature, topk,
-                           seed):
+                           seed, rows=None):
         """A serving admission's prefill: ``_prefill_into`` a new B=1
         ``CSMState`` that the caller owns (the serving pool copies it into a
         slot) → (frame (1, K), state, done (1,) bool, max_gen), all on the
         device, no host sync; ``prefill_s`` records the host's part.  Holds
         the static B=1 buffers while it runs; the (1, greedy) graphs of the
-        prefill's frame must exist on the card."""
+        prefill's frame must exist on the card.  ``rows`` = (tokens, mask)
+        takes the prompt already tokenized (a mesh's plan carries it)."""
         t0 = time.perf_counter()
         with self._request():
             state = self._init_state(1)
-            frame, done, max_gen = self._prefill_into(state, text, speaker, context, cached,
-                                                      max_gen, temperature, topk, seed)
+            if rows is None:
+                frame, done, max_gen = self._prefill_into(state, text, speaker, context, cached,
+                                                          max_gen, temperature, topk, seed)
+            else:
+                frame, done, max_gen = self._prefill_rows(state, *rows, None, 0, max_gen,
+                                                          temperature, topk, seed)
         self.metrics.record("prefill_s", time.perf_counter() - t0)
         return frame, state, done, max_gen
 
@@ -638,7 +701,8 @@ class Generator:
         The JAX package compiles one program per chunk size (``tick_sizes``,
         ``offline``'s ramp up to ``offline_budget_frames``); here one graph
         per frame part serves every chunk size, so those arguments add
-        nothing.  Holds the static state, as a request does.
+        nothing.  Holds the static state, as a request does.  On a tp mesh
+        every rank calls it: its prefills meet in all_reduces.
         """
         del tick_sizes, offline, offline_budget_frames  # see the docstring
         K = self._cfg.audio_num_codebooks
@@ -686,7 +750,8 @@ class Generator:
             t0 = time.perf_counter()
             csm_model.load_state(state)
             last_h, _ = csm_model.backbone_last_hidden(self._prefill_params, self._cfg, state,
-                                                       tok, msk, valid, rope_cs=self._rope)
+                                                       tok, msk, valid, rope_cs=self._rope,
+                                                       tp=self._tp)
             bufs.last_h.copy_(last_h)
             self._run(1, "prefill_sample", True)
             if self.device.type == "cuda":
@@ -704,8 +769,8 @@ class Generator:
     ) -> "Generator":
         """A second Generator over the same device-resident weights.
 
-        Shares ``_params``, the dense prefill shadow, Mimi and its params
-        and the text tokenizer (no new weight memory); gets its own knobs,
+        Shares ``_params``, the dense prefill shadow, Mimi and its params,
+        the text tokenizer and the mesh (no new weight memory); gets its own knobs,
         seed, ``Metrics``, static decode state and graphs (captured at its
         first request or ``warmup``).  A Generator serves one request at a
         time, so a clone is how two requests decode at once.

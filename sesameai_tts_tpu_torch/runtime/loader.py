@@ -3,8 +3,17 @@ the CSM model, Mimi and the tokenizer and wrap them in a ``Generator``.
 
 Weights come from local checkpoint files (``core/weights.py``) or, without
 them, are random, drawn from ``spec.seed`` on the CPU and then moved, so
-one seed gives the same weights on every device.  A loaded checkpoint is
-read and cast on the host and moved to the device once.
+one seed gives the same weights on every device.  The CSM params and Mimi
+draw from generators of their own (``init_models``), so the random codec
+does not depend on whether a CSM checkpoint was given.  A loaded
+checkpoint is read and cast on the host and moved to the device once.
+
+On a mesh (``build_generator(mesh=)``, ``parallel/``) every rank draws or
+reads the same full tree on the host and quantizes it on its device one
+layer at a time, as one card does (the card's rounding of the scales is
+not the host's, and the tp model must be the single-card model), bringing
+each quantized layer back to the host; the Generator then cuts this rank's
+shards on the host and moves only those to the card.
 """
 
 from __future__ import annotations
@@ -14,6 +23,7 @@ import os
 from dataclasses import dataclass
 from typing import Optional
 
+import numpy as np
 import torch
 
 from sesameai_tts_tpu_torch.codec.mimi import Mimi, MimiConfig, mimi_test_tiny
@@ -21,7 +31,7 @@ from sesameai_tts_tpu_torch.convert import to_device
 from sesameai_tts_tpu_torch.core.config import CSMConfig, csm_1b, csm_test_tiny
 from sesameai_tts_tpu_torch.core.weights import load_csm_checkpoint, load_pytree
 from sesameai_tts_tpu_torch.models.csm import init_csm_params
-from sesameai_tts_tpu_torch.ops.quant import quantize_csm
+from sesameai_tts_tpu_torch.ops.quant import quantize_csm, quantize_trunk
 from sesameai_tts_tpu_torch.runtime.generator import Generator, resolve_device
 from sesameai_tts_tpu_torch.tokenizer.text import load_text_tokenizer
 
@@ -78,11 +88,60 @@ def test_tiny_spec() -> ModelSpec:
                      dtype=torch.float32)
 
 
-def build_generator(spec: ModelSpec, device="cuda", **gen_kwargs) -> Generator:
+def mimi_seed(seed: int) -> int:
+    """The seed of the random Mimi params of a spec seeded ``seed``: a fixed
+    function of it, apart from the CSM params' stream."""
+    return int(np.random.SeedSequence([seed % 2**64, 0x4D494D49]).generate_state(1, np.uint64)[0])
+
+
+def init_models(spec: ModelSpec, dtype: Optional[torch.dtype] = None):
+    """(CSM params, Mimi, Mimi params) on the host: each from its checkpoint,
+    else random.  The CSM params (at ``dtype``, default ``spec.dtype``) draw
+    from ``torch.Generator().manual_seed(spec.seed)``, Mimi (at
+    ``spec.mimi_dtype``) from a generator seeded ``mimi_seed(spec.seed)``,
+    as the JAX loader splits its key into a CSM key and a Mimi key."""
+    dtype = dtype or spec.dtype
+    if spec.csm_checkpoint:
+        csm_params = load_csm_checkpoint(spec.csm_checkpoint, spec.csm, dtype)
+    else:
+        csm_params = init_csm_params(spec.csm, torch.Generator().manual_seed(spec.seed), dtype)
+    mimi = Mimi(spec.mimi)
+    mimi_params = mimi.init(torch.Generator().manual_seed(mimi_seed(spec.seed)),
+                            spec.mimi_dtype)
+    if spec.mimi_checkpoint:
+        mimi_params = load_pytree(spec.mimi_checkpoint, like=mimi_params)
+    return csm_params, mimi, mimi_params
+
+
+def _mesh_device(device):
+    """A rank's card: ``cuda:<LOCAL_RANK>`` for a bare ``"cuda"`` (one process
+    per card), else the device the caller gave (ranks sharing one card)."""
+    if str(device) == "cuda":
+        device = f"cuda:{int(os.environ.get('LOCAL_RANK', 0))}"
+    return resolve_device(device)
+
+
+def _quantize_through(params: dict, bits: int, device) -> dict:
+    """``quantize_csm`` of a host tree with each trunk layer quantized on
+    ``device`` (its rounding) and brought back, so that no more than one
+    layer is on the device at a time → the quantized tree on the host."""
+    out = dict(params)
+    for name in ("backbone", "decoder"):
+        layers = []
+        for wl in params[name]["layers"]:
+            one = quantize_trunk({"layers": (to_device(wl, device),), "final_norm": None}, bits)
+            layers.append(to_device(one["layers"][0], "cpu"))
+        out[name] = {"layers": tuple(layers), "final_norm": params[name]["final_norm"]}
+    return out
+
+
+def build_generator(spec: ModelSpec, device="cuda", mesh=None, **gen_kwargs) -> Generator:
     """The model of ``spec`` (from its checkpoints, else random from its
     seed) on ``device`` (the card unless the caller asks for the CPU) →
-    its Generator."""
-    device = resolve_device(device)
+    its Generator.  With ``mesh`` (``parallel/mesh.py::make_mesh``) the
+    Generator runs tensor- and data-parallel on it, and this rank's device
+    is ``cuda:<LOCAL_RANK>`` unless ``device`` names one."""
+    device = resolve_device(device) if mesh is None else _mesh_device(device)
     if spec.quantize not in (None, "int8", "int4"):
         raise ValueError(f"quantize={spec.quantize!r}: use None, 'int8' or 'int4'")
     if spec.fused_mlp and spec.quantize != "int8":
@@ -100,22 +159,19 @@ def build_generator(spec: ModelSpec, device="cuda", **gen_kwargs) -> Generator:
             f"'{spec.tokenizer}' tokenizer. Pass tokenizer=<path to the "
             "Llama-3 tokenizer.json> when loading real CSM-1B weights."
         )
-    gen = torch.Generator().manual_seed(spec.seed)
-    if spec.csm_checkpoint:
-        csm_params = load_csm_checkpoint(spec.csm_checkpoint, spec.csm, spec.dtype)
+    csm_params, mimi, mimi_params = init_models(spec)
+    bits = {None: None, "int8": 8, "int4": 4}[spec.quantize]
+    if mesh is not None:  # the Generator moves only this rank's shards
+        if bits is not None:
+            csm_params = _quantize_through(csm_params, bits, device)
     else:
-        csm_params = init_csm_params(spec.csm, gen, spec.dtype)
-    csm_params = to_device(csm_params, device)
-    if spec.quantize is not None:
-        csm_params = quantize_csm(csm_params, bits=4 if spec.quantize == "int4" else 8)
-    mimi = Mimi(spec.mimi)
-    mimi_params = mimi.init(gen, spec.mimi_dtype)
-    if spec.mimi_checkpoint:
-        mimi_params = load_pytree(spec.mimi_checkpoint, like=mimi_params)
+        csm_params = to_device(csm_params, device)
+        if bits is not None:
+            csm_params = quantize_csm(csm_params, bits=bits)
     mimi_params = to_device(mimi_params, device)
     tokenizer = load_text_tokenizer(spec.tokenizer)
     return Generator(csm_params, spec.csm, mimi, mimi_params, tokenizer, device=device,
-                     fused_mlp=spec.fused_mlp, **gen_kwargs)
+                     fused_mlp=spec.fused_mlp, mesh=mesh, **gen_kwargs)
 
 
 def load_csm_1b(csm_checkpoint: Optional[str] = None, mimi_checkpoint: Optional[str] = None,

@@ -20,6 +20,23 @@ completion thread waits for an admission's first chunk and emits it
 before it copies that admission's state, and every graph serving can
 replay is captured before the threads start (``start``).  The Generator
 passed in is not used by the server, so its caller may go on generating.
+
+On a mesh (a Generator built with ``mesh=``) the server is SPMD: every rank
+builds the same server and calls ``start()``.  Rank 0 is the front: it owns
+``submit``, the sessions, the Mimi decode and whatever serves HTTP; the
+other ranks' ``start()`` runs a follower loop until rank 0 stops.  Each
+tick rank 0 broadcasts a fixed-layout int64 plan on a CPU gloo group (the
+op, the tick's frames, seed and greedy flag, the admissions with their
+slot, sampling, seed, budget and prompt rows, the freed slots); every rank
+then runs the admissions and the tick on its rows of the pool (its 'dp'
+share when dp divides the slots, else all of them), and the codes reach
+rank 0 through an all_reduce of a zero-filled (frames, slots, K) buffer,
+each row written by one rank.  The admissions run on the tick threads
+between ticks, in plan order: on rank 0, which emits each first chunk, on
+the ranks that hold the admission's slot, and with tp > 1 on rank 0's tp
+group, whose collectives meet in the same order on every rank of the
+group (a pipelined admission thread would issue them in another order on
+each rank).
 """
 
 from __future__ import annotations
@@ -31,10 +48,12 @@ import queue
 import threading
 import time
 from dataclasses import dataclass, field
-from typing import List, Optional, Sequence
+from datetime import timedelta
+from typing import List, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from sesameai_tts_tpu_torch.models import csm as csm_model
 from sesameai_tts_tpu_torch.runtime.generator import FRAME_MS, Generator
@@ -146,6 +165,44 @@ def _tensors(tree):
             yield from _tensors(t)
 
 
+# the plan of one mesh tick (module docstring): a header of op, frames, tick
+# seed, greedy, admissions, frees; then per admission slot, seed,
+# temperature (f64 bits), topk, budget, prompt rows; then the freed slots
+_OP_TICK, _OP_RESET, _OP_STOP = 0, 1, 2
+_HEAD, _ADMIT = 6, 6
+
+
+class _Admission(NamedTuple):
+    slot: int
+    seed: int
+    temperature: float
+    topk: int
+    max_gen: int
+    tokens: np.ndarray  # (S, K+1) prompt rows
+    mask: np.ndarray
+
+
+class _Admitted(NamedTuple):
+    """A dispatched admission: its B=1 prefill and first chunk on the device,
+    their fetch last (None on a mesh, where the tick thread fetched them)."""
+
+    session: "Session"
+    frame: torch.Tensor
+    state1: csm_model.CSMState
+    max_gen: int
+    ms1: object  # the codec state after the first chunk
+    fetch: Optional["_Fetch"]
+
+
+class _Plan(NamedTuple):
+    op: int
+    n: int = 0
+    seed: int = 0
+    greedy: bool = True
+    admits: tuple = ()
+    frees: tuple = ()
+
+
 def _copy_row(pool, one, slot: int, axis: int) -> None:
     """Row ``slot`` along ``axis`` of every tensor in ``pool`` ← row 0 of the
     matching tensor in ``one``, in place."""
@@ -186,6 +243,22 @@ class BatchedTTSServer:
         self._canary = generator.clone(seed=3)
         self._budget = np.zeros(slots, np.int64)  # frames left per slot
         self._sessions: List[Optional[Session]] = [None] * slots
+        # the pool rows this rank decodes: all of them, or its 'dp' share
+        self._rows = generator._rows(slots)
+        self._mesh = generator.mesh
+        self._front = True  # this rank takes requests
+        if self._mesh is not None:
+            mesh = self._mesh
+            self._front = dist.get_rank() == 0
+            # rank 0's plans and the codes: a CPU group whatever the default
+            # backend (an idle follower waits in the broadcast, hence the timeout)
+            self._plan_group = dist.new_group(backend="gloo", timeout=timedelta(days=7))
+            # one rank writes each row of the gathered codes: tp rank 0 of the
+            # dp row that holds it (dp row 0 for a replicated pool)
+            self._writes = mesh.get_local_rank("tp") == 0 and (
+                len(self._rows) < slots or mesh.get_local_rank("dp") == 0)
+            self._dp_row0 = mesh.get_local_rank("dp") == 0
+            self._freed: List[int] = []  # rank 0: slots freed since the last plan
         self._reset_pool_state()
         # admission backlog. ``max_pending`` bounds it (backpressure): a full
         # backlog makes non-blocking submits raise ServerSaturated (HTTP 429)
@@ -237,6 +310,10 @@ class BatchedTTSServer:
             # idle slots decode zero frames through Mimi too; attach resets them
             self._mimi_state = t._mimi.init_decode_state(self.B, t._mimi_dtype, t.device)
 
+    def _local(self, slot: int) -> Optional[int]:
+        """The pool row of ``slot`` on this rank, None if another rank holds it."""
+        return slot - self._rows.start if slot in self._rows else None
+
     def _capture_all(self) -> dict:
         """Capture every graph serving can replay, the ones that do not exist
         yet → {name: seconds}: the prefill's frame at B=1 (greedy and
@@ -267,7 +344,8 @@ class BatchedTTSServer:
         admission clone, and the batched Mimi decode at B = slots for both
         tick sizes ({chunk, 3}) on throwaway codec states.  Safe on a
         running server (the graphs then exist, and nothing touches the
-        pool)."""
+        pool).  On a tp mesh every rank calls it (its prefills meet in
+        all_reduces)."""
         times = self._capture_all()
         a, t = self._admitter, self._ticker
         K = a._cfg.audio_num_codebooks
@@ -295,7 +373,11 @@ class BatchedTTSServer:
         slow" in one call.  Never touches the live pool, but shares the
         card: a deep health check under heavy traffic measures traffic too.
         (The JAX package's link round-trip probe has no counterpart on a
-        local card.)  Exposed as GET /healthz?deep=1."""
+        local card.)  Exposed as GET /healthz?deep=1.  Not on a tp mesh: its
+        ticks would need every rank."""
+        if self._canary._tp is not None:
+            raise RuntimeError("link_canary: a tp mesh's tick needs every rank; time the "
+                               "serving ticks instead")
         c = self._canary
         n, K = self.chunk, c._cfg.audio_num_codebooks
         with c._request(), _on(c):
@@ -336,7 +418,12 @@ class BatchedTTSServer:
         when unset, requests budgeted ≤ ``INTERACTIVE_MAX_MS`` are class 0,
         longer ones class 1), so an interactive request never waits behind a
         bulk burst's admissions."""
+        if not self._front:
+            raise RuntimeError("a server on a mesh takes requests on rank 0")
         s = Session(text=text, **kw)
+        if self._mesh is not None and s.cached_context is not None:
+            raise ValueError("cached_context is a handle of rank 0's state; on a mesh pass "
+                             "the context segments")
         prio = s.priority
         if prio is None:
             prio = 0 if s.max_audio_length_ms <= self.INTERACTIVE_MAX_MS else 1
@@ -409,13 +496,20 @@ class BatchedTTSServer:
 
     def start(self):
         """Capture every graph serving can replay (no capture happens once the
-        threads run), then start the dispatch, completion and tick threads."""
+        threads run), then start the dispatch, completion and tick threads.
+        On a mesh rank 0 starts its tick thread (it admits too) and returns;
+        another rank runs the follower loop here and returns when rank 0
+        stops the server."""
         self._capture_all()
+        if not self._front:
+            self._follow()
+            return
         self._running = True
-        self._admitter_thread = threading.Thread(target=self._dispatch_loop, daemon=True)
-        self._admitter_thread.start()
-        self._completer = threading.Thread(target=self._completion_loop, daemon=True)
-        self._completer.start()
+        if self._mesh is None:
+            self._admitter_thread = threading.Thread(target=self._dispatch_loop, daemon=True)
+            self._admitter_thread.start()
+            self._completer = threading.Thread(target=self._completion_loop, daemon=True)
+            self._completer.start()
         self._thread = threading.Thread(target=self._loop, daemon=True)
         self._thread.start()
 
@@ -436,6 +530,8 @@ class BatchedTTSServer:
                 s.chunks.put(None)
 
     def stop(self):
+        """Stop the threads (on a mesh the tick thread broadcasts the stop to
+        the other ranks) and end every session still queued or attached."""
         with self._backlog_cv:  # after this, submit() raises: nothing can be
             self._running = False  # enqueued past the drain below
             self._backlog_cv.notify_all()  # parked submitters see the flip
@@ -480,14 +576,14 @@ class BatchedTTSServer:
             session.error = e
             session.chunks.put(None)
             return None
-        return (session, frame, state1, max_gen, ms1, fetch)
+        return _Admitted(session, frame, state1, max_gen, ms1, fetch)
 
     def _complete_admission(self, inflight) -> None:
         """Stage 2: wait for the dispatched first chunk, emit first audio, hand
         the session to the tick thread (or finish it on EOS)."""
-        session, frame, state1, max_gen, ms1, fetch = inflight
+        session, max_gen = inflight.session, inflight.max_gen
         try:
-            done1_np, frame_np, wav0 = fetch.wait()
+            done1_np, frame_np, wav0 = inflight.fetch.wait()
         except Exception as e:
             session.error = e
             session.chunks.put(None)
@@ -502,11 +598,10 @@ class BatchedTTSServer:
             # complete without ever occupying a slot
             self._finish_session(session)
             return
-        item = (session, frame, state1, max_gen, ms1, fetch)
         placed = False
         while self._running:  # bounded queue: block without hanging stop()
             try:
-                self._ready.put(item, timeout=0.2)
+                self._ready.put(inflight, timeout=0.2)
                 placed = True
                 break
             except queue.Full:
@@ -567,18 +662,14 @@ class BatchedTTSServer:
         session, frame, state1, max_gen, ms1, fetch = item
         if session.cancelled:
             session.chunks.put(None)
+            if self._mesh is not None:  # the other ranks attached it
+                self._freed.append(slot)
             return
         t = self._ticker
-        state, bufs = t._slot(self.B)
         stream = t.own_stream()
-        if stream is not None:
+        if stream is not None and fetch is not None:
             stream.wait_event(fetch.event)
-        _copy_row(state.cache, state1.cache, slot, 0)
-        state.pos[slot:slot + 1].copy_(state1.pos)
-        bufs.frame[slot:slot + 1].copy_(frame)
-        bufs.done[slot] = False
-        bufs.temperature[slot] = session.temperature
-        bufs.topk[slot] = session.topk
+        self._attach_state(slot, frame, state1, session.temperature, session.topk)
         ms = self._mimi_state
         _copy_row((ms.upsample, ms.tf_pos, ms.seanet), (ms1.upsample, ms1.tf_pos, ms1.seanet),
                   slot, 0)
@@ -590,6 +681,20 @@ class BatchedTTSServer:
                 x.record_stream(stream)
         self._sessions[slot] = session
         self._budget[slot] = max_gen - 1
+
+    def _attach_state(self, slot: int, frame, state1, temperature, topk) -> None:
+        """Row copies of a prefilled B=1 state into the pool's row of ``slot``,
+        where this rank holds it."""
+        row = self._local(slot)
+        if row is None:
+            return
+        state, bufs = self._ticker._slot(self.B)
+        _copy_row(state.cache, state1.cache, row, 0)
+        state.pos[row:row + 1].copy_(state1.pos)
+        bufs.frame[row:row + 1].copy_(frame)
+        bufs.done[row] = False
+        bufs.temperature[row] = temperature
+        bufs.topk[row] = topk
 
     def _emit_session(self, session: Session, frames: np.ndarray, pcm: np.ndarray):
         """Audio-emission bookkeeping shared by the tick and admission threads:
@@ -619,7 +724,11 @@ class BatchedTTSServer:
             self._finish_session(session)
         self._sessions[slot] = None
         _, bufs = self._ticker._slot(self.B)
-        bufs.done[slot] = True
+        row = self._local(slot)
+        if row is not None:
+            bufs.done[row] = True
+        if self._mesh is not None:
+            self._freed.append(slot)
         self._budget[slot] = 0
 
     def _loop(self):
@@ -640,8 +749,11 @@ class BatchedTTSServer:
                         self._budget[slot] = 0
                     log.exception("serving tick failed")
                     # queued sessions survive: their B=1 states do not depend on
-                    # the pool, which is reset here
+                    # the pool, which is reset here (on every rank of a mesh)
                     try:
+                        if self._mesh is not None:
+                            self._freed.clear()
+                            self._broadcast_plan(_Plan(_OP_RESET))
                         self._reset_pool_state()
                     except Exception:
                         # the device is gone: the backlog can never be served
@@ -655,8 +767,12 @@ class BatchedTTSServer:
                 except Exception:
                     log.exception("reading the last tick failed")
                 self._inflight = None
+            if self._mesh is not None:
+                self._broadcast_plan(_Plan(_OP_STOP))
 
     def _tick(self):
+        if self._mesh is not None:
+            return self._tick_mesh()
         # attach prefilled sessions to idle slots: row copies enqueued after the
         # tick in flight, which no longer reads freed slots' outputs
         for slot in range(self.B):
@@ -740,3 +856,201 @@ class BatchedTTSServer:
                        pcm_np[slot, :n_emit * hop])
             if done_np[slot] or budget[slot] - n <= 0:
                 self._finish(slot)
+
+    # -- the pool on a mesh (module docstring) -------------------------------------
+
+    def _plan_len(self) -> int:
+        return _HEAD + self.B * _ADMIT + self.B
+
+    def _broadcast_plan(self, plan: _Plan) -> None:
+        """Rank 0: send ``plan``; its prompt rows follow as one int64 array
+        (each admission's tokens, then its mask)."""
+        buf = np.zeros(self._plan_len(), np.int64)
+        buf[:_HEAD] = (plan.op, plan.n, plan.seed, int(plan.greedy), len(plan.admits),
+                       len(plan.frees))
+        rows = []
+        for i, a in enumerate(plan.admits):
+            buf[_HEAD + i * _ADMIT:_HEAD + (i + 1) * _ADMIT] = (
+                a.slot, a.seed, np.float64(a.temperature).view(np.int64), a.topk, a.max_gen,
+                a.tokens.shape[0])
+            rows += [a.tokens.reshape(-1), a.mask.reshape(-1)]
+        end = _HEAD + self.B * _ADMIT
+        buf[end:end + len(plan.frees)] = plan.frees
+        dist.broadcast(torch.from_numpy(buf), src=0, group=self._plan_group)
+        if rows:
+            dist.broadcast(torch.from_numpy(np.concatenate(rows).astype(np.int64)), src=0,
+                           group=self._plan_group)
+
+    def _receive_plan(self) -> _Plan:
+        """A follower: the next plan from rank 0."""
+        head = torch.empty(self._plan_len(), dtype=torch.int64)
+        dist.broadcast(head, src=0, group=self._plan_group)
+        buf = head.numpy()
+        op, n, seed, greedy, n_admit, n_free = (int(x) for x in buf[:_HEAD])
+        entries = buf[_HEAD:_HEAD + n_admit * _ADMIT].reshape(n_admit, _ADMIT)
+        width = self._ticker._cfg.audio_num_codebooks + 1
+        admits = []
+        if n_admit:
+            flat = torch.empty(int(entries[:, 5].sum()) * width * 2, dtype=torch.int64)
+            dist.broadcast(flat, src=0, group=self._plan_group)
+            flat, at = flat.numpy(), 0
+            for slot, a_seed, temp, topk, max_gen, S in entries:
+                cut = S * width
+                tokens = flat[at:at + cut].reshape(S, width)
+                mask = flat[at + cut:at + 2 * cut].reshape(S, width).astype(bool)
+                at += 2 * cut
+                admits.append(_Admission(int(slot), int(a_seed),
+                                         float(np.int64(temp).view(np.float64)), int(topk),
+                                         int(max_gen), tokens, mask))
+        end = _HEAD + self.B * _ADMIT
+        return _Plan(op, n, seed, bool(greedy), tuple(admits),
+                     tuple(int(x) for x in buf[end:end + n_free]))
+
+    def _follow(self) -> None:
+        """A follower's loop: run rank 0's plans until it stops."""
+        with _on(self._ticker):
+            while True:
+                plan = self._receive_plan()
+                if plan.op == _OP_STOP:
+                    return
+                if plan.op == _OP_RESET:
+                    self._reset_pool_state()
+                    continue
+                self._run_plan(plan, {})
+
+    def _prefill_planned(self, a: _Admission):
+        """An admission from the plan's rows on the admission clone, on the
+        tick thread → (frame (1, K), B=1 state, EOS on its frame (a host
+        bool: every rank of the plan agrees), budget)."""
+        frame, state1, done1, max_gen = self._admitter._prefill_admission(
+            None, None, None, None, a.max_gen, a.temperature, a.topk, a.seed,
+            rows=(a.tokens, a.mask))
+        return frame, state1, bool(done1[0]), max_gen
+
+    def _admit_on_front(self, a: _Admission, session: Session) -> None:
+        """Rank 0: the planned admission's prefill (beside the ranks that run
+        it too), its first chunk emitted, then the session attached or, on
+        EOS or a one-frame budget, finished."""
+        frame, state1, done1, max_gen = self._prefill_planned(a)
+        pcm0, ms1 = self._admitter._first_chunk(frame)
+        frame_np, wav0 = _Fetch([frame, pcm0]).wait()
+        if not done1:
+            self._emit_session(session, frame_np.astype(np.int32), wav0[0])
+        if done1 or max_gen <= 1:
+            self._finish_session(session)
+            return
+        self._attach(a.slot, _Admitted(session, frame, state1, max_gen, ms1, None))
+
+    def _run_plan(self, plan: _Plan, front: dict):
+        """Every rank: free the plan's slots, run its admissions (``front``:
+        rank 0's sessions by slot), then tick
+        ``plan.n`` frames on this rank's rows and gather the codes → (frames
+        (n, B, K), valid (n, B), done (B,)) CPU tensors on rank 0, None
+        elsewhere or without a tick."""
+        t = self._ticker
+        _, bufs = t._slot(self.B)
+        for slot in plan.frees:
+            row = self._local(slot)
+            if row is not None:
+                bufs.done[row] = True
+        for a in plan.admits:
+            try:
+                if self._front:
+                    self._admit_on_front(a, front[a.slot])
+                elif self._dp_row0 or self._local(a.slot) is not None:
+                    frame, state1, done1, max_gen = self._prefill_planned(a)
+                    if not done1 and max_gen > 1:
+                        self._attach_state(a.slot, frame, state1, a.temperature, a.topk)
+            except Exception as e:
+                # the admission fails alone, and alike on every rank (its
+                # inputs are the plan's), so no rank leaves the plan's order
+                log.exception("admission to slot %d failed", a.slot)
+                if self._front:
+                    front[a.slot].error = e
+                    front[a.slot].chunks.put(None)
+        if plan.n == 0:
+            return None
+        frames, valid = t._replay_frames(self.B, plan.seed, plan.n, 0, plan.greedy)
+        K = frames.shape[-1]
+        gathered = torch.zeros(plan.n * self.B * (K + 1) + self.B, dtype=torch.int64)
+        if self._writes:
+            rows = slice(self._rows.start, self._rows.stop)
+            codes = gathered[:-self.B].view(plan.n, self.B, K + 1)
+            codes[:, rows, :K] = frames.cpu()
+            codes[:, rows, K] = valid.cpu().long()
+            gathered[-self.B:][rows] = bufs.done.cpu().long()
+        dist.all_reduce(gathered, group=self._plan_group)
+        if not self._front:
+            return None
+        codes = gathered[:-self.B].view(plan.n, self.B, K + 1)
+        return codes[..., :K], codes[..., K].bool(), gathered[-self.B:].bool()
+
+    def _plan_admissions(self) -> tuple:
+        """Rank 0: the admissions of the next plan, the next sessions of the
+        backlog, tokenized here, one per idle slot → (the plan's admissions,
+        {slot: session})."""
+        idle = [s for s in range(self.B) if self._sessions[s] is None]
+        a = self._admitter
+        admits, front = [], {}
+        while idle:
+            try:
+                _, _, session = self._pending.get_nowait()
+            except queue.Empty:
+                break
+            with self._backlog_cv:  # a backlog place just freed
+                self._backlog_cv.notify()
+            if session.cancelled:
+                session.chunks.put(None)
+                continue
+            try:  # a prompt too long for the cache fails here, never planned
+                tokens, mask = a._tokenize_prompt(session.text, session.speaker,
+                                                  list(session.context))
+                max_gen = a._room(tokens.shape[0], int(session.max_audio_length_ms / FRAME_MS))
+            except Exception as e:
+                session.error = e
+                session.chunks.put(None)
+                continue
+            slot = idle.pop(0)
+            admits.append(_Admission(slot, a._utterance_seed(None), session.temperature,
+                                     session.topk, max_gen, tokens, mask))
+            front[slot] = session
+        return tuple(admits), front
+
+    def _tick_mesh(self):
+        """Rank 0's tick on a mesh: plan the admissions and the frames,
+        broadcast the plan, run it beside the other ranks, then decode the
+        gathered codes through the batched streaming Mimi decode (lag 1, as
+        on one card)."""
+        admits, front = self._plan_admissions()
+        active = [s for s in self._sessions if s is not None]
+        if not active and not admits:
+            frees, self._freed = tuple(self._freed), []
+            if frees:  # idle slots go back to done on the ranks that hold them
+                plan = _Plan(_OP_TICK, frees=frees)
+                self._broadcast_plan(plan)
+                self._run_plan(plan, {})
+            elif self._inflight is not None:
+                self._process(self._inflight)
+                self._inflight = None
+            else:
+                time.sleep(0.005)
+            return
+        t = self._ticker
+        n = self._tick_size()
+        greedy = all(csm_model.is_greedy(s.topk) for s in active + list(front.values()))
+        frees, self._freed = tuple(self._freed), []
+        plan = _Plan(_OP_TICK, n, t._utterance_seed(None), greedy, admits, frees)
+        self._broadcast_plan(plan)
+        gathered = self._run_plan(plan, front)
+        frames, valid, done = (x.to(t.device) for x in gathered)
+        wav, self._mimi_state = t._mimi.decode_streaming(t._mimi_params, frames.permute(1, 2, 0),
+                                                         self._mimi_state)
+        cur = (_Fetch([frames, valid, done, wav[:, 0].float()]), n, list(self._sessions),
+               self._budget.copy())
+        self.metrics.record("tick_frames", n)
+        for slot in range(self.B):
+            if self._sessions[slot] is not None:
+                self._budget[slot] -= n
+        if self._inflight is not None:
+            self._process(self._inflight)
+        self._inflight = cur

@@ -8,9 +8,10 @@ to the parallel slice).  On the card unless ``-d cpu``.
 * dataset: ``metadata.json`` or ``.txt`` sidecars next to WAVs
   (``training/data.py::load_directory``), resampled to 24 kHz;
 * the codec and a random init are drawn as ``runtime/loader.py::
-  build_generator`` draws them (one ``torch.Generator`` from the spec's
-  seed: the CSM params, then Mimi), so a run without checkpoints trains
-  against the codec that the model is served with;
+  build_generator`` draws them (``loader.init_models``: the CSM params and
+  Mimi from generators of their own, both from the spec's seed), so a run
+  without checkpoints trains against the codec that its export is served
+  with;
 * training dtype is f32 by default; ``--dtype mixed`` keeps f32 params and
   Adam moments and runs the forward and backward in bf16, ``--dtype bf16``
   keeps bf16 params; quantized serving forms come after training;
@@ -55,23 +56,13 @@ from sesameai_tts_tpu_torch.training.train_step import (
 
 
 def init_models(spec, dtype):
-    """(CSM params, Mimi, Mimi params) on the host: each from its checkpoint,
-    else random from ``spec.seed`` in ``build_generator``'s order (the CSM
-    params at ``dtype``, then Mimi at ``spec.mimi_dtype``)."""
-    from sesameai_tts_tpu_torch.codec.mimi import Mimi
-    from sesameai_tts_tpu_torch.core.weights import load_csm_checkpoint, load_pytree
-    from sesameai_tts_tpu_torch.models.csm import init_csm_params
+    """(CSM params, Mimi, Mimi params) on the host, drawn or read as
+    ``build_generator`` does (``runtime/loader.py::init_models``), the CSM
+    params at ``dtype``: an export of this run decodes with the codec it
+    trained against."""
+    from sesameai_tts_tpu_torch.runtime import loader
 
-    gen = torch.Generator().manual_seed(spec.seed)
-    if spec.csm_checkpoint:
-        params = load_csm_checkpoint(spec.csm_checkpoint, spec.csm, dtype)
-    else:
-        params = init_csm_params(spec.csm, gen, dtype)
-    mimi = Mimi(spec.mimi)
-    mimi_params = mimi.init(gen, spec.mimi_dtype)
-    if spec.mimi_checkpoint:
-        mimi_params = load_pytree(spec.mimi_checkpoint, like=mimi_params)
-    return params, mimi, mimi_params
+    return loader.init_models(spec, dtype)
 
 
 def build_frame_tokenizer(spec, mimi, mimi_params, device):

@@ -34,7 +34,8 @@ for want in ("runtime.qa", "ops.kernels", "ops.attention", "audio.io", "audio.re
              "llm", "llm.client", "apps", "apps.audio_to_text", "apps.tts_base",
              "apps.web_base", "apps.web_chat", "apps.web_storyteller", "apps.duplex",
              "training", "training.loss", "training.train_step", "training.lora",
-             "training.data", "training.checkpoint", "training.finetune"):
+             "training.data", "training.checkpoint", "training.finetune",
+             "parallel", "parallel.mesh", "parallel.infer", "parallel.distributed"):
     assert "sesameai_tts_tpu_torch." + want in names, (want, names)
 print(len(names), bad)
 """
@@ -45,7 +46,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                          text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     n, bad = out.stdout.split(" ", 1)
-    assert int(n) >= 50, out.stdout  # every module of the slice was imported
+    assert int(n) >= 54, out.stdout  # every module of the slice was imported
     assert bad.strip() == "[]", bad
 
 
@@ -109,6 +110,17 @@ def test_entry_points_default_to_cuda():
     with pytest.raises(RuntimeError, match="CUDA"):
         resolve_device("cuda")
     assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_mesh_generator_defaults_to_its_rank_card():
+    """On a mesh a bare "cuda" is this rank's card, cuda:<LOCAL_RANK>; a host
+    without a card raises there as well, before the mesh is touched."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default device is usable")
+    from sesameai_tts_tpu_torch.runtime.loader import build_generator, test_tiny_spec
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        build_generator(test_tiny_spec(), mesh=object())
 
 
 def test_finetune_defaults_to_cuda(tmp_path):

@@ -45,9 +45,10 @@ def test_smoke_cli_test_tiny_flavor(capsys, monkeypatch):
     watermark, verify = api.watermark, api.verify
 
     def watermark_seen(wm, audio, rate, key, *a, **kw):
-        seen["carrier"], seen["rate"] = np.array(audio), rate
-        seen["marked"], out_rate = watermark(wm, audio, rate, key, *a, **kw)
-        return seen["marked"], out_rate
+        marked, out_rate = watermark(wm, audio, rate, key, *a, **kw)
+        if "carrier" not in seen:  # the watermark check's call (/tts marks later)
+            seen["carrier"], seen["rate"], seen["marked"] = np.array(audio), rate, marked
+        return marked, out_rate
 
     def verify_seen(*a, **kw):
         seen.setdefault("verdicts", []).append(verify(*a, **kw))
