@@ -18,8 +18,9 @@ Phases, each of which fails the run if it fails:
    unfused int8 pair: two ``quant_matmul`` calls around the silu and
    product); then ``flash_attention_bwd`` against
    ``flash_attention_bwd_plain`` at the training shapes (backbone S = 256,
-   512, 2048, a right-padded row, a row without keys; decoder S = 32), bf16
-   and f32, each timed beside its plain version, the backward of one
+   512, 2048, a right-padded row, a row without keys; decoder S = 32; one
+   tp = 2 rank's heads of each at S = 256 and 32), bf16 and f32, each
+   timed beside its plain version, the backward of one
    ``scaled_dot_product_attention`` call and the card's bound; then
    ``quant_matmul``, ``quant_mlp`` and ``flash_attention`` at one rank's
    shard shapes of a tp = 2 mesh (``phase_shards``: the eight trunk linears
@@ -84,7 +85,14 @@ Phases, each of which fails the run if it fails:
    greedy frames within 30 dB SNR of the parent's single-process Generator;
    (b) dp 2, tp 1: a 4-slot ``BatchedTTSServer``, 2 slots and CUDA graphs
    per rank, six greedy sessions (one cancelled), each finished session's
-   codes equal to a one-process 2-slot pool's;
+   codes equal to a one-process 2-slot pool's.
+   Then ``main[train_mesh]`` (``phase_train_mesh``): ``sesame-tts-torch-
+   finetune --mesh`` at CSM-1B full width on two spawned ranks sharing the
+   card over gloo: (a) dense at dp 1, tp 2, one f32 step against the
+   one-card step (loss, grad_norm), then a mixed finetune whose export is
+   gathered and (c) served by a one-card int8 Generator; (b) LoRA at dp 2,
+   tp 1 with remat, the adapters equal on both ranks and close to one
+   process's; exact attention launches a rank at the rank's local heads;
 5. QA at full width: teacher-forced agreement of the int4 generator with
    the dense twin of its own tree, and of the fused generator with the
    unfused one, against thresholds; the int8 and int4 acceptance reports
@@ -184,6 +192,9 @@ AUDIO_MS = 2000
 GRAPH_CHECK_MS = 960
 GRAPH_CHECKS = (("greedy", 1.0, 1, 0), ("sampled", 0.8, 40, 5), ("second_sampling", 0.6, 20, 6))
 GRAPH_STEP_FRAMES = 16  # frames of the graphed step timed by CUDA events, from a 600-row cache
+# of them, the frames under the profiler (its trace costs ~0.1 ms of host
+# time per kernel, ~10,800 kernels a frame; depth cut from 16 to fit the run)
+GRAPH_STEP_PROFILED_FRAMES = 4
 
 # the main paths: ModelSpec fields, kernel launches per decoded frame, and
 # whether the voice-context request runs
@@ -241,6 +252,10 @@ _BWD_CASES = (
     ("backbone S=512 right-padded", 2, 32, 8, 64, 512, (512, 300)),
     ("backbone S=256 row without keys", 2, 32, 8, 64, 256, (256, 0)),
     ("decoder S=32", 8, 8, 2, 128, 32, (32,) * 8),
+    # one rank's heads on a tp = 2 mesh (main[train_mesh] (a)): the backbone's
+    # 16 query and 4 kv heads, the decoder's 4 and its 1
+    ("backbone tp2 shard S=256", 2, 16, 4, 64, 256, (256, 256)),
+    ("decoder tp2 shard S=32", 8, 4, 1, 128, 32, (32,) * 8),
 )
 # dense f32 rate outside the tensor cores, by card name (NVIDIA data sheets):
 # the bound of an f32 gradient, whose products run on CUDA cores
@@ -264,6 +279,18 @@ TRAIN_SERVE_MS = 2000
 TRAIN_PARITY_LOSS_RTOL = 1e-5
 TRAIN_PARITY_GRAD_TOL = 1e-4  # of each leaf's largest magnitude
 
+# main[train_mesh]: sesame-tts-torch-finetune --mesh at CSM-1B full width (the init
+# and clips of main[train]) on two ranks that share the card over gloo
+TRAIN_MESH_TIMEOUT_S = 600  # a world of ranks, set-up included
+TRAIN_MESH_LOSS_RTOL = 1e-5  # (a) f32 on tp 2 against one card: the tp sums add in
+TRAIN_MESH_NORM_RTOL = 1e-4  # another order (TF32 off)
+# (b) LoRA on dp 2 against one process: the first step's gradient (the sum of
+# the two ranks' rows) at the same point, then the adapters after the run,
+# which Adam's normalized steps pull apart where an element's gradient is
+# near its rounding: such an element moves by up to ~lr a step either way
+TRAIN_MESH_LORA_LOSS_RTOL = 1e-4
+TRAIN_MESH_LORA_GRAD_TOL = 1e-4  # of each gradient leaf's peak
+TRAIN_MESH_LORA_TOL = 1e-2  # of each adapter leaf's peak
 VOICE_CLIP_S = 16.0  # two reference clips of this length at 44.1 kHz stereo
 VOICE_TRANSCRIPTS = (
     "The first reference clip holds a calm voice.",
@@ -2439,12 +2466,15 @@ class _StepProbe:
     forward and backward; ``train_step._apply_update``: the optimizer) with
     device synchronizations and host clocks, and keeps every step's loss
     and the last TrainState.  With ``stop_after`` the run is interrupted
-    (``_Interrupted``) when it starts the step after that many."""
+    (``_Interrupted``) when it starts the step after that many; with
+    ``keep_grads`` it keeps the gradient the first update applies."""
 
-    def __init__(self, torch, ts, stop_after=None):
+    def __init__(self, torch, ts, stop_after=None, keep_grads=False):
         self.torch, self.ts, self.stop_after = torch, ts, stop_after
         self.grads, self.update = ts._accum_grads, ts._apply_update
+        self.apply, self.keep_grads, self.first_grads = ts.AdamW.apply, keep_grads, None
         self.fwd_bwd_s, self.opt_s, self.losses, self.c0, self.state = [], [], [], [], None
+        self.norms = []
 
     def __enter__(self):
         torch = self.torch
@@ -2459,21 +2489,30 @@ class _StepProbe:
             self.fwd_bwd_s.append(time.perf_counter() - t0)
             return out
 
-        def update(tx, state, g, metrics):
+        def update(tx, state, g, metrics, *sync):
             t0 = time.perf_counter()
-            out = self.update(tx, state, g, metrics)
+            out = self.update(tx, state, g, metrics, *sync)
             torch.cuda.synchronize()
             self.opt_s.append(time.perf_counter() - t0)
             self.losses.append(float(metrics["loss"]))
             self.c0.append(float(metrics["c0_loss"]))
+            self.norms.append(float(metrics["grad_norm"]))
             self.state = out[0]
             return out
 
+        def apply(tx, params, g, *rest):
+            if self.first_grads is None:  # the logical gradient, summed on a mesh
+                self.first_grads = self.ts.tree_map(lambda t: t.detach().clone(), g)
+            return self.apply(tx, params, g, *rest)
+
         self.ts._accum_grads, self.ts._apply_update = grads, update
+        if self.keep_grads:
+            self.ts.AdamW.apply = apply
         return self
 
     def __exit__(self, *exc):
         self.ts._accum_grads, self.ts._apply_update = self.grads, self.update
+        self.ts.AdamW.apply = self.apply
 
     def timing(self, rows_per_step: int) -> dict:
         step_s = [a + b for a, b in zip(self.fwd_bwd_s, self.opt_s)]
@@ -2482,7 +2521,7 @@ class _StepProbe:
         return {"steps": len(step_s), "s_per_step": step_s,
                 "fwd_bwd_s": self.fwd_bwd_s, "optimizer_s": self.opt_s,
                 "steps_per_s": 1.0 / mean, "rows_per_s": rows_per_step / mean,
-                "losses": self.losses, "c0_losses": self.c0}
+                "losses": self.losses, "c0_losses": self.c0, "grad_norms": self.norms}
 
 
 def _write_clips(root: str) -> str:
@@ -2904,22 +2943,25 @@ def _mesh_serve(torch, np, srv) -> dict:
     return out
 
 
-def _run_world(torch, world: int, case: str) -> list:
-    """Spawn ``world`` ranks of case ``case`` on the one card and wait for
-    them (MESH_TIMEOUT_S at most; a rank that fails or outlives it fails
-    the phase, and every rank is stopped) → their results by rank."""
+def _run_world(torch, world: int, case: str, target=None, extra=(),
+               timeout: float = MESH_TIMEOUT_S) -> list:
+    """Spawn ``world`` ranks of ``target`` (default ``_mesh_rank``) and case
+    ``case`` on the one card and wait for them (``timeout`` at most; a rank
+    that fails or outlives it fails the phase, and every rank is stopped) →
+    their results by rank."""
     import tempfile
 
     import torch.multiprocessing as mp
 
+    target = target or _mesh_rank
     with tempfile.TemporaryDirectory() as tmp:
-        ctx = mp.start_processes(_mesh_rank, args=(world, tmp, case), nprocs=world, join=False,
-                                 start_method="spawn")
-        deadline = time.monotonic() + MESH_TIMEOUT_S
+        ctx = mp.start_processes(target, args=(world, tmp, case, *extra), nprocs=world,
+                                 join=False, start_method="spawn")
+        deadline = time.monotonic() + timeout
         try:
             while not ctx.join(timeout=5):
                 _check(time.monotonic() < deadline,
-                       f"main[mesh] {case}: the ranks outlived {MESH_TIMEOUT_S} s")
+                       f"{target.__name__} {case}: the ranks outlived {timeout} s")
         finally:
             for p in ctx.processes:
                 if p.is_alive():
@@ -3067,6 +3109,307 @@ def phase_mesh(torch, wrappers, card: str) -> dict:
                                            **r0["launches"]}}
 
 
+def _train_mesh_runs(data: str, out_dir: str) -> dict:
+    """{name: (finetune argv, global padded rows a step, eval batches)} of
+    the runs of the main[train_mesh] world, in order: (a) dense at dp 1,
+    tp 2, f32 then mixed; (b) LoRA at dp 2, tp 1.  Without ``--mesh`` an
+    argv is the one-card run it is held against."""
+    tokenizer = os.path.join(HERE, "sesameai_tts_tpu_torch", "assets", "bench_tokenizer.json")
+    common = ["--data", data, "--flavor", "csm-1b", "--tokenizer", tokenizer,
+              "--buckets", "256,512", "--eval-frac", "0.5", "--warmup", "1", "--log-every",
+              "1", "-d", "cuda"]
+    return {
+        "f32": (common + ["--mesh", "1,2", "--dtype", "f32", "--batch-size", "1",
+                          "--steps", "1", "--lr", str(TRAIN_LR)], 256, 2),
+        "mixed": (common + ["--mesh", "1,2", "--dtype", "mixed", "--batch-size", "2",
+                            "--steps", str(TRAIN_STEPS), "--lr", str(TRAIN_LR),
+                            "--ckpt-dir", os.path.join(out_dir, "dense"),
+                            "--save-every", "1000"], 512, 1),
+        "lora": (common + ["--mesh", "2,1", "--dtype", "f32", "--batch-size", "2",
+                           "--lora-rank", "16", "--remat", "--steps", str(LORA_STEPS)], 512, 1)}
+
+
+def _without_mesh(argv: list) -> list:
+    i = argv.index("--mesh")
+    return argv[:i] + argv[i + 2:]
+
+
+def _train_mesh_rank(rank: int, world: int, tmp: str, case: str, data: str,
+                     out_dir: str) -> None:
+    """One rank of main[train_mesh] (a process the phase spawns): joins a
+    gloo group of ``world`` at a FileStore in ``tmp``, sharing cuda:0, runs
+    the finetunes of ``_train_mesh_runs`` (each on its own mesh of the two
+    ranks) with the kernels, the attention's head counts and the collectives
+    counted, and writes its results to ``tmp/rank<r>.json`` (the LoRA run's
+    adapters and first gradient to ``out_dir``)."""
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, HERE)
+    from sesameai_tts_tpu_torch.core.weights import save_pytree
+    from sesameai_tts_tpu_torch.models import transformer
+    from sesameai_tts_tpu_torch.ops import attention, kernels, quant
+    from sesameai_tts_tpu_torch.training import finetune
+    from sesameai_tts_tpu_torch.training import train_step as ts
+
+    if not torch.cuda.is_available():
+        raise RuntimeError(f"main[train_mesh] rank {rank}: no CUDA device (a rank on the CPU)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    # the codec's encodes equal across processes, as in main[train]
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    torch.set_num_threads(max(1, (os.cpu_count() or 2) // world))
+    torch.cuda.set_device(0)
+    torch.zeros(1, device="cuda:0")
+    store = dist.FileStore(os.path.join(tmp, "store"), world)
+    dist.init_process_group("gloo", store=store, rank=rank, world_size=world)
+    wrappers = {name: getattr(attention if name.startswith("flash_attention") else quant, name)
+                for name in kernels.KERNELS}
+    heads, collectives = set(), {}
+    attend = transformer.flash_attention
+
+    def recording(q, k, *rest):
+        heads.add((q.shape[1], k.shape[1], q.shape[3]))  # (H, KV, hd) a call runs at
+        return attend(q, k, *rest)
+
+    transformer.flash_attention = recording
+    for name in ("all_reduce", "all_gather", "barrier"):
+        def counted(*a, _fn=getattr(dist, name), _name=name, **kw):
+            collectives[_name] = collectives.get(_name, 0) + 1
+            return _fn(*a, **kw)
+
+        setattr(dist, name, counted)
+    out = {"rank": rank, "runs": {}}
+    try:
+        for name, (argv, rows, evals) in _train_mesh_runs(data, out_dir).items():
+            _reset_counts(wrappers)
+            heads.clear()
+            collectives.clear()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            with _StepProbe(torch, ts, keep_grads=name == "lora") as probe:
+                metrics = finetune.main(argv)
+            torch.cuda.synchronize()
+            out["runs"][name] = {
+                "run_s": time.perf_counter() - t0, "final": metrics,
+                "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+                "launches": _counts(wrappers), "heads": sorted(heads),
+                "collectives": dict(collectives), "eval_batches": evals,
+                **probe.timing(rows)}
+            if name == "lora":
+                save_pytree(os.path.join(out_dir, f"adapters_rank{rank}"), probe.state.params)
+                save_pytree(os.path.join(out_dir, f"grads_rank{rank}"), probe.first_grads)
+            del probe.state, probe.first_grads
+            _collect(torch)
+        with open(os.path.join(tmp, f"rank{rank}.json"), "w") as f:
+            json.dump(out, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def _one_card_run(torch, wrappers, ts, finetune, argv: list, rows: int):
+    """The one-card finetune a mesh run is held against, in this process →
+    (its probe's timing, its last state)."""
+    _reset_counts(wrappers)
+    torch.cuda.reset_peak_memory_stats()
+    with _StepProbe(torch, ts, keep_grads=True) as probe:
+        finetune.main(_without_mesh(argv))
+    torch.cuda.synchronize()
+    run = {**probe.timing(rows), "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "launches": _counts(wrappers)}
+    return run, probe
+
+
+def _check_train_mesh_ranks(ranks: list, cfg) -> None:
+    """Both ranks log the same losses; exact forward and backward attention
+    launches a rank, at the rank's local heads; no quant kernel."""
+    from sesameai_tts_tpu_torch.parallel.mesh import tp_heads
+
+    per_pass = cfg.backbone.num_layers + cfg.decoder.num_layers
+    bb = cfg.backbone
+    for name, run in ranks[0]["runs"].items():
+        n = 1 if name == "lora" else 2  # the run's tp
+        want_heads = sorted([len(h) for h in tp_heads(t.num_heads, t.num_kv_heads, n, 0)]
+                            + [t.head_dim] for t in (bb, cfg.decoder))
+        other = ranks[1]["runs"][name]
+        _check(run["losses"] == other["losses"] and run["grad_norms"] == other["grad_norms"],
+               f"main[train_mesh] {name}: the ranks logged different losses "
+               f"{run['losses']} / {other['losses']}")
+        for r in ranks:
+            got = r["runs"][name]
+            steps = len(got["losses"])
+            remat = bb.num_layers * steps if name == "lora" else 0
+            want = {"flash_attention": per_pass * (steps + got["eval_batches"]) + remat,
+                    "flash_attention_bwd": per_pass * steps}
+            launched = {k: got["launches"][k] for k in want}
+            _check(launched == want, f"main[train_mesh] {name} rank {r['rank']}: launches "
+                                     f"{launched}, want {want}")
+            _check(all(got["launches"][k] == 0 for k in ("quant_matmul", "quant4_matmul",
+                                                          "quant_mlp")),
+                   f"main[train_mesh] {name}: a quant kernel ran: {got['launches']}")
+            _check(got["heads"] == want_heads, f"main[train_mesh] {name} rank {r['rank']}: "
+                                               f"attention at {got['heads']}, want {want_heads}")
+
+
+def phase_train_mesh(torch, wrappers, card: str) -> dict:
+    """main[train_mesh]: ``sesame-tts-torch-finetune --mesh`` at CSM-1B full
+    width (the random init of seed 0, the bench tokenizer, the clips of
+    main[train]) on worlds of two ranks that this script spawns and that
+    share the one card over gloo (NCCL refuses two ranks on one card; a
+    dense dp gradient all_reduce at full width through the host is not run).
+    One world of two ranks runs the three finetunes, each on its own mesh.
+
+    (a) dense at dp 1, tp 2: one f32 step at B 1 × 256 against the one-card
+    f32 step on the same batch (loss within ``TRAIN_MESH_LOSS_RTOL``,
+    ``grad_norm`` within ``TRAIN_MESH_NORM_RTOL``); then ``--dtype mixed``
+    at B 2 × 256 for ``TRAIN_STEPS`` steps (both ranks log the same losses,
+    the last below the first), its TrainState checkpoint and export
+    gathered by rank 0;
+    (b) LoRA rank 16 at dp 2, tp 1, f32 with ``--remat``: the first
+    update's gradient (summed over dp) within ``TRAIN_MESH_LORA_GRAD_TOL``
+    of a one-process run's on the same global batch, the per-step losses
+    within ``TRAIN_MESH_LORA_LOSS_RTOL``, the final adapters bit-equal on
+    both ranks and within ``TRAIN_MESH_LORA_TOL`` of the one process's;
+    (c) the gathered export of (a) served by a one-card int8 Generator;
+    exact attention launches a rank (forward and backward, at the rank's
+    local heads), the step times, peak memory and collectives a rank."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from sesameai_tts_tpu_torch.core.config import csm_1b
+    from sesameai_tts_tpu_torch.core.weights import load_pytree
+    from sesameai_tts_tpu_torch.runtime.loader import build_generator, csm_1b_spec
+    from sesameai_tts_tpu_torch.training import finetune
+    from sesameai_tts_tpu_torch.training import train_step as ts
+
+    t_phase = time.perf_counter()
+    cfg = csm_1b()
+    tokenizer = os.path.join(HERE, "sesameai_tts_tpu_torch", "assets", "bench_tokenizer.json")
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_train_mesh_")
+    saved_cudnn = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    print(f"main[train_mesh]: two ranks share the one card ({card}) over backend=gloo, "
+          "spawned by this script", flush=True)
+    result = {"card": card}
+    try:
+        data = _write_clips(os.path.join(tmp, "clips"))
+        runs = _train_mesh_runs(data, tmp)
+        t0 = time.perf_counter()
+        ranks = _run_world(torch, 2, "train", _train_mesh_rank, (data, tmp),
+                           TRAIN_MESH_TIMEOUT_S)
+        world_s = time.perf_counter() - t0
+        _check_train_mesh_ranks(ranks, cfg)
+        # (a) dense, dp 1 tp 2
+        f32_argv = runs["f32"][0]
+        one, probe = _one_card_run(torch, wrappers, ts, finetune, f32_argv, 256)
+        del probe
+        _collect(torch)
+        mesh_f32 = ranks[0]["runs"]["f32"]
+        parity = {"loss_mesh": mesh_f32["losses"][0], "loss_one_card": one["losses"][0],
+                  "grad_norm_mesh": mesh_f32["grad_norms"][0],
+                  "grad_norm_one_card": one["grad_norms"][0]}
+        parity["loss_rel_err"] = abs(parity["loss_mesh"] - parity["loss_one_card"]) / abs(
+            parity["loss_one_card"])
+        parity["grad_norm_rel_err"] = abs(parity["grad_norm_mesh"]
+                                          - parity["grad_norm_one_card"]) / abs(
+            parity["grad_norm_one_card"])
+        mixed = ranks[0]["runs"]["mixed"]
+        a = {"world_s": world_s, "f32_parity": parity,
+             "f32_one_card": {k: one[k] for k in ("fwd_bwd_s", "optimizer_s", "peak_mem_gb")},
+             "per_rank": [{name: {k: v for k, v in r["runs"][name].items() if k != "launches"}
+                           for name in ("f32", "mixed")} for r in ranks],
+             "launches_rank0": {name: ranks[0]["runs"][name]["launches"]
+                                for name in ("f32", "mixed")}}
+        dense = os.path.join(tmp, "dense")
+        ckpt = sorted(n for n in os.listdir(dense) if n.startswith("step_"))
+        a["checkpoint_gb"] = [os.path.getsize(os.path.join(dense, n)) / 1e9 for n in ckpt]
+        print("main[train_mesh] (a) dp 1 tp 2 " + json.dumps(a), flush=True)
+        _check(parity["loss_rel_err"] <= TRAIN_MESH_LOSS_RTOL,
+               f"main[train_mesh] (a): the f32 tp 2 loss differs from one card's {parity}")
+        _check(parity["grad_norm_rel_err"] <= TRAIN_MESH_NORM_RTOL,
+               f"main[train_mesh] (a): the f32 tp 2 grad_norm differs from one card's {parity}")
+        losses = mixed["losses"]
+        _check(len(losses) == TRAIN_STEPS and all(np.isfinite(losses)) and losses[-1] < losses[0],
+               f"main[train_mesh] (a): the mixed tp 2 finetune's losses {losses}")
+        result["a"] = a
+        _check(ckpt == [f"step_{TRAIN_STEPS:08d}"], f"main[train_mesh] (a): checkpoints {ckpt}")
+        os.remove(os.path.join(dense, ckpt[0]))  # 19 GB of f32 params and moments
+
+        # (b) LoRA, dp 2 tp 1
+        one, probe = _one_card_run(torch, wrappers, ts, finetune, runs["lora"][0], 512)
+        want = [t.float().cpu() for t in ts.tree_leaves(probe.state.params)]
+        want_grads = [t.float().cpu() for t in ts.tree_leaves(probe.first_grads)]
+        del probe
+        _collect(torch)
+
+        def rel_errs(got, want):
+            return [((g.float() - w).abs().max() / w.abs().max().clamp_min(1e-30)).item()
+                    for g, w in zip(got, want)]
+
+        adapters = [ts.tree_leaves(load_pytree(os.path.join(tmp, f"adapters_rank{r}")))
+                    for r in range(2)]
+        grads = ts.tree_leaves(load_pytree(os.path.join(tmp, "grads_rank0")))
+        bit_equal = all(torch.equal(x, y) for x, y in zip(*adapters))
+        errs, grad_errs = rel_errs(adapters[0], want), rel_errs(grads, want_grads)
+        lora = ranks[0]["runs"]["lora"]
+        loss_errs = [abs(x - y) / abs(y) for x, y in zip(lora["losses"], one["losses"])]
+        b = {"adapters_bit_equal_across_ranks": bit_equal,
+             "adapter_leaves": len(want), "adapter_max_rel_err": max(errs),
+             "first_grad_max_rel_err": max(grad_errs),
+             "loss_rel_errs": loss_errs, "losses_one_process": one["losses"],
+             "one_process": {k: one[k] for k in ("fwd_bwd_s", "optimizer_s", "peak_mem_gb",
+                                                 "steps_per_s")},
+             "per_rank": [{k: v for k, v in r["runs"]["lora"].items() if k != "launches"}
+                          for r in ranks],
+             "launches_rank0": lora["launches"]}
+        print("main[train_mesh] (b) dp 2 tp 1 lora " + json.dumps(b), flush=True)
+        _check(bit_equal, "main[train_mesh] (b): the ranks' adapters differ")
+        _check(len(adapters[0]) == len(want) == len(grads)
+               and max(grad_errs) <= TRAIN_MESH_LORA_GRAD_TOL
+               and max(errs) <= TRAIN_MESH_LORA_TOL
+               and max(loss_errs) <= TRAIN_MESH_LORA_LOSS_RTOL,
+               f"main[train_mesh] (b): the dp 2 LoRA run differs from one process: the "
+               f"first gradient {max(grad_errs)}, the adapters {max(errs)} of a leaf's "
+               f"peak, losses {loss_errs}")
+        result["b"] = b
+
+        # (c) the gathered export of (a), served on one card (int8)
+        t0 = time.perf_counter()
+        gen = build_generator(csm_1b_spec(csm_checkpoint=os.path.join(dense, "params"),
+                                          tokenizer=tokenizer), device="cuda")
+        built_s = time.perf_counter() - t0
+        pcm = gen.generate("The model trained on two ranks speaks.", 0, [],
+                           max_audio_length_ms=TRAIN_SERVE_MS, topk=1)
+        torch.cuda.synchronize()
+        result["c"] = {"build_s": built_s, "samples": int(pcm.size),
+                       "export_gb": os.path.getsize(os.path.join(dense, "params")) / 1e9,
+                       "rms": float(np.sqrt(np.mean(pcm.astype(np.float64) ** 2)))
+                       if pcm.size else 0.0}
+        print("main[train_mesh] (c) serve " + json.dumps(result["c"]), flush=True)
+        _check(pcm.size > 0 and bool(np.isfinite(pcm).all()),
+               "main[train_mesh] (c): the served export gave no or non-finite audio")
+        del gen
+        _collect(torch)
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = saved_cudnn
+        shutil.rmtree(tmp, ignore_errors=True)
+    result["phase_s"] = time.perf_counter() - t_phase
+    result["launches"] = ranks[0]["runs"]["mixed"]["launches"]
+    print("main[train_mesh] summary " + json.dumps({
+        "tp2_mixed_s_per_step_fwd_bwd": mixed["fwd_bwd_s"],
+        "tp2_mixed_s_per_step_optimizer": mixed["optimizer_s"],
+        "tp2_mixed_steps_per_s": mixed["steps_per_s"],
+        "tp2_mixed_peak_mem_gb_per_rank": [r["runs"]["mixed"]["peak_mem_gb"] for r in ranks],
+        "tp2_mixed_collectives_rank0": mixed["collectives"],
+        "dp2_lora_steps_per_s": lora["steps_per_s"],
+        "dp2_lora_peak_mem_gb_per_rank": [r["runs"]["lora"]["peak_mem_gb"] for r in ranks],
+        "dp2_lora_collectives_rank0": lora["collectives"],
+        "phase_s": result["phase_s"], "card": card}), flush=True)
+    return result
+
+
 def _collect(torch) -> None:
     """Free the device memory of generators the caller has dropped: a
     Generator holds a reference cycle (its tokenizer's audio encoder)."""
@@ -3079,22 +3422,45 @@ def phase_profile(torch, wrappers):
     (a torch.profiler session leaves the host slower at issuing kernels
     for the rest of the process, so no counted request may follow one):
     the window of one short request on the graphs and on the eager twin,
-    and the graphed step alone (``_graph_step``).  Then the sampler's
-    threshold search alone."""
+    and the graphed step alone (``_graph_step``), with the seconds each
+    part took.  The fused configuration runs on the int8 Generator's tree
+    (``build_generator`` quantizes both alike; only the MLP route differs),
+    so it is not drawn twice.  Then the sampler's threshold search alone."""
     from sesameai_tts_tpu_torch.runtime.loader import build_generator, csm_1b_spec
 
+    base = None
     for path, fields, _, _ in _PATHS:
-        gen = build_generator(csm_1b_spec(**fields), device="cuda")
+        seconds = {}
+        t0 = time.perf_counter()
+        if fields.get("fused_mlp"):
+            gen = _sibling(base, base._params, fused_mlp=True)
+        else:
+            gen = build_generator(csm_1b_spec(**fields), device="cuda")
         gen.warmup()
-        result = {"graphed": _profile_decode(torch, gen, wrappers),
-                  "step": _graph_step(torch, gen)}
+        seconds["build_and_warmup"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        result = {"graphed": _profile_decode(torch, gen, wrappers)}
+        seconds["graphed_window"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        result["step"] = _graph_step(torch, gen)
+        seconds["graph_step"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
         twin = _eager_twin(gen)
         twin.generate("warm up", 0, [], max_audio_length_ms=240, temperature=0.8, topk=40,
                       seed=7)
+        seconds["eager_twin_warmup"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
         result["eager"] = _profile_decode(torch, twin, wrappers)
+        seconds["eager_window"] = time.perf_counter() - t0
+        result["seconds"] = seconds
         print(f"profile[{path}] " + json.dumps(result), flush=True)
-        del gen, twin
+        del twin
+        if path == "int8":
+            base = gen
+        del gen
         _collect(torch)
+    del base
+    _collect(torch)
     print("sampler " + json.dumps(_sampler_timing(torch)), flush=True)
 
 
@@ -3169,8 +3535,9 @@ def _graph_step(torch, gen) -> dict:
     back-to-back replays of the backbone and sampling graphs from a
     ``_FRAME_CACHE_FILL``-row cache, timed by CUDA events (device ms per
     frame; the host only launches the graphs) and by the host's clock
-    until the last launch returns (the host's ms per frame), then the same
-    frames under the profiler, split by kernel kind per frame."""
+    until the last launch returns (the host's ms per frame), then the first
+    ``GRAPH_STEP_PROFILED_FRAMES`` of them under the profiler, split by
+    kernel kind per frame."""
     from torch.profiler import ProfilerActivity, profile
 
     from sesameai_tts_tpu_torch.models import csm
@@ -3178,8 +3545,8 @@ def _graph_step(torch, gen) -> dict:
     backbone, sample = gen._graphs[(1, "backbone", False)], gen._graphs[(1, "sample", False)]
     state, bufs = gen._slot(1)
 
-    def frames():
-        for _ in range(GRAPH_STEP_FRAMES):
+    def frames(n=GRAPH_STEP_FRAMES):
+        for _ in range(n):
             backbone.replay()
             sample.replay()
 
@@ -3198,7 +3565,7 @@ def _graph_step(torch, gen) -> dict:
         torch.cuda.synchronize()
         state.pos.fill_(_FRAME_CACHE_FILL)
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            frames()
+            frames(GRAPH_STEP_PROFILED_FRAMES)
             torch.cuda.synchronize()
         csm.load_state(state)
     kernels = _device_kernels(torch, prof)
@@ -3206,10 +3573,11 @@ def _graph_step(torch, gen) -> dict:
               "device_ms_per_frame_events": ms, "host_launch_ms_per_frame": host_ms}
     if kernels:
         result.update({
+            "profiled_frames": GRAPH_STEP_PROFILED_FRAMES,
             "profiled_kernel_ms_per_frame": sum(_dev_us(e) for e in kernels) / 1e3
-            / GRAPH_STEP_FRAMES,
-            "kernels_per_frame": sum(e.count for e in kernels) / GRAPH_STEP_FRAMES,
-            "split_per_frame": _split(kernels, GRAPH_STEP_FRAMES)})
+            / GRAPH_STEP_PROFILED_FRAMES,
+            "kernels_per_frame": sum(e.count for e in kernels) / GRAPH_STEP_PROFILED_FRAMES,
+            "split_per_frame": _split(kernels, GRAPH_STEP_PROFILED_FRAMES)})
     else:
         result["profiled"] = "no device kernels seen"
     return result
@@ -3427,6 +3795,14 @@ def _bwd_entry(rows, launches: dict, cfg) -> dict:
         return bb[key] * n_bb + dec[key] * n_dec
 
     backbone = next(r for r in rows if r["shape"] == "backbone S=256" and r["dtype"] == "bfloat16")
+    keys = ("kernel_ms", "plain_ms", "library_ms", "bound_ms")
+    shard = {r["shape"]: r for r in rows if "tp2 shard" in r["shape"] and r["dtype"] == "bfloat16"}
+    tp2 = {k: shard["backbone tp2 shard S=256"][k] * n_bb + shard["decoder tp2 shard S=32"][k]
+           * n_dec for k in keys}
+    tp2.update(launches=launches.get("train_mesh", {}).get("flash_attention_bwd"),
+               timed_as=f"device time summed over one main[train_mesh] (a) mixed step's "
+                        f"{n_bb} backbone calls at H 16 / KV 4 and {n_dec} decoder calls at "
+                        f"H 4 / KV 1 on one rank of a tp = 2 mesh (bf16)")
     entry = {
         "name": "flash_attention_bwd",
         "route": "cuda",
@@ -3445,8 +3821,8 @@ def _bwd_entry(rows, launches: dict, cfg) -> dict:
                    "torch.nn.functional.scaled_dot_product_attention call, boolean mask, "
                    "enable_gqa=True (its backward alone: CUDA-graph replays of forward and "
                    "backward less the forward's)",
-        "f32_step": {k: per_step(k, "float32") for k in ("kernel_ms", "plain_ms", "library_ms",
-                                                         "bound_ms")},
+        "f32_step": {k: per_step(k, "float32") for k in keys},
+        "tp2": tp2,
         "timed_as": f"device time (CUDA graph replay) summed over one main[train] step's "
                     f"{n_bb} backbone calls at S=256 and {n_dec} decoder calls at S=32 (bf16)",
         "shapes": [{k: r[k] for k in ("shape", "dtype", "S", "valid_end", "kernel_ms",
@@ -3554,8 +3930,11 @@ def main() -> int:
         training = timed("main[train]", phase_train, torch, wrappers, card)
         _collect(torch)
         mesh = timed("main[mesh]", phase_mesh, torch, wrappers, card)
+        _collect(torch)
+        train_mesh = timed("main[train_mesh]", phase_train_mesh, torch, wrappers, card)
         launches = {path: r["launches"] for path, r in paths.items()}
         launches["mesh"] = mesh["launches"]
+        launches["train_mesh"] = train_mesh["launches"]
         launches["train"] = training["full"]["launches"]
         launches["cli"] = cli["launches"]
         launches["serve"] = serving["traffic"]["launches"]

@@ -43,6 +43,16 @@ def tree_leaves(tree) -> list:
     return out
 
 
+def tree_paths(tree, prefix: tuple = ()) -> list:
+    """(key path, leaf) of every leaf of ``tree`` in ``tree_map``'s order: a
+    dict contributes its keys, a list or tuple its indices."""
+    if isinstance(tree, dict):
+        return [p for k, v in tree.items() for p in tree_paths(v, prefix + (k,))]
+    if isinstance(tree, (list, tuple)):
+        return [p for i, v in enumerate(tree) for p in tree_paths(v, prefix + (i,))]
+    return [] if tree is None else [(prefix, tree)]
+
+
 def to_device(tree, device):
     return tree_map(lambda t: t.to(device), tree)
 

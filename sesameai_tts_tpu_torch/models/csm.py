@@ -18,7 +18,9 @@ shards and the state holds this rank's kv heads (``init_state``'s
 by vocabulary rows: each rank looks up the rows it holds, zeros elsewhere,
 and one ``all_reduce`` sums the lookups before the frame's masked sum, so
 each value has one nonzero contributor and the embedding is bit-equal to
-the unsharded one.  The heads and the projection are replicated.
+the unsharded one.  The heads and the projection are replicated.  Every
+tp sum is ``parallel/autograd.py``'s ``reduce_from_tp``, so training on
+shards (``training/loss.py``) differentiates through it.
 """
 
 from __future__ import annotations
@@ -38,6 +40,7 @@ from sesameai_tts_tpu_torch.models.transformer import (
     transformer_forward,
 )
 from sesameai_tts_tpu_torch.ops.sampling import gumbel_noise, sample_topk
+from sesameai_tts_tpu_torch.parallel.autograd import reduce_from_tp
 from sesameai_tts_tpu_torch.parallel.mesh import local_heads, tp_rank, tp_size, trunk_group
 
 
@@ -120,14 +123,13 @@ def _local_lookup(table: torch.Tensor, ids: torch.Tensor, vocab: int,
     return table[local.clamp(0, table.shape[0] - 1)] * hit[..., None]
 
 
-def _lookup(table: torch.Tensor, ids: torch.Tensor, vocab: int,
-            tp: Optional[dist.ProcessGroup]) -> torch.Tensor:
-    """``table[ids]`` of a table of ``vocab`` rows, split over ``tp`` when given."""
+def lookup(table: torch.Tensor, ids: torch.Tensor, vocab: int,
+           tp: Optional[dist.ProcessGroup]) -> torch.Tensor:
+    """``table[ids]`` of a table of ``vocab`` rows, split over ``tp`` when
+    given (the local lookups summed by ``reduce_from_tp``)."""
     if tp is None:
         return table[ids]
-    rows = _local_lookup(table, ids, vocab, tp)
-    dist.all_reduce(rows, group=tp)
-    return rows
+    return reduce_from_tp(_local_lookup(table, ids, vocab, tp), tp)
 
 
 def embed_frames(params: dict, cfg: CSMConfig, tokens: torch.Tensor,
@@ -145,12 +147,11 @@ def embed_frames(params: dict, cfg: CSMConfig, tokens: torch.Tensor,
         text_emb = params["text_embeddings"][tokens[..., K]][..., None, :]  # (B, S, 1, D)
         embeds = torch.cat([audio_emb, text_emb], dim=-2)
     else:
-        embeds = torch.cat([
+        embeds = reduce_from_tp(torch.cat([
             _local_lookup(params["audio_embeddings"], audio_tok,
                           cfg.audio_vocab_size * K, tp),
             _local_lookup(params["text_embeddings"], tokens[..., K:],
-                          cfg.text_vocab_size, tp)], dim=-2)
-        dist.all_reduce(embeds, group=tp)
+                          cfg.text_vocab_size, tp)], dim=-2), tp)
     return (embeds * tokens_mask[..., None]).sum(dim=-2)
 
 
@@ -249,7 +250,7 @@ def _decode_codebooks(
     prev_c = c0
     cs = []
     for i in range(K - 1):
-        emb = _lookup(params["audio_embeddings"], prev_c + i * cfg.audio_vocab_size,
+        emb = lookup(params["audio_embeddings"], prev_c + i * cfg.audio_vocab_size,
                       cfg.audio_vocab_size * K, tp)
         h = dec_step((emb[:, None, :] @ params["projection"]).to(dtype), i + 1)
         logits = _head_logits(h, params["audio_head"][i])

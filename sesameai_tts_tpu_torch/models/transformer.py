@@ -20,7 +20,9 @@ shards of the layer's weights (``parallel/mesh.py`` gives the layout): its
 q heads and the kv heads they read, its slice of the MLP, and the matching
 rows of ``o_proj`` and ``w2``.  The layer then runs on the local heads and
 sums the attention output's and the MLP's partial products with one
-``all_reduce`` each.  Without a group the ops are the single-card ones.
+``all_reduce`` each (``parallel/autograd.py``'s g); the gradient of the
+normed input that enters ``qkv`` and ``w13`` is summed over the group in
+the backward pass (f).  Without a group the ops are the single-card ones.
 """
 
 from __future__ import annotations
@@ -35,6 +37,7 @@ import torch.utils.checkpoint
 from sesameai_tts_tpu_torch.core.config import RoPEConfig, TransformerConfig
 from sesameai_tts_tpu_torch.ops.attention import flash_attention
 from sesameai_tts_tpu_torch.ops.quant import qdot, qmlp
+from sesameai_tts_tpu_torch.parallel.autograd import copy_to_tp, reduce_from_tp
 from sesameai_tts_tpu_torch.parallel.mesh import local_heads, trunk_group
 
 
@@ -136,9 +139,11 @@ def transformer_forward(
     and the mask is the JAX package's ``tril & (key < valid_len)`` over the
     window (attention at ``pos0 = 0``, RoPE at the real positions); the
     result is ``(h, None)``.  ``remat`` wraps each layer in a non-reentrant
-    ``torch.utils.checkpoint``, as ``jax.checkpoint`` per layer.  With
-    ``tp`` the params and cache are this rank's shards (module docstring); a
-    replicated (int4) trunk runs whole on every rank."""
+    ``torch.utils.checkpoint``, as ``jax.checkpoint`` per layer; under ``tp`` the recomputed
+    forward issues its all_reduces again inside the backward pass, in the
+    same order on every rank.  With ``tp`` the params and cache are this
+    rank's shards (module docstring); a replicated (int4) trunk runs whole
+    on every rank."""
     B, S, D = x.shape
     positions = pos0[:, None] + torch.arange(S, device=x.device)[None, :]  # (B, S)
     rope_win = rope_cs[positions]  # (B, S, hd/2, 2)
@@ -155,7 +160,7 @@ def transformer_forward(
         valid_end = pos0 + (valid_len if valid_len is not None else S)
 
     def layer(h, wl, lk=None, lv=None):
-        hn = rms_norm(h, wl["attn_norm"], cfg.norm_eps)
+        hn = copy_to_tp(rms_norm(h, wl["attn_norm"], cfg.norm_eps), tp)
         qkv = qdot(hn, wl["qkv"])
         q = qkv[..., : H * hd].reshape(B, S, H, hd)
         k = qkv[..., H * hd : (H + KV) * hd].reshape(B, S, KV, hd)
@@ -170,14 +175,9 @@ def transformer_forward(
             _update_cache(lv, v, positions)
         attn = flash_attention(q, lk, lv, attn_pos0, valid_end)
         out = qdot(attn.transpose(1, 2).reshape(B, S, H * hd), wl["o_proj"])
-        if tp is not None:
-            dist.all_reduce(out, group=tp)
-        h = h + out
-        hn = rms_norm(h, wl["mlp_norm"], cfg.norm_eps)
-        out = qmlp(hn, wl["w13"], wl["w2"], fused=fused_mlp)
-        if tp is not None:
-            dist.all_reduce(out, group=tp)
-        return h + out
+        h = h + reduce_from_tp(out, tp)
+        hn = copy_to_tp(rms_norm(h, wl["mlp_norm"], cfg.norm_eps), tp)
+        return h + reduce_from_tp(qmlp(hn, wl["w13"], wl["w2"], fused=fused_mlp), tp)
 
     h = x
     if cache is None:

@@ -33,6 +33,12 @@ columns to be whole heads.  Rank r of a tp group of n holds:
     rank may hold fewer).
   * an int8 leaf's ``scale`` follows its weight's columns; a row-sharded
     weight's scale is replicated (it covers every row).
+
+For training: ``gather_params`` / ``all_gather_params`` put every rank's
+shards (params, Adam moments or gradients) back into the full tree, the
+inverse of ``local_shard``; ``kv_replica_group`` is the subgroup of tp
+ranks that share a kv head; ``shard_batch`` gives a dp rank its rows of a
+global batch (``dp_rows``: microbatch by microbatch under accumulation).
 """
 
 from __future__ import annotations
@@ -43,6 +49,7 @@ import torch
 import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh
 
+from sesameai_tts_tpu_torch.convert import tree_map, tree_paths
 from sesameai_tts_tpu_torch.ops.quant import is_quantized4
 
 
@@ -187,18 +194,42 @@ def shard_tensor(x: torch.Tensor, placement, n: int, r: int, key: Optional[str] 
     return x[tuple(sl)].clone(memory_format=torch.contiguous_format)
 
 
-def _shard_tree(params, specs, n: int, r: int, key=None, cfg=None):
-    if isinstance(params, dict) and not isinstance(specs, dict):
-        # a quantized leaf under its weight's placement: only a replicated one
-        # passes as it is; infer_param_specs gives a sharded one's scale
-        if not isinstance(specs, placements()[1]):
-            raise ValueError("a quantized leaf needs {'q', 'scale'} placements "
-                             "(parallel/infer.py::infer_param_specs)")
-        return params
-    if isinstance(params, dict):
-        return {k: _shard_tree(v, specs[k], n, r, k if k in ("qkv", "w13") else key, cfg)
-                for k, v in params.items()}
-    return shard_tensor(params, specs, n, r, key, cfg)
+_FUSED = ("qkv", "w13")
+
+
+def placement_at(specs, path: tuple):
+    """The placement of the leaf at key ``path`` under ``specs``: a tree of
+    placements whose trunk ``"layers"`` entry is one dict for every layer
+    (``csm_param_specs``) or a tuple of them (``infer_param_specs``).  A
+    quantized leaf (``{"q", "scale"}``) under a single placement must be
+    replicated."""
+    spec = specs
+    for p in path:
+        if not isinstance(spec, (dict, tuple, list)):
+            if not isinstance(spec, placements()[1]):
+                raise ValueError("a quantized leaf needs {'q', 'scale'} placements "
+                                 "(parallel/infer.py::infer_param_specs)")
+            break
+        if isinstance(p, int) and isinstance(spec, dict):
+            continue  # one placement dict serves every layer
+        spec = spec[p]
+    return spec
+
+
+def _map_placed(fn, trees: list, cfg, specs):
+    """``fn(leaves, placement, key, trunk_cfg)`` at every leaf of the
+    same-shaped CSM trees ``trees`` → the tree of its results.  ``key`` is
+    ``"qkv"`` or ``"w13"`` inside a fused trunk leaf (its quant parts
+    included), ``trunk_cfg`` the trunk's config inside a trunk."""
+    paths = iter(tree_paths(trees[0]))
+
+    def leaf(*xs):
+        path, _ = next(paths)
+        key = next((p for p in path if p in _FUSED), None)
+        tcfg = getattr(cfg, path[0]) if path[0] in ("backbone", "decoder") else None
+        return fn(xs, placement_at(specs, path), key, tcfg)
+
+    return tree_map(leaf, *trees)
 
 
 def local_shard(params: dict, cfg, n: int, r: int, specs: Optional[dict] = None) -> dict:
@@ -210,22 +241,85 @@ def local_shard(params: dict, cfg, n: int, r: int, specs: Optional[dict] = None)
         from sesameai_tts_tpu_torch.parallel.infer import infer_param_specs
 
         specs = infer_param_specs(params)
-    out = {}
-    for name, value in params.items():
-        spec = specs[name]
-        if name in ("backbone", "decoder"):
-            tcfg = getattr(cfg, name)
-            lspecs = spec["layers"]
-            per_layer = lspecs if isinstance(lspecs, (tuple, list)) else [lspecs] * len(
-                value["layers"])
-            out[name] = {
-                "layers": tuple(_shard_tree(wl, ls, n, r, cfg=tcfg)
-                                for wl, ls in zip(value["layers"], per_layer)),
-                "final_norm": shard_tensor(value["final_norm"], spec["final_norm"], n, r),
-            }
-        else:
-            out[name] = _shard_tree(value, spec, n, r)
+    return _map_placed(lambda xs, p, key, tcfg: shard_tensor(xs[0], p, n, r, key, tcfg),
+                       [params], cfg, specs)
+
+
+def join_shards(parts: list, placement, key: Optional[str] = None, cfg=None) -> torch.Tensor:
+    """The full tensor from every rank's part of it (rank order), the inverse
+    of ``shard_tensor``: the first part of a replicated tensor; a fused
+    trunk leaf's columns put back where ``_columns`` took them (a kv head
+    held by several ranks is written by each, with the same values)."""
+    if isinstance(placement, placements()[1]) or len(parts) == 1:
+        return parts[0]
+    dim, n = placement.dim, len(parts)
+    if key not in _FUSED:
+        return torch.cat(parts, dim)
+    width = ((cfg.num_heads + 2 * cfg.num_kv_heads) * cfg.head_dim if key == "qkv"
+             else n * parts[0].shape[dim])
+    shape = list(parts[0].shape)
+    shape[dim] = width
+    out = parts[0].new_empty(shape)
+    for r, x in enumerate(parts):
+        out.index_copy_(dim, _columns(key, cfg, width, n, r).to(x.device), x)
     return out
+
+
+def gather_params(shards: list, cfg, specs: Optional[dict] = None) -> dict:
+    """The full CSM tree from every tp rank's shards of it (a list in rank
+    order; params, Adam moments or gradients), the inverse of
+    ``local_shard``."""
+    if specs is None:
+        from sesameai_tts_tpu_torch.parallel.infer import infer_param_specs
+
+        specs = infer_param_specs(shards[0])
+    return _map_placed(lambda xs, p, key, tcfg: join_shards(list(xs), p, key, tcfg),
+                       shards, cfg, specs)
+
+
+def _all_gather(x: torch.Tensor, dim: int, group: dist.ProcessGroup) -> list:
+    """Every rank's ``x`` (which may differ in length along ``dim``: the last
+    rank's embedding rows), in rank order."""
+    n = dist.get_world_size(group)
+    # gloo passes a card's tensors through the host: gather them there
+    x = (x.cpu() if dist.get_backend(group) == "gloo" else x).contiguous()
+    length = torch.tensor([x.shape[dim]], device=x.device)
+    lengths = [torch.zeros_like(length) for _ in range(n)]
+    dist.all_gather(lengths, length, group=group)
+    lengths = [int(t) for t in lengths]
+    if max(lengths) > x.shape[dim]:
+        pad = list(x.shape)
+        pad[dim] = max(lengths) - x.shape[dim]
+        x = torch.cat([x, x.new_zeros(pad)], dim)
+    out = [torch.empty_like(x) for _ in range(n)]
+    dist.all_gather(out, x, group=group)
+    return [t.narrow(dim, 0, m) for t, m in zip(out, lengths)]
+
+
+def all_gather_params(local: dict, cfg, group: Optional[dist.ProcessGroup],
+                      specs: Optional[dict] = None, dst: Optional[int] = None):
+    """``gather_params`` across the ranks of ``group`` (every rank calls it
+    with its own shards) → a copy of the full tree on the host, leaf by
+    leaf, so that no more than one full leaf is on the device at a time.  With ``dst``
+    only that rank of the group gets the tree, the others None.  Without a
+    group the tree is the rank's own, on the host."""
+    n = 1 if group is None else dist.get_world_size(group)
+    keep = dst is None or n == 1 or dist.get_rank(group) == dst
+    if specs is None:
+        from sesameai_tts_tpu_torch.parallel.infer import infer_param_specs
+
+        specs = infer_param_specs(local)
+
+    def leaf(xs, placement, key, tcfg):
+        x = xs[0]
+        if n == 1 or isinstance(placement, placements()[1]):
+            # a copy: the tree is a snapshot of a state a step updates in place
+            return x.to("cpu", copy=True) if keep else None
+        parts = _all_gather(x, placement.dim, group)
+        return join_shards([t.cpu() for t in parts], placement, key, tcfg) if keep else None
+
+    full = _map_placed(leaf, [local], cfg, specs)
+    return full if keep else None
 
 
 def shard_params(params: dict, mesh: DeviceMesh, cfg, specs: Optional[dict] = None) -> dict:
@@ -233,9 +327,61 @@ def shard_params(params: dict, mesh: DeviceMesh, cfg, specs: Optional[dict] = No
     return local_shard(params, cfg, mesh.size(1), mesh.get_local_rank("tp"), specs)
 
 
+def dp_group(mesh: Optional[DeviceMesh]) -> Optional[dist.ProcessGroup]:
+    """The mesh's 'dp' group, or None without a mesh or with dp = 1."""
+    if mesh is None or mesh.size(0) == 1:
+        return None
+    return mesh.get_group("dp")
+
+
+def kv_replica_group(cfg, mesh: DeviceMesh) -> Optional[dist.ProcessGroup]:
+    """The ranks of this rank's tp group that hold its kv head, for a trunk
+    of config ``cfg`` with fewer kv heads than tp ranks (each then on
+    ``tp / KV`` consecutive ranks); None when every kv head is on one rank.
+    A collective: every rank of the mesh calls it, in the same order (it
+    makes the subgroups of every dp row)."""
+    n, KV = mesh.size(1), cfg.num_kv_heads
+    tp_heads(cfg.num_heads, KV, n, 0)  # raises for a tp the heads do not split
+    if n <= KV:
+        return None
+    per = n // KV
+    if per == n:
+        return mesh.get_group("tp")
+    mine, me = None, dist.get_rank()
+    for row in mesh.mesh.tolist():
+        for j in range(KV):
+            ranks = row[j * per:(j + 1) * per]
+            group = dist.new_group(ranks)
+            if me in ranks:
+                mine = group
+    return mine
+
+
+def dp_rows(batch_size: int, dp: int, d: int, accum_steps: int = 1) -> list:
+    """The rows of a global batch that dp rank d of ``dp`` holds: for each of
+    the ``accum_steps`` microbatches (rows ``[i·B/A, (i+1)·B/A)``, as the
+    train step splits them) its d-th 1/dp slice, microbatch by microbatch,
+    so the rank's i-th local microbatch is its part of global microbatch i.
+    Raises unless dp divides each microbatch."""
+    if batch_size % accum_steps or (batch_size // accum_steps) % dp:
+        raise ValueError(f"a batch of {batch_size} in {accum_steps} microbatches does not "
+                         f"split over dp={dp}")
+    mb = batch_size // accum_steps
+    part = mb // dp
+    return [i * mb + d * part + j for i in range(accum_steps) for j in range(part)]
+
+
+def shard_batch(batch, mesh: DeviceMesh, accum_steps: int = 1):
+    """This rank's rows (``dp_rows``) of a global batch (a NamedTuple of
+    numpy arrays or tensors with the batch first), as ``batch_sharding``
+    places it."""
+    rows = dp_rows(batch[0].shape[0], mesh.size(0), mesh.get_local_rank("dp"), accum_steps)
+    return type(batch)(*(x[rows] for x in batch))
+
+
 def batch_sharding(mesh: DeviceMesh) -> tuple:
     """The dp-row rule: the batch axis split over 'dp', replicated over 'tp'
-    (placements per mesh dim)."""
+    (placements per mesh dim); ``shard_batch`` cuts it."""
     Shard, Replicate = placements()
     return (Shard(0), Replicate())
 

@@ -100,20 +100,28 @@ def init_models(spec: ModelSpec, dtype: Optional[torch.dtype] = None):
     from ``torch.Generator().manual_seed(spec.seed)``, Mimi (at
     ``spec.mimi_dtype``) from a generator seeded ``mimi_seed(spec.seed)``,
     as the JAX loader splits its key into a CSM key and a Mimi key."""
+    return (init_csm(spec, dtype), *init_mimi(spec))
+
+
+def init_csm(spec: ModelSpec, dtype: Optional[torch.dtype] = None) -> dict:
+    """The CSM params on the host, as ``init_models`` makes them."""
     dtype = dtype or spec.dtype
     if spec.csm_checkpoint:
-        csm_params = load_csm_checkpoint(spec.csm_checkpoint, spec.csm, dtype)
-    else:
-        csm_params = init_csm_params(spec.csm, torch.Generator().manual_seed(spec.seed), dtype)
+        return load_csm_checkpoint(spec.csm_checkpoint, spec.csm, dtype)
+    return init_csm_params(spec.csm, torch.Generator().manual_seed(spec.seed), dtype)
+
+
+def init_mimi(spec: ModelSpec):
+    """(Mimi, Mimi params) on the host, as ``init_models`` makes them."""
     mimi = Mimi(spec.mimi)
     mimi_params = mimi.init(torch.Generator().manual_seed(mimi_seed(spec.seed)),
                             spec.mimi_dtype)
     if spec.mimi_checkpoint:
         mimi_params = load_pytree(spec.mimi_checkpoint, like=mimi_params)
-    return csm_params, mimi, mimi_params
+    return mimi, mimi_params
 
 
-def _mesh_device(device):
+def rank_device(device):
     """A rank's card: ``cuda:<LOCAL_RANK>`` for a bare ``"cuda"`` (one process
     per card), else the device the caller gave (ranks sharing one card)."""
     if str(device) == "cuda":
@@ -141,7 +149,7 @@ def build_generator(spec: ModelSpec, device="cuda", mesh=None, **gen_kwargs) -> 
     its Generator.  With ``mesh`` (``parallel/mesh.py::make_mesh``) the
     Generator runs tensor- and data-parallel on it, and this rank's device
     is ``cuda:<LOCAL_RANK>`` unless ``device`` names one."""
-    device = resolve_device(device) if mesh is None else _mesh_device(device)
+    device = resolve_device(device) if mesh is None else rank_device(device)
     if spec.quantize not in (None, "int8", "int4"):
         raise ValueError(f"quantize={spec.quantize!r}: use None, 'int8' or 'int4'")
     if spec.fused_mlp and spec.quantize != "int8":

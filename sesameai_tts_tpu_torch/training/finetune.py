@@ -1,15 +1,17 @@
 """Finetuning CLI: dataset directory → trained CSM checkpoint (port of
-``sesameai_tts_tpu/training/finetune.py``; the ``--mesh`` option belongs
-to the parallel slice).  On the card unless ``-d cpu``.
+``sesameai_tts_tpu/training/finetune.py``).  On the card unless ``-d cpu``.
 
     sesame-tts-torch-finetune --data clips/ --flavor test-tiny --steps 50 \\
         --ckpt-dir ckpt/run1 --save-every 25 -d cpu
+    torchrun --nproc-per-node 2 -m sesameai_tts_tpu_torch.training.finetune \\
+        --data clips/ --flavor test-tiny --mesh 1,2 -d cpu
 
 * dataset: ``metadata.json`` or ``.txt`` sidecars next to WAVs
   (``training/data.py::load_directory``), resampled to 24 kHz;
 * the codec and a random init are drawn as ``runtime/loader.py::
-  build_generator`` draws them (``loader.init_models``: the CSM params and
-  Mimi from generators of their own, both from the spec's seed), so a run
+  build_generator`` draws them (``loader.init_csm`` and ``init_mimi``: the
+  CSM params and Mimi from generators of their own, both from the spec's
+  seed, each drawn once), so a run
   without checkpoints trains against the codec that its export is served
   with;
 * training dtype is f32 by default; ``--dtype mixed`` keeps f32 params and
@@ -23,7 +25,17 @@ to the parallel slice).  On the card unless ``-d cpu``.
   ``ModelSpec.csm_checkpoint``;
 * ``--lora-rank N`` trains rank-N adapters over the trunk linears instead
   of the full model (``training/lora.py``); the export is the MERGED dense
-  tree, so it serves like a full finetune's.
+  tree, so it serves like a full finetune's;
+* ``--mesh dp,tp`` trains on a ('dp', 'tp') mesh of ranks (``parallel/``,
+  ``training/train_step.py``): a dense state as each rank's tp shards, or
+  a LoRA base as shards under replicated adapters, each rank taking its dp
+  rows of the seeded batches, so it trains as one process on the whole
+  batch does.  Each rank of ``torchrun`` joins the process group from its
+  environment (on cards, a card a rank: ``cuda:<LOCAL_RANK>``); a caller
+  that joined one itself (ranks sharing a card over gloo) keeps it.  Rank
+  0 logs and writes the checkpoints and the export, all of the logical
+  tree, so a mesh run resumes on any mesh and its export serves on one
+  card.  A dense ``--csm-checkpoint`` with ``--mesh`` is refused.
 """
 
 from __future__ import annotations
@@ -36,7 +48,15 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed
 
+from sesameai_tts_tpu_torch.parallel.infer import tp_group
+from sesameai_tts_tpu_torch.parallel.mesh import (
+    all_gather_params,
+    csm_param_specs,
+    shard_batch,
+    shard_params,
+)
 from sesameai_tts_tpu_torch.training import checkpoint as ckpt_lib
 from sesameai_tts_tpu_torch.training.data import (
     BatchLoader,
@@ -51,18 +71,9 @@ from sesameai_tts_tpu_torch.training.train_step import (
     make_lora_eval_step,
     make_lora_train_step,
     make_optimizer,
+    make_sharded_train_state,
     make_train_step,
 )
-
-
-def init_models(spec, dtype):
-    """(CSM params, Mimi, Mimi params) on the host, drawn or read as
-    ``build_generator`` does (``runtime/loader.py::init_models``), the CSM
-    params at ``dtype``: an export of this run decodes with the codec it
-    trained against."""
-    from sesameai_tts_tpu_torch.runtime import loader
-
-    return loader.init_models(spec, dtype)
 
 
 def build_frame_tokenizer(spec, mimi, mimi_params, device):
@@ -86,16 +97,45 @@ def build_frame_tokenizer(spec, mimi, mimi_params, device):
                           spec.csm.audio_num_codebooks)
 
 
+def _join_mesh(args, spec, device):
+    """``--mesh dp,tp`` → (the mesh, this rank's device).  A dense finetune
+    over a ``--csm-checkpoint`` is refused before any init, as the JAX CLI
+    refuses it; the process group is joined from torchrun's environment
+    unless the caller has joined one."""
+    from sesameai_tts_tpu_torch.parallel.distributed import initialize_multihost
+    from sesameai_tts_tpu_torch.parallel.mesh import make_mesh
+    from sesameai_tts_tpu_torch.runtime.loader import rank_device
+
+    try:
+        dp, tp = (int(x) for x in args.mesh.split(","))
+    except ValueError:
+        raise SystemExit(f"--mesh {args.mesh!r}: give dp,tp (e.g. 1,2)") from None
+    if spec.csm_checkpoint and not args.lora_rank:
+        raise SystemExit("--mesh with --csm-checkpoint: a dense finetune on a mesh starts from "
+                         "the random init or resumes a TrainState with --resume (or use "
+                         "--lora-rank, which loads the base directly)")
+    device = rank_device(device)
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+    if not torch.distributed.is_initialized():
+        initialize_multihost()
+    return make_mesh(dp, tp, device_type=device.type), device
+
+
 def finetune(args) -> dict:
     """Run the loop; returns the last metrics as floats (CLI + tests entry)."""
     from sesameai_tts_tpu_torch.convert import to_device
     from sesameai_tts_tpu_torch.core.weights import save_pytree
     from sesameai_tts_tpu_torch.runtime.generator import resolve_device
-    from sesameai_tts_tpu_torch.runtime.loader import csm_1b_spec, test_tiny_spec
+    from sesameai_tts_tpu_torch.runtime.loader import (
+        csm_1b_spec,
+        init_csm,
+        init_mimi,
+        test_tiny_spec,
+    )
 
     if args.resume and not args.ckpt_dir:
         raise SystemExit("--resume requires --ckpt-dir")
-    device = resolve_device(args.device)
 
     if args.flavor == "test-tiny":
         spec = test_tiny_spec()
@@ -103,13 +143,21 @@ def finetune(args) -> dict:
         spec = csm_1b_spec(csm_checkpoint=args.csm_checkpoint,
                            mimi_checkpoint=args.mimi_checkpoint, tokenizer=args.tokenizer,
                            quantize=None)  # training runs dense; quantize at serve time
+    mesh = None
+    if args.mesh:
+        mesh, device = _join_mesh(args, spec, args.device)
+    else:
+        device = resolve_device(args.device)
+    lead = mesh is None or mesh.get_rank() == 0  # logs and writes the files
+    log = print if lead else (lambda *a, **kw: None)
 
     # 'mixed' = f32 master params + Adam moments, bf16 forward/backward
     # (the cast happens inside the differentiated step)
     dtype = {"f32": torch.float32, "bf16": torch.bfloat16, "mixed": torch.float32}[args.dtype]
     compute_dtype = torch.bfloat16 if args.dtype == "mixed" else None
-    params, mimi, mimi_params = init_models(spec, dtype)
+    mimi, mimi_params = init_mimi(spec)
     ftok = build_frame_tokenizer(spec, mimi, mimi_params, device)
+    del mimi_params
     segments = load_directory(args.data, sample_rate=spec.mimi.sample_rate)
     buckets = tuple(int(b) for b in args.buckets.split(","))
     # rows past max_seq_len have no RoPE row: buckets beyond it are dropped
@@ -120,8 +168,8 @@ def finetune(args) -> dict:
         kept = tuple(b for b in buckets if b <= max_pos)
         if not kept:
             raise SystemExit(f"every --buckets value exceeds the backbone's max_seq_len {max_pos}")
-        print(f"buckets > max_seq_len {max_pos} dropped: {[b for b in buckets if b > max_pos]} "
-              f"(over-length clips are skipped with a count)", file=sys.stderr)
+        log(f"buckets > max_seq_len {max_pos} dropped: {[b for b in buckets if b > max_pos]} "
+            f"(over-length clips are skipped with a count)", file=sys.stderr)
         buckets = kept
     eval_segments: list = []
     if args.eval_frac > 0 and len(segments) > 1:
@@ -130,38 +178,48 @@ def finetune(args) -> dict:
         n_eval = min(max(1, round(len(segments) * args.eval_frac)), len(segments) - 1)
         eval_segments = [segments[i] for i in order[:n_eval]]
         segments = [segments[i] for i in order[n_eval:]]
+    # every rank of a mesh runs the same seeded loader and keeps its rows
     loader = BatchLoader(segments, ftok, LoaderConfig(batch_size=args.batch_size,
                                                       buckets=buckets, seed=args.seed))
     if loader.dropped:
-        print(f"dropped {loader.dropped} over-length examples", file=sys.stderr)
+        log(f"dropped {loader.dropped} over-length examples", file=sys.stderr)
     eval_loader = None
     if eval_segments:
         try:
             eval_loader = BatchLoader(eval_segments, ftok, LoaderConfig(
                 batch_size=args.batch_size, buckets=buckets, seed=args.seed, shuffle=False))
         except ValueError:
-            print("eval split has no usable examples (all over-length); eval disabled",
-                  file=sys.stderr)
+            log("eval split has no usable examples (all over-length); eval disabled",
+                file=sys.stderr)
 
     warmup = args.warmup
     if warmup >= args.steps:
         # a run that never leaves warmup peaks on its last update: clamp
         warmup = max(1, args.steps // 10)
-        print(f"warmup {args.warmup} >= steps {args.steps}; clamped to {warmup}",
-              file=sys.stderr)
+        log(f"warmup {args.warmup} >= steps {args.steps}; clamped to {warmup}",
+            file=sys.stderr)
     tx = make_optimizer(args.lr, args.weight_decay, warmup, total_steps=args.steps)
-    params = to_device(params, device)
     base_params = None  # the frozen base in LoRA mode
-    if args.lora_rank:
-        from sesameai_tts_tpu_torch.training.lora import init_lora_params
-
-        base_params = params
-        lora = init_lora_params(torch.Generator().manual_seed(args.seed + 1), base_params,
-                                args.lora_rank, tuple(args.lora_targets.split(",")), dtype)
-        state = init_train_state(lora, tx)
+    if mesh is not None and not args.lora_rank:
+        state = make_sharded_train_state(torch.Generator().manual_seed(spec.seed), spec.csm,
+                                         mesh, tx, dtype, device)
     else:
-        state = init_train_state(params, tx)
-    del params
+        params = init_csm(spec, dtype)
+        if args.lora_rank:
+            from sesameai_tts_tpu_torch.training.lora import init_lora_params
+
+            # the adapters from the full tree's shapes, replicated on a mesh
+            lora = init_lora_params(torch.Generator().manual_seed(args.seed + 1), params,
+                                    args.lora_rank, tuple(args.lora_targets.split(",")), dtype)
+            if mesh is not None:
+                params = shard_params(params, mesh, spec.csm)
+            base_params = to_device(params, device)
+            state = init_train_state(to_device(lora, device), tx)
+        else:
+            state = init_train_state(to_device(params, device), tx)
+        del params
+    # a dense state on a mesh is this rank's shards of the logical tree
+    sharded_cfg = spec.csm if mesh is not None and not args.lora_rank else None
 
     if args.resume:
         path = ckpt_lib.latest_checkpoint(args.ckpt_dir)
@@ -170,19 +228,24 @@ def finetune(args) -> dict:
             # directory they thought held their run is the worst outcome
             raise SystemExit(f"--resume: no checkpoint found in {args.ckpt_dir!r}; drop "
                              f"--resume to start fresh, or fix --ckpt-dir")
-        state = ckpt_lib.restore_checkpoint(path, state)
-        print(f"resumed from {path} (step {int(state.step)})", file=sys.stderr)
+        state = ckpt_lib.restore_checkpoint(path, state, mesh, sharded_cfg)
+        log(f"resumed from {path} (step {int(state.step)})", file=sys.stderr)
 
     if args.lora_rank:
         lora_step = make_lora_train_step(
             spec.csm, tx, alpha=args.lora_alpha, decoder_frames=args.decoder_frames,
             remat=args.remat, accum_steps=args.accum_steps, compute_dtype=compute_dtype,
-            subset_seed=args.seed)
+            subset_seed=args.seed, mesh=mesh)
         step_fn = lambda s, b: lora_step(s, base_params, b)  # noqa: E731
     else:
         step_fn = make_train_step(
             spec.csm, tx, decoder_frames=args.decoder_frames, remat=args.remat,
-            accum_steps=args.accum_steps, compute_dtype=compute_dtype, subset_seed=args.seed)
+            accum_steps=args.accum_steps, compute_dtype=compute_dtype, subset_seed=args.seed,
+            mesh=mesh)
+
+    def to_rank(b, accum_steps=1):
+        """A loader batch → this rank's rows of it, on the device."""
+        return batch_to(b if mesh is None else shard_batch(b, mesh, accum_steps), device)
 
     def epochs():
         while True:
@@ -196,11 +259,11 @@ def finetune(args) -> dict:
         if args.lora_rank:
             lora_eval = make_lora_eval_step(spec.csm, alpha=args.lora_alpha,
                                             decoder_frames=args.decoder_frames,
-                                            compute_dtype=compute_dtype)
+                                            compute_dtype=compute_dtype, mesh=mesh)
             eval_fn = lambda s, b: lora_eval(s.params, base_params, b)  # noqa: E731
         else:
             dense_eval = make_eval_step(spec.csm, args.decoder_frames,
-                                        compute_dtype=compute_dtype)
+                                        compute_dtype=compute_dtype, mesh=mesh)
             eval_fn = lambda s, b: dense_eval(s.params, b)  # noqa: E731
 
     def evaluate(state) -> float:
@@ -209,7 +272,7 @@ def finetune(args) -> dict:
         tot = w = 0.0
         for b in eval_loader:
             rows = float(np.asarray(b.mask[..., 0] & b.loss_mask).sum())
-            tot += float(eval_fn(state, batch_to(b, device))["loss"]) * rows
+            tot += float(eval_fn(state, to_rank(b))["loss"]) * rows
             w += rows
         return tot / max(w, 1.0)
 
@@ -220,36 +283,45 @@ def finetune(args) -> dict:
     for batch in prefetch(batches, depth=2):
         if int(state.step) >= args.steps:
             break
-        state, metrics = step_fn(state, batch_to(batch, device))
+        state, metrics = step_fn(state, to_rank(batch, args.accum_steps))
         step = int(state.step)  # one host sync per step
         if step % args.log_every == 0 or step == args.steps:
             rate = (step - start) / max(time.time() - t0, 1e-9)
-            print(f"step {step}/{args.steps} loss {float(metrics['loss']):.4f} "
-                  f"(c0 {float(metrics['c0_loss']):.4f} dec "
-                  f"{float(metrics['decoder_loss']):.4f}) {rate:.2f} steps/s", file=sys.stderr)
+            log(f"step {step}/{args.steps} loss {float(metrics['loss']):.4f} "
+                f"(c0 {float(metrics['c0_loss']):.4f} dec "
+                f"{float(metrics['decoder_loss']):.4f}) {rate:.2f} steps/s", file=sys.stderr)
         if eval_fn and args.eval_every and step % args.eval_every == 0:
-            print(f"step {step} eval_loss {evaluate(state):.4f}", file=sys.stderr)
+            eval_loss = evaluate(state)
+            log(f"step {step} eval_loss {eval_loss:.4f}", file=sys.stderr)
         if args.ckpt_dir and step % args.save_every == 0:
-            ckpt_lib.save_checkpoint(args.ckpt_dir, state)
+            ckpt_lib.save_checkpoint(args.ckpt_dir, state, mesh, sharded_cfg)
             last_saved_step = step
     if eval_fn is not None:
         metrics = dict(metrics)
         metrics["eval_loss"] = evaluate(state)
-        print(f"final eval_loss {metrics['eval_loss']:.4f}", file=sys.stderr)
+        log(f"final eval_loss {metrics['eval_loss']:.4f}", file=sys.stderr)
     if args.ckpt_dir:
         if last_saved_step != int(state.step):
             # the periodic save may already hold this step: a csm-1b
             # TrainState is ~25 GB rewritten for nothing otherwise
-            ckpt_lib.save_checkpoint(args.ckpt_dir, state)
+            ckpt_lib.save_checkpoint(args.ckpt_dir, state, mesh, sharded_cfg)
         # the params export always runs (the servable artifact); in LoRA
-        # mode the adapters are merged into the dense weights
+        # mode the adapters are merged into the dense weights; on a mesh
+        # the shards are gathered and rank 0 writes the full tree
         export = state.params
         if args.lora_rank:
             from sesameai_tts_tpu_torch.training.lora import merge_lora
 
             with torch.no_grad():
-                export = merge_lora(base_params, state.params, args.lora_alpha)
-        save_pytree(os.path.join(args.ckpt_dir, "params"), export)
+                export = merge_lora(base_params, state.params, args.lora_alpha,
+                                    tp=tp_group(mesh), cfg=spec.csm)
+        if mesh is not None:
+            export = all_gather_params(export, spec.csm, tp_group(mesh), csm_param_specs(),
+                                       dst=0) if mesh.get_local_rank("dp") == 0 else None
+        if lead:
+            save_pytree(os.path.join(args.ckpt_dir, "params"), export)
+        if mesh is not None:
+            torch.distributed.barrier()
     return {k: float(v) for k, v in metrics.items()}
 
 
@@ -283,6 +355,9 @@ def main(argv=None):
     p.add_argument("--remat", action="store_true")
     p.add_argument("--dtype", default="f32", choices=["f32", "bf16", "mixed"],
                    help="mixed = f32 params/optimizer, bf16 compute")
+    p.add_argument("--mesh", default=None,
+                   help="dp,tp (e.g. 1,2): train on a mesh of dp*tp ranks, each holding its "
+                        "tp shards and its dp rows of every batch (torchrun starts the ranks)")
     p.add_argument("--ckpt-dir", default=None)
     p.add_argument("--save-every", type=int, default=500)
     p.add_argument("--resume", action="store_true")
@@ -292,7 +367,8 @@ def main(argv=None):
                    help="torch device (default: the CUDA card; 'cpu' to run without one)")
     args = p.parse_args(argv)
     metrics = finetune(args)
-    print(f"final: {metrics}")
+    if not args.mesh or torch.distributed.get_rank() == 0:
+        print(f"final: {metrics}")
     return metrics
 
 

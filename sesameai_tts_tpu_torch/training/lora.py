@@ -8,15 +8,27 @@ alone.  The adapters follow the port's per-layer layout: a target leaf
 ``(din, dout)`` of each layer gets ``{"a": (din, r), "b": (r, dout)}`` (the
 JAX package stacks them ``(L, din, r)``; ``convert.py::from_jax_lora``
 unstacks them).  ``a`` is a normal draw over ``sqrt(din)``, ``b`` zeros, so
-the merge at init is exactly the base; ΔW = (alpha / r) · a @ b.
+the merge at init is exactly the base; ΔW = (alpha / r) · a @ b.  On a mesh
+the adapters are replicated (drawn from the full tree's shapes) over a base
+of tp shards, as the JAX package replicates them over its sharded base.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Sequence
+from typing import Optional, Sequence
 
 import torch
+import torch.distributed as dist
+
+from sesameai_tts_tpu_torch.parallel.mesh import (
+    csm_param_specs,
+    placement_at,
+    placements,
+    shard_tensor,
+    tp_rank,
+    tp_size,
+)
 
 # the trunk linears; embeddings and heads stay frozen by default
 DEFAULT_TARGETS = ("qkv", "o_proj", "w13", "w2")
@@ -82,27 +94,48 @@ def _nest(params, adapters: dict, prefix: tuple):
     return {}
 
 
-def merge_lora(params: dict, lora: dict, alpha: float = 16.0) -> dict:
+def merge_lora(params: dict, lora: dict, alpha: float = 16.0,
+               tp: Optional[dist.ProcessGroup] = None, cfg=None) -> dict:
     """Dense params with ΔW = (alpha / r) · a @ b added on every adapted
-    leaf (a new tree; the base is not written)."""
+    leaf (a new tree; the base is not written).
 
-    def walk(p, l):
+    With ``tp`` the base is this rank's shards of a CSM tree of config
+    ``cfg`` (``parallel/mesh.py``) and the adapters are whole: a
+    column-sharded leaf gets ``a @ b[:, cols]`` with the columns the rank
+    holds (``qkv``'s heads, ``w13``'s w1|w3 blocks), a row-sharded one
+    ``a[rows] @ b``, a replicated one all of ΔW."""
+    n, r = tp_size(tp), tp_rank(tp)
+    specs = csm_param_specs() if n > 1 else None
+
+    def delta(path, ad):
+        a, b = ad["a"], ad["b"]
+        if specs is not None:
+            spec = placement_at(specs, path)
+            if isinstance(spec, placements()[0]):
+                key = path[-1] if path[-1] in ("qkv", "w13") else None
+                tcfg = getattr(cfg, path[0]) if key else None
+                if spec.dim == 0:
+                    a = shard_tensor(a, spec, n, r)
+                else:
+                    b = shard_tensor(b, spec, n, r, key, tcfg)
+        return (alpha / ad["a"].shape[-1]) * (a @ b)
+
+    def walk(p, l, path):
         if isinstance(p, dict):
             out = {}
             for k, v in p.items():
                 lk = l.get(k, {}) if isinstance(l, dict) else {}
                 if isinstance(lk, dict) and "a" in lk:
-                    delta = (alpha / lk["a"].shape[-1]) * (lk["a"] @ lk["b"])
-                    out[k] = v + delta.to(v.dtype)
+                    out[k] = v + delta(path + (k,), lk).to(v.dtype)
                 else:
-                    out[k] = walk(v, lk)
+                    out[k] = walk(v, lk, path + (k,))
             return out
         if isinstance(p, (list, tuple)):
             ls = l if isinstance(l, (list, tuple)) else [{}] * len(p)
-            return type(p)(walk(v, lv) for v, lv in zip(p, ls))
+            return type(p)(walk(v, lv, path + (i,)) for i, (v, lv) in enumerate(zip(p, ls)))
         return p
 
-    return walk(params, lora)
+    return walk(params, lora, ())
 
 
 def count_params(tree) -> int:

@@ -14,6 +14,13 @@ Shapes are fixed: the subset is chosen by a stable argsort of a rank key
 (the first audio rows, or the smallest of the step's ``subset_r`` scores),
 with zero weight where an example has fewer audio rows.  The logits of
 both heads are f32.
+
+On a mesh (``parallel/``) the params are this rank's tp shards (``tp``)
+and the batch its dp rows (``dp``).  Each loss divides by the GLOBAL
+batch's count (the two counts summed over ``dp``, detached), as the JAX
+package's mean over its dp-sharded batch does: a rank's loss is then its
+share of the global mean and the global gradient is the sum of the ranks'.
+The metrics are the global losses, on every rank.
 """
 
 from __future__ import annotations
@@ -21,9 +28,10 @@ from __future__ import annotations
 from typing import NamedTuple, Optional
 
 import torch
+import torch.distributed as dist
 
 from sesameai_tts_tpu_torch.core.config import CSMConfig
-from sesameai_tts_tpu_torch.models.csm import embed_frames
+from sesameai_tts_tpu_torch.models.csm import embed_frames, lookup
 from sesameai_tts_tpu_torch.models.transformer import precompute_rope, transformer_forward
 
 
@@ -47,23 +55,27 @@ def csm_loss(
     decoder_frames: int = 4,
     remat: bool = False,
     subset_r: Optional[torch.Tensor] = None,
+    tp: Optional[dist.ProcessGroup] = None,
+    dp: Optional[dist.ProcessGroup] = None,
 ):
     """→ (scalar loss, {"loss", "c0_loss", "decoder_loss"}).
 
     ``subset_r``: optional (B, S-1) uniform scores ranking which audio rows
     the decoder loss trains (smallest win); ``None`` takes the first
     ``decoder_frames`` audio rows (eval).  ``remat`` recomputes the
-    backbone's layers in the backward pass."""
+    backbone's layers in the backward pass.  ``tp`` and ``dp``: the mesh's
+    groups (module docstring); with ``dp`` the returned loss is this rank's
+    share and the metrics the global values."""
     bb, dec = cfg.backbone, cfg.decoder
     K = cfg.audio_num_codebooks
     tokens = batch.tokens.long()
     B, S, _ = tokens.shape
     dev = tokens.device
 
-    x = embed_frames(params, cfg, tokens, batch.mask).to(params["projection"].dtype)
+    x = embed_frames(params, cfg, tokens, batch.mask, tp=tp).to(params["projection"].dtype)
     h, _ = transformer_forward(params["backbone"], bb, x, torch.zeros(B, dtype=torch.int64,
                                                                     device=dev), None,
-                               precompute_rope(bb, device=dev), remat=remat)
+                               precompute_rope(bb, device=dev), remat=remat, tp=tp)
 
     is_audio = batch.mask[..., 0] & batch.loss_mask  # rows carrying audio codes
 
@@ -71,7 +83,6 @@ def csm_loss(
     c0_logits = h[:, :-1].float() @ params["codebook0_head"].float()
     c0_w = is_audio[:, 1:].float()
     c0_xent = _softmax_xent(c0_logits, tokens[:, 1:, 0]) * c0_w
-    c0_loss = c0_xent.sum() / torch.clamp_min(c0_w.sum(), 1.0)
 
     # ---- decoder loss on a subset of audio rows: audio rows rank first (by
     # position, or by subset_r's scores), then the first `decoder_frames`
@@ -90,20 +101,29 @@ def csm_loss(
 
     # teacher-forced decoder inputs: [proj(h), proj(embed(c0..c_{K-2}))]
     offs = torch.arange(K - 1, device=dev) * cfg.audio_vocab_size
-    emb = params["audio_embeddings"][tgt_codes[..., : K - 1] + offs]  # (B, n, K-1, D)
+    emb = lookup(params["audio_embeddings"], tgt_codes[..., : K - 1] + offs,
+                 cfg.audio_vocab_size * K, tp)  # (B, n, K-1, D)
     dec_in = torch.cat([h_sel[:, :, None, :], emb], dim=2)  # (B, n, K, D)
     dec_in = (dec_in @ params["projection"]).to(params["projection"].dtype)
     dec_in = dec_in.reshape(B * n, K, dec.embed_dim)
 
     dh, _ = transformer_forward(params["decoder"], dec, dec_in,
                                 torch.zeros(B * n, dtype=torch.int64, device=dev), None,
-                                precompute_rope(dec, max_len=K, device=dev))  # positions 0..K-1
+                                precompute_rope(dec, max_len=K, device=dev),
+                                tp=tp)  # positions 0..K-1
     dh = dh.reshape(B, n, K, dec.embed_dim)[:, :, 1:, :]  # positions 1..K-1
 
     dec_logits = torch.einsum("bnkd,kdv->bnkv", dh.float(), params["audio_head"].float())
     dec_xent = _softmax_xent(dec_logits, tgt_codes[..., 1:])  # (B, n, K-1)
-    dec_loss = (dec_xent * sel_w[..., None]).sum() / torch.clamp_min(
-        sel_w.sum() * (K - 1), 1.0)
 
+    counts = torch.stack([c0_w.sum(), sel_w.sum()])
+    if dp is not None:  # the global batch's counts
+        dist.all_reduce(counts, group=dp)
+    c0_loss = c0_xent.sum() / torch.clamp_min(counts[0], 1.0)
+    dec_loss = (dec_xent * sel_w[..., None]).sum() / torch.clamp_min(counts[1] * (K - 1), 1.0)
     loss = c0_loss + dec_loss
-    return loss, {"loss": loss, "c0_loss": c0_loss, "decoder_loss": dec_loss}
+    if dp is None:
+        return loss, {"loss": loss, "c0_loss": c0_loss, "decoder_loss": dec_loss}
+    parts = torch.stack([c0_loss, dec_loss]).detach()
+    dist.all_reduce(parts, group=dp)
+    return loss, {"loss": parts[0] + parts[1], "c0_loss": parts[0], "decoder_loss": parts[1]}

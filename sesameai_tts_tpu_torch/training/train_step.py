@@ -1,6 +1,5 @@
 """Train steps: the CSM loss's gradients and optax's AdamW chain, step for
-step (port of ``sesameai_tts_tpu/training/train_step.py``; the sharded
-helpers belong to the parallel slice).
+step (port of ``sesameai_tts_tpu/training/train_step.py``).
 
 The optimizer is the JAX package's ``optax.chain(clip_by_global_norm(1.0),
 adamw(warmup_cosine_decay_schedule(...), b1=0.9, b2=0.95, eps=1e-8))``
@@ -17,6 +16,28 @@ A step updates the state's tensors IN PLACE (params, ``mu``, ``nu``,
 ``count``) and returns a new ``TrainState`` over them: the JAX step donates
 its state.  Gradients come from ``torch.autograd.grad`` on detached
 leaves, so stored params never require grad.
+
+On a ('dp', 'tp') mesh (``mesh=``, ``parallel/mesh.py``) each rank holds
+its tp shards of the params and moments (``make_sharded_train_state``)
+and its dp rows of the global batch (``shard_batch``); the step computes
+what the unsharded step computes on the whole batch.  XLA adds the JAX
+package's collectives; here the loss sums its normalizers over 'dp'
+(``training/loss.py``), the trunks differentiate through
+``parallel/autograd.py``'s f/g pair, and ``_GradSync`` makes each
+gradient leaf the logical one before the update:
+
+1. every leaf is summed over 'dp';
+2. the kv columns of a ``qkv`` whose kv head is on several tp ranks are
+   summed over those ranks (``kv_replica_group``): each holds the part its
+   own query heads give;
+3. a replicated leaf (norms, ``projection``, the heads) is left alone: f/g
+   already make its gradient whole and equal on every tp rank.
+
+The clip norm is that of the logical tree: each sharded leaf's square sum
+summed over 'tp', a kv column held by m ranks counted 1/m times on each, a
+replicated leaf once, so ``grad_norm`` is ``optax.global_norm`` of the
+full gradient.  LoRA adapters are replicated: a rank's adapter gradient is
+the part of the base shard it holds, so it is summed over 'tp', then 'dp'.
 """
 
 from __future__ import annotations
@@ -28,8 +49,21 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from sesameai_tts_tpu_torch.convert import tree_leaves, tree_map
+import torch.distributed as dist
+
+from sesameai_tts_tpu_torch.convert import tree_leaves, tree_map, tree_paths
 from sesameai_tts_tpu_torch.core.config import CSMConfig
+from sesameai_tts_tpu_torch.parallel.infer import tp_group
+from sesameai_tts_tpu_torch.parallel.mesh import (
+    csm_param_specs,
+    dp_group,
+    dp_rows,
+    kv_replica_group,
+    local_heads,
+    placement_at,
+    placements,
+    shard_params,
+)
 from sesameai_tts_tpu_torch.training.loss import Batch, csm_loss
 
 _METRICS = ("loss", "c0_loss", "decoder_loss")
@@ -77,11 +111,13 @@ class AdamW:
         return torch.where(c < self.warmup, warm, self.lr * ((1 - alpha) * cosine + alpha))
 
     @torch.no_grad()
-    def apply(self, params, grads, opt_state) -> torch.Tensor:
+    def apply(self, params, grads, opt_state, g_norm=None) -> torch.Tensor:
         """Update ``params`` and ``opt_state`` in place from ``grads`` → the
-        unclipped global norm."""
+        unclipped global norm: ``g_norm`` when given (a sharded tree's
+        logical norm, ``_GradSync``), else that of the leaves here."""
         g_leaves = tree_leaves(grads)
-        g_norm = torch.sqrt(sum((g * g).sum() for g in g_leaves))
+        if g_norm is None:
+            g_norm = torch.sqrt(sum((g * g).sum() for g in g_leaves))
         keep = g_norm < self.max_norm
         count = opt_state["count"]
         lr = -self.learning_rate(count)
@@ -113,6 +149,73 @@ def init_train_state(params: dict, tx: AdamW) -> TrainState:
                       step=torch.zeros((), dtype=torch.int32, device=device))
 
 
+def make_sharded_train_state(generator: torch.Generator, cfg: CSMConfig, mesh, tx: AdamW,
+                             dtype=torch.float32, device=None) -> TrainState:
+    """``init_train_state`` of this rank's shards on ``mesh``: the params that
+    ``init_csm_params`` draws from ``generator`` (the whole tree, as one card
+    draws it), cut by ``shard_params`` and moved to ``device`` (default:
+    where they were drawn), and the moments ``tx.init`` makes on them."""
+    from sesameai_tts_tpu_torch.convert import to_device
+    from sesameai_tts_tpu_torch.models.csm import init_csm_params
+
+    params = shard_params(init_csm_params(cfg, generator, dtype), mesh, cfg)
+    return init_train_state(params if device is None else to_device(params, device), tx)
+
+
+class _GradSync:
+    """A rank's gradient tree → the logical one, and its global norm, on a
+    mesh (module docstring).  ``adapters``: the tree is LoRA adapters over a
+    sharded base.  Makes the kv replica groups, a collective, when built."""
+
+    def __init__(self, cfg: CSMConfig, mesh, adapters: bool = False):
+        self.cfg, self.adapters = cfg, adapters
+        self.tp, self.dp = tp_group(mesh), dp_group(mesh)
+        self.kv = {} if adapters else {name: kv_replica_group(getattr(cfg, name), mesh)
+                                       for name in ("backbone", "decoder")}
+
+    def __call__(self, grads):
+        Shard = placements()[0]
+        specs = csm_param_specs()
+        out, whole, part = [], [], []
+        for path, g in tree_paths(grads):
+            g = g.contiguous()
+            sharded = self.tp is not None and isinstance(
+                placement_at(specs, path[:-1] if self.adapters else path), Shard)
+            if self.adapters and sharded:  # the part of the base shard this rank holds
+                dist.all_reduce(g, group=self.tp)
+            if self.dp is not None:
+                dist.all_reduce(g, group=self.dp)
+            kv = None if self.adapters or path[-1] != "qkv" else self.kv[path[0]]
+            if kv is not None:
+                tcfg = getattr(self.cfg, path[0])
+                c0 = local_heads(tcfg, self.tp)[0] * tcfg.head_dim
+                cols = g[:, c0:].contiguous()
+                dist.all_reduce(cols, group=kv)
+                g[:, c0:] = cols
+                part.append((g[:, :c0] * g[:, :c0]).sum()
+                            + (cols * cols).sum() / dist.get_world_size(kv))
+            elif sharded and not self.adapters:
+                part.append((g * g).sum())
+            else:
+                whole.append((g * g).sum())
+            out.append(g)
+        sq = sum(whole)
+        if part:
+            held = sum(part)
+            if self.tp is not None:
+                dist.all_reduce(held, group=self.tp)
+            sq = sq + held
+        leaves = iter(out)
+        return tree_map(lambda _: next(leaves), grads), torch.sqrt(sq)
+
+
+def _mesh_parts(mesh):
+    """(tp group, dp group, dp size, dp rank) of ``mesh``; no groups without one."""
+    if mesh is None:
+        return None, None, 1, 0
+    return tp_group(mesh), dp_group(mesh), mesh.size(0), mesh.get_local_rank("dp")
+
+
 def _cast_floating(tree, dtype):
     """Cast floating leaves to ``dtype`` (integer leaves pass)."""
     return tree_map(lambda x: x.to(dtype) if x.is_floating_point() else x, tree)
@@ -128,8 +231,13 @@ def _subset_scores(step: int, B: int, S: int, seed: int) -> torch.Tensor:
     return torch.rand((B, S - 1), generator=gen)
 
 
-def _apply_update(tx: AdamW, state: TrainState, grads, metrics: dict):
-    metrics["grad_norm"] = tx.apply(state.params, grads, state.opt_state)
+def _apply_update(tx: AdamW, state: TrainState, grads, metrics: dict, sync=None):
+    """The optimizer half of a step; on a mesh ``sync`` (``_GradSync``) first
+    makes the gradients the logical ones."""
+    norm = None
+    if sync is not None:
+        grads, norm = sync(grads)
+    metrics["grad_norm"] = tx.apply(state.params, grads, state.opt_state, norm)
     return TrainState(state.params, state.opt_state, state.step + 1), metrics
 
 
@@ -169,16 +277,23 @@ def _value_and_grad(loss_fn, params):
     return ({k: metrics[k].detach() for k in _METRICS}, tree_map(lambda _: next(grads), leaves))
 
 
-def _subset_for(state: TrainState, batch: Batch, subset_rng: bool, seed: int):
+def _subset_for(state: TrainState, batch: Batch, subset_rng: bool, seed: int, n_dp: int = 1,
+                d: int = 0, accum_steps: int = 1):
+    """The step's scores for this rank's rows: drawn for the global batch
+    (``n_dp`` times the local one), then its rows as ``shard_batch`` took
+    them."""
     if not subset_rng:
         return None
     B, S = batch.tokens.shape[:2]
-    return _subset_scores(int(state.step), B, S, seed).to(batch.tokens.device)
+    scores = _subset_scores(int(state.step), B * n_dp, S, seed)
+    if n_dp > 1:
+        scores = scores[dp_rows(B * n_dp, n_dp, d, accum_steps)]
+    return scores.to(batch.tokens.device)
 
 
 def make_train_step(cfg: CSMConfig, tx: AdamW, decoder_frames: int = 4, remat: bool = False,
                     accum_steps: int = 1, compute_dtype=None, subset_rng: bool = True,
-                    subset_seed: int = 0):
+                    subset_seed: int = 0, mesh=None):
     """→ ``train_step(state, batch) → (state, metrics)``; updates the
     state's tensors in place.
 
@@ -187,74 +302,89 @@ def make_train_step(cfg: CSMConfig, tx: AdamW, decoder_frames: int = 4, remat: b
     microbatch mean); ``compute_dtype=torch.bfloat16`` with f32 params runs
     the forward and backward in bf16 (the cast is inside the differentiated
     function, so gradients land in f32); ``subset_rng=False`` pins the
-    first-N decoder subset."""
+    first-N decoder subset.  ``mesh``: the state holds this rank's shards
+    and the batch its rows (module docstring); every rank of the mesh
+    builds the step (a collective) and calls it."""
+    tp, dp, n_dp, d = _mesh_parts(mesh)
+    sync = None if mesh is None else _GradSync(cfg, mesh)
 
     def _grads(params, batch, subset_r):
         def loss_fn(p):
             if compute_dtype is not None:
                 p = _cast_floating(p, compute_dtype)
-            return csm_loss(p, cfg, batch, decoder_frames, remat=remat, subset_r=subset_r)
+            return csm_loss(p, cfg, batch, decoder_frames, remat=remat, subset_r=subset_r,
+                            tp=tp, dp=dp)
 
         return _value_and_grad(loss_fn, params)
 
     def train_step(state: TrainState, batch: Batch):
-        subset_r = _subset_for(state, batch, subset_rng, subset_seed)
+        subset_r = _subset_for(state, batch, subset_rng, subset_seed, n_dp, d, accum_steps)
         metrics, grads = _accum_grads(_grads, state.params, batch, accum_steps, subset_r)
-        return _apply_update(tx, state, grads, metrics)
+        return _apply_update(tx, state, grads, metrics, sync)
 
     return train_step
 
 
 def make_lora_train_step(cfg: CSMConfig, tx: AdamW, alpha: float = 16.0,
                          decoder_frames: int = 4, remat: bool = False, accum_steps: int = 1,
-                         compute_dtype=None, subset_rng: bool = True, subset_seed: int = 0):
+                         compute_dtype=None, subset_rng: bool = True, subset_seed: int = 0,
+                         mesh=None):
     """→ ``train_step(state, base_params, batch) → (state, metrics)``.
 
     ``state.params`` is the LoRA adapter tree (``training/lora.py``); the
     frozen base is merged with the adapters inside the differentiated
-    function, so only the adapters get gradients and optimizer state."""
+    function, so only the adapters get gradients and optimizer state.  On
+    a ``mesh`` the base is this rank's shards and the adapters replicated."""
     from sesameai_tts_tpu_torch.training.lora import merge_lora
+
+    tp, dp, n_dp, d = _mesh_parts(mesh)
+    sync = None if mesh is None else _GradSync(cfg, mesh, adapters=True)
 
     def train_step(state: TrainState, base_params: dict, batch: Batch):
         def _grads(lora, b, subset_r):
             def loss_fn(l):
-                merged = merge_lora(base_params, l, alpha)
+                merged = merge_lora(base_params, l, alpha, tp=tp, cfg=cfg)
                 if compute_dtype is not None:
                     merged = _cast_floating(merged, compute_dtype)
-                return csm_loss(merged, cfg, b, decoder_frames, remat=remat, subset_r=subset_r)
+                return csm_loss(merged, cfg, b, decoder_frames, remat=remat, subset_r=subset_r,
+                                tp=tp, dp=dp)
 
             return _value_and_grad(loss_fn, lora)
 
-        subset_r = _subset_for(state, batch, subset_rng, subset_seed)
+        subset_r = _subset_for(state, batch, subset_rng, subset_seed, n_dp, d, accum_steps)
         metrics, grads = _accum_grads(_grads, state.params, batch, accum_steps, subset_r)
-        return _apply_update(tx, state, grads, metrics)
+        return _apply_update(tx, state, grads, metrics, sync)
 
     return train_step
 
 
-def make_eval_step(cfg: CSMConfig, decoder_frames: int = 4, compute_dtype=None):
-    """→ ``eval_step(params, batch) → metrics``, without gradients."""
+def make_eval_step(cfg: CSMConfig, decoder_frames: int = 4, compute_dtype=None, mesh=None):
+    """→ ``eval_step(params, batch) → metrics``, without gradients (on a
+    ``mesh``: shards and this rank's rows in, the global metrics out)."""
+    tp, dp, _, _ = _mesh_parts(mesh)
 
     @torch.no_grad()
     def eval_step(params: dict, batch: Batch) -> dict:
         if compute_dtype is not None:
             params = _cast_floating(params, compute_dtype)
-        return csm_loss(params, cfg, batch, decoder_frames)[1]
+        return csm_loss(params, cfg, batch, decoder_frames, tp=tp, dp=dp)[1]
 
     return eval_step
 
 
 def make_lora_eval_step(cfg: CSMConfig, alpha: float = 16.0, decoder_frames: int = 4,
-                        compute_dtype=None):
+                        compute_dtype=None, mesh=None):
     """→ ``eval_step(lora, base_params, batch) → metrics``; merges first."""
     from sesameai_tts_tpu_torch.training.lora import merge_lora
 
+    tp, dp, _, _ = _mesh_parts(mesh)
+
     @torch.no_grad()
     def eval_step(lora: dict, base_params: dict, batch: Batch) -> dict:
-        merged = merge_lora(base_params, lora, alpha)
+        merged = merge_lora(base_params, lora, alpha, tp=tp, cfg=cfg)
         if compute_dtype is not None:
             merged = _cast_floating(merged, compute_dtype)
-        return csm_loss(merged, cfg, batch, decoder_frames)[1]
+        return csm_loss(merged, cfg, batch, decoder_frames, tp=tp, dp=dp)[1]
 
     return eval_step
 

@@ -1,6 +1,6 @@
 """The port's loader draws its random codec from a generator of its own: the
 Mimi params do not depend on whether a CSM checkpoint was given, and the
-finetune CLI's ``init_models`` draws the same codec as ``build_generator``
+finetune CLI's draws (``init_csm``, ``init_mimi``) are ``build_generator``'s
 (the JAX loader splits ``PRNGKey(seed)`` into a CSM key and a Mimi key);
 the CSM random init is still ``torch.Generator().manual_seed(seed)``."""
 
@@ -16,7 +16,6 @@ from sesameai_tts_tpu_torch.models.csm import init_csm_params
 from sesameai_tts_tpu_torch.runtime import loader
 from sesameai_tts_tpu_torch.runtime.loader import build_generator
 from sesameai_tts_tpu_torch.runtime.loader import test_tiny_spec as tiny_spec
-from sesameai_tts_tpu_torch.training import finetune
 
 
 def _assert_trees_equal(a, b):
@@ -40,7 +39,8 @@ def test_random_codec_does_not_depend_on_the_csm_checkpoint(tmp_path, seed):
 def test_init_models_draws_the_generators_codec_and_csm_init():
     spec = tiny_spec()
     gen = build_generator(spec, device="cpu")
-    params, mimi, mimi_params = finetune.init_models(spec, torch.float32)
+    params, (mimi, mimi_params) = loader.init_csm(spec, torch.float32), loader.init_mimi(spec)
+    _assert_trees_equal(params, loader.init_models(spec, torch.float32)[0])
     _assert_trees_equal(mimi_params, gen._mimi_params)
     _assert_trees_equal(params, gen._params)
     # the CSM random init is the seed's own generator, as before the codec's split

@@ -3,10 +3,11 @@
 together: the placements name the same axes as the JAX specs leaf by leaf
 (bf16, int8 and int4 trees; int4 replicated, a quant scale as
 ``_scale_spec``), and the tp shards of every rank reassemble the full tree
-bit-equal, at tp = 2 on ``csm_test_tiny`` (whose decoder's one kv head is
-replicated) and at tp = 2 and 4 on a narrow config with CSM-1B's head
-counts.  The reassembly here is written from the layout's docstring, not
-from the port's code."""
+bit-equal through ``mesh.gather_params`` (the inverse of ``local_shard``
+that the checkpoints and exports of sharded training use), at tp = 2 on
+``csm_test_tiny`` (whose decoder's one kv head is replicated) and at tp =
+2 and 4 on a narrow config with CSM-1B's head counts; each rank's
+columns hold its heads."""
 
 import os
 
@@ -104,74 +105,6 @@ def test_infer_param_specs_match_the_jax_ones(form):
 # -- the shards put back together ----------------------------------------------------
 
 
-def _kv_heads(H, KV, n, r):
-    """The docstring's rule: the kv heads rank r's q heads read."""
-    hl = H // n
-    first = r * hl * KV // H
-    return list(range(first, first + max(KV // n, 1)))
-
-
-def _join_qkv(parts, cfg, n, axis):
-    """The full qkv (or its scale) from every rank's [q_r | k_r | v_r]."""
-    H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    hl = H // n
-    qs, ks, vs = [], {}, {}
-    for r, x in enumerate(parts):
-        heads = _kv_heads(H, KV, n, r)
-        kl = len(heads) * hd
-        q, k, v = torch.split(x, [hl * hd, kl, kl], dim=axis)
-        qs.append(q)
-        for i, h in enumerate(heads):
-            for store, t in ((ks, k), (vs, v)):
-                piece = t.narrow(axis, i * hd, hd)
-                if h in store:  # a replicated kv head: the same on every rank
-                    assert torch.equal(store[h], piece)
-                store[h] = piece
-    assert sorted(ks) == list(range(KV))
-    return torch.cat(qs + [ks[h] for h in range(KV)] + [vs[h] for h in range(KV)], dim=axis)
-
-
-def _join_w13(parts, axis):
-    halves = [torch.chunk(x, 2, dim=axis) for x in parts]
-    return torch.cat([h[0] for h in halves] + [h[1] for h in halves], dim=axis)
-
-
-def _join(name, key, parts, cfg, n):
-    """One leaf from every rank's shard of it."""
-    if all(torch.equal(parts[0], x) and parts[0].shape == x.shape for x in parts) and (
-            name not in ("text_embeddings", "audio_embeddings")):
-        return parts[0]  # replicated
-    axis = parts[0].dim() - 1 if key in ("qkv", "w13") else 0
-    if key == "qkv":
-        return _join_qkv(parts, cfg, n, axis)
-    if key == "w13":
-        return _join_w13(parts, axis)
-    return torch.cat(parts, dim=0)
-
-
-def _reassemble(shards, cfg, n):
-    full = {}
-    for name, value in shards[0].items():
-        if name in ("backbone", "decoder"):
-            tcfg = getattr(cfg, name)
-            layers = []
-            for i, wl in enumerate(value["layers"]):
-                layer = {}
-                for key, leaf in wl.items():
-                    if isinstance(leaf, dict):
-                        layer[key] = {part: _join(name, key, [s[name]["layers"][i][key][part]
-                                                              for s in shards], tcfg, n)
-                                      for part in leaf}
-                    else:
-                        layer[key] = _join(name, key, [s[name]["layers"][i][key]
-                                                       for s in shards], tcfg, n)
-                layers.append(layer)
-            full[name] = {"layers": tuple(layers), "final_norm": value["final_norm"]}
-        else:
-            full[name] = _join(name, None, [s[name] for s in shards], cfg, n)
-    return full
-
-
 def _assert_bit_equal(got, want):
     gl, wl = list(_walk(got)), list(_walk(want))
     assert [p for p, _ in gl] == [p for p, _ in wl]
@@ -189,7 +122,7 @@ def test_shards_reassemble_the_full_tree(cfg_name, n, form):
     if form != "f32":
         params = quantize_csm(params, bits=8 if form == "int8" else 4)
     shards = [mesh.local_shard(params, cfg, n, r) for r in range(n)]
-    _assert_bit_equal(_reassemble(shards, cfg, n), params)
+    _assert_bit_equal(mesh.gather_params(shards, cfg), params)
     # each rank holds H/n q heads and the kv heads they read
     for name in ("backbone", "decoder"):
         tcfg = getattr(cfg, name)
@@ -199,6 +132,32 @@ def test_shards_reassemble_the_full_tree(cfg_name, n, form):
         kv_local = KV if form == "int4" else max(KV // n, 1)
         h_local = H if form == "int4" else H // n
         assert width == (h_local + 2 * kv_local) * hd, (name, width)
+    if form == "f32":
+        for r in range(n):
+            _assert_rank_blocks(params, shards[r], cfg, n, r)
+
+
+def _assert_rank_blocks(params, shard, cfg, n, r):
+    """Rank r's blocks, sliced straight from the layout that
+    ``parallel/mesh.py``'s docstring states (not through its ``_columns``)."""
+    for name in ("backbone", "decoder"):
+        t = getattr(cfg, name)
+        H, KV, hd, F = t.num_heads, t.num_kv_heads, t.head_dim, t.intermediate_dim
+        hq = H // n
+        kv0, nkv = (r * KV // n, KV // n) if KV % n == 0 else (r * hq // (H // KV), 1)
+        full, mine = params[name]["layers"][0], shard[name]["layers"][0]
+        q = full["qkv"][:, r * hq * hd:(r + 1) * hq * hd]
+        k = full["qkv"][:, (H + kv0) * hd:(H + kv0 + nkv) * hd]
+        v = full["qkv"][:, (H + KV + kv0) * hd:(H + KV + kv0 + nkv) * hd]
+        assert torch.equal(mine["qkv"], torch.cat([q, k, v], dim=1)), name
+        f = F // n
+        w1, w3 = full["w13"][:, r * f:(r + 1) * f], full["w13"][:, F + r * f:F + (r + 1) * f]
+        assert torch.equal(mine["w13"], torch.cat([w1, w3], dim=1)), name
+        assert torch.equal(mine["o_proj"], full["o_proj"][r * hq * hd:(r + 1) * hq * hd]), name
+        assert torch.equal(mine["w2"], full["w2"][r * f:(r + 1) * f]), name
+    for key in ("text_embeddings", "audio_embeddings"):
+        c = -(-params[key].shape[0] // n)
+        assert torch.equal(shard[key], params[key][r * c:(r + 1) * c]), key
 
 
 def test_the_decoders_kv_head_is_replicated_where_tp_exceeds_it():
