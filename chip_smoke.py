@@ -19,9 +19,11 @@ Phases, each of which fails the run if it fails:
    product); then ``flash_attention_bwd`` against
    ``flash_attention_bwd_plain`` at the training shapes (backbone S = 256,
    512, 2048, a right-padded row, a row without keys; decoder S = 32; one
-   tp = 2 rank's heads of each at S = 256 and 32), bf16 and f32, each
-   timed beside its plain version, the backward of one
-   ``scaled_dot_product_attention`` call and the card's bound; then
+   tp = 2 rank's heads of each at S = 256 and 32), bf16 (the tensor-core
+   route) and f32 (the CUDA-core route), each timed beside its plain
+   version, the backward of one ``scaled_dot_product_attention`` call and
+   the card's bound, and summed over a mixed training step's 16 backbone
+   calls (S = 256, and 2048) and 4 decoder calls; then
    ``quant_matmul``, ``quant_mlp`` and ``flash_attention`` at one rank's
    shard shapes of a tp = 2 mesh (``phase_shards``: the eight trunk linears
    at S = 1 and 2, the MLPs at I/2, decode and prefill attention over the
@@ -816,7 +818,8 @@ def phase_flash_attention_bwd(torch, attention, peak_bw, peak_flops, f32_flops):
             nbytes, flops = _bwd_work(B, H, KV, hd, S, valid_end, elem)
             t_bytes = nbytes / peak_bw
             t_ops = flops / (peak_flops if dtype == torch.bfloat16 else f32_flops)
-            row = {"shape": label, "dtype": str(dtype).split(".")[-1], "B": B, "H": H, "KV": KV,
+            row = {"shape": label, "dtype": str(dtype).split(".")[-1],
+                   "route": attention._bwd_route(dtype), "B": B, "H": H, "KV": KV,
                    "hd": hd, "S": S, "valid_end": list(valid_end),
                    "max_abs_err": max(errs), "errs_dq_dk_dv": errs, "ok": ok,
                    "bit_equal_repeat": deterministic, "empty_rows_zero": zero,
@@ -836,7 +839,31 @@ def phase_flash_attention_bwd(torch, attention, peak_bw, peak_flops, f32_flops):
             rows.append(row)
             del q, k, v, o, do, got, want, again
             torch.cuda.empty_cache()
+    from sesameai_tts_tpu_torch.core.config import csm_1b
+
+    for step in _bwd_steps(rows, csm_1b()):
+        print("kernel flash_attention_bwd step " + json.dumps(step), flush=True)
     return rows
+
+
+def _bwd_steps(rows, cfg):
+    """The phase's rows summed over a mixed training step's backward calls,
+    with no further timing: the backbone's layers at S = 256 (main[train]'s
+    bucket) or S = 2048 (the largest), the decoder's layers at S = 32, in
+    each dtype."""
+    n_bb, n_dec = cfg.backbone.num_layers, cfg.decoder.num_layers
+    keys = ("kernel_ms", "plain_ms", "library_ms", "bound_ms")
+    steps = []
+    for S in (256, 2048):
+        step = {"backbone_S": S, "decoder_S": 32, "backbone_calls": n_bb, "decoder_calls": n_dec}
+        for dtype in ("bfloat16", "float32"):
+            bb = next(r for r in rows if r["shape"] == f"backbone S={S}" and r["dtype"] == dtype)
+            dec = next(r for r in rows if r["shape"] == "decoder S=32" and r["dtype"] == dtype)
+            step[dtype] = {k: None if bb[k] is None or dec[k] is None
+                           else bb[k] * n_bb + dec[k] * n_dec for k in keys}
+            step[dtype]["route"] = bb["route"]
+        steps.append(step)
+    return steps
 
 
 def _reset_counts(wrappers):
@@ -3825,7 +3852,7 @@ def _bwd_entry(rows, launches: dict, cfg) -> dict:
         "tp2": tp2,
         "timed_as": f"device time (CUDA graph replay) summed over one main[train] step's "
                     f"{n_bb} backbone calls at S=256 and {n_dec} decoder calls at S=32 (bf16)",
-        "shapes": [{k: r[k] for k in ("shape", "dtype", "S", "valid_end", "kernel_ms",
+        "shapes": [{k: r[k] for k in ("shape", "dtype", "route", "S", "valid_end", "kernel_ms",
                                       "kernel_eager_ms", "plain_ms", "library_ms", "bound_ms",
                                       "bound_by", "max_abs_err")} for r in rows],
     }
@@ -3985,9 +4012,9 @@ def main() -> int:
                       for k in ("kernel_ms", "library_ms", "bound_ms", "plain_ms")}
          for r in rows["flash_attention"] if r["S"] > 1}), flush=True)
     print("kernel flash_attention_bwd per call (us) " + json.dumps(
-        {f"{r['shape']} {r['dtype']}": {k: None if r[k] is None else r[k] * 1e3
-                                        for k in ("kernel_ms", "library_ms", "bound_ms",
-                                                  "plain_ms")}
+        {f"{r['shape']} {r['dtype']}": {"route": r["route"], **{
+            k: None if r[k] is None else r[k] * 1e3
+            for k in ("kernel_ms", "library_ms", "bound_ms", "plain_ms")}}
          for r in rows["flash_attention_bwd"]}), flush=True)
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s "
           f"{json.dumps(phase_s)}", flush=True)

@@ -21,6 +21,8 @@ operands' values with f32 accumulation, and a row that sees no slot gives
   enabled and q, k or v requiring grad it goes through
   ``FlashAttentionFn``, whose backward is ``flash_attention_bwd``;
 - ``flash_attention_bwd_plain``: the analytic gradient as torch ops;
+- ``flash_attention_bwd_mma_plain``: the bf16 backward kernels' rounding
+  as torch ops (P and dS as hi + lo pairs of bf16, f32 sums);
 - ``flash_attention_bwd``: for CUDA tensors it launches
   ``csrc/flash_attention_bwd.cu`` (or raises); for CPU tensors it runs the
   plain version.  ``flash_attention_bwd.launches`` counts launches.
@@ -108,6 +110,62 @@ def _mma_tile_plan(S: int, G: int, T: int, pos0: int, valid_end: int):
         tiles = list(range(0, kend, _MMA_BLOCK_K))
         plan.append((q0, rows, tiles, [kt for kt in tiles if kt + _MMA_BLOCK_K > full]))
     return plan
+
+
+# flash_attention_bwd.cu: the route of a dtype (tensor cores for bf16, CUDA
+# cores in exact f32 for f32), the keys of a dkdv block's tile and the most
+# blocks of a dkdv cluster
+_BWD_ROUTES = {"simt": 0, "mma": 1}
+_BWD_BLOCK_K = 64
+_BWD_MAX_SPLITS = 8
+
+
+def _bwd_route(dtype: torch.dtype) -> str:
+    """The backward kernels of a dtype: bf16 runs on tensor cores ("mma"),
+    f32 on CUDA cores in exact f32 ("simt"), at every head dim."""
+    return "mma" if dtype == torch.bfloat16 else "simt"
+
+
+def _bwd_splits(B: int, KV: int, S: int, T: int, G: int, sms: int) -> int:
+    """The dkdv kernel's cluster size, a power of two: the blocks that share
+    each key tile's walk over the query tiles (rank r taking tiles r, r +
+    splits, ...).  It doubles while the grid stays within one block per SM
+    and each block still has a query tile of the longest walk, up to
+    ``_BWD_MAX_SPLITS``: a small grid's time is its longest walk."""
+    blocks = B * KV * -(-T // _BWD_BLOCK_K)
+    walk = -(-S // (_MMA_VECTORS // G))
+    splits = 1
+    while (2 * splits <= min(_BWD_MAX_SPLITS, walk)
+           and 2 * splits * blocks <= sms):
+        splits *= 2
+    return splits
+
+
+def _bwd_tile_plan(S: int, G: int, T: int, pos0: int, valid_end: int):
+    """The backward kernels' plan for one batch row (``flash_attention_bwd.cu``).
+
+    ``"dq"``: the dq kernel's blocks, one per query tile of ``BQ = 64 // G``
+    rows x the G heads, as ``_mma_tile_plan``: [(q0, rows, key tiles
+    visited, key tiles masked)].  ``"dkdv"``: the dkdv kernel's blocks, one
+    per tile of 64 keys: [(kt, keys, query tiles visited, query tiles
+    masked)], query tiles by their first row, from the one holding the first
+    row that sees key kt (none when no row sees it), shared round-robin by
+    the ``_bwd_splits`` blocks of the key tile's cluster.  Both visit the same
+    (query tile, key tile) pairs, those with a visible (row, key) pair, and
+    mask the pairs where some row misses some key of the tile (the causal
+    diagonal, ``valid_end`` or the cache's end)."""
+    BQ = _MMA_VECTORS // G
+    dq = _mma_tile_plan(S, G, T, pos0, valid_end)
+    klim = max(0, min(valid_end, T))
+    dkdv = []
+    for kt in range(0, T, _BWD_BLOCK_K):
+        first = max(0, kt - pos0)  # the first row that sees key kt
+        tiles = ([q0 for q0 in range(0, S, BQ) if q0 + BQ > first]
+                 if kt < klim and first < S else [])
+        masked = [q0 for q0 in tiles
+                  if kt + _BWD_BLOCK_K > max(0, min(valid_end, pos0 + q0 + 1, T))]
+        dkdv.append((kt, min(_BWD_BLOCK_K, T - kt), tiles, masked))
+    return {"dq": dq, "dkdv": dkdv}
 
 
 def _split_ranges(kend: int, workers: int):
@@ -344,6 +402,28 @@ class FlashAttentionFn(torch.autograd.Function):
         return dq, dk, dv, None, None
 
 
+def _bwd_terms(q, k, v, o, do, pos0, valid_end):
+    """The f32 operands of the gradient and its two recomputed terms: q, k,
+    dO (grouped by KV head), ``P = softmax(mask(q kᵀ · scale))`` (0 on a
+    row that sees no slot) and ``dS = P ∘ (dO vᵀ − rowsum(dO ∘ O))``."""
+    B, H, S, hd = q.shape
+    KV, T = k.shape[1], k.shape[2]
+    G = H // KV
+    positions = pos0[:, None] + torch.arange(S, device=q.device)[None, :]  # (B, S)
+    key_pos = torch.arange(T, device=q.device)
+    mask = ((key_pos[None, None, :] <= positions[:, :, None])
+            & (key_pos[None, None, :] < valid_end[:, None, None]))[:, None, None]
+    qf = q.reshape(B, KV, G, S, hd).float()
+    dof = do.reshape(B, KV, G, S, hd).float()
+    kf, vf = k.float(), v.float()
+    logits = torch.einsum("bkgsh,bkth->bkgst", qf, kf) * (1.0 / math.sqrt(hd))
+    probs = torch.softmax(logits.masked_fill(~mask, float("-inf")), dim=-1)
+    probs = torch.where(mask.any(dim=-1, keepdim=True), probs, 0.0)
+    dp = torch.einsum("bkgsh,bkth->bkgst", dof, vf)
+    delta = (dof * o.reshape(B, KV, G, S, hd).float()).sum(dim=-1, keepdim=True)
+    return qf, kf, dof, probs, probs * (dp - delta)
+
+
 def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                               o: torch.Tensor, do: torch.Tensor, pos0: torch.Tensor,
                               valid_end: torch.Tensor):
@@ -355,26 +435,50 @@ def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     not NaN.  ``o`` is the forward's output: ``rowsum(dO ∘ O)`` stands for
     ``rowsum(P ∘ dP)``, as in the kernel."""
     B, H, S, hd = q.shape
-    KV, T = k.shape[1], k.shape[2]
-    G = H // KV
     scale = 1.0 / math.sqrt(hd)
-    positions = pos0[:, None] + torch.arange(S, device=q.device)[None, :]  # (B, S)
-    key_pos = torch.arange(T, device=q.device)
-    mask = ((key_pos[None, None, :] <= positions[:, :, None])
-            & (key_pos[None, None, :] < valid_end[:, None, None]))[:, None, None]
-    qf = q.reshape(B, KV, G, S, hd).float()
-    dof = do.reshape(B, KV, G, S, hd).float()
-    kf, vf = k.float(), v.float()
-    logits = torch.einsum("bkgsh,bkth->bkgst", qf, kf) * scale
-    probs = torch.softmax(logits.masked_fill(~mask, float("-inf")), dim=-1)
-    probs = torch.where(mask.any(dim=-1, keepdim=True), probs, 0.0)
+    qf, kf, dof, probs, ds = _bwd_terms(q, k, v, o, do, pos0, valid_end)
     dv = torch.einsum("bkgst,bkgsh->bkth", probs, dof)
-    dp = torch.einsum("bkgsh,bkth->bkgst", dof, vf)
-    delta = (dof * o.reshape(B, KV, G, S, hd).float()).sum(dim=-1, keepdim=True)
-    ds = probs * (dp - delta)
     dq = torch.einsum("bkgst,bkth->bkgsh", ds, kf) * scale
     dk = torch.einsum("bkgst,bkgsh->bkth", ds, qf) * scale
     return dq.reshape(B, H, S, hd).to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _hi_lo(x: torch.Tensor):
+    """x as a pair of bf16 values (as f32): hi = bf16(x), lo = bf16(x - hi)."""
+    hi = x.to(torch.bfloat16).float()
+    return hi, (x - hi).to(torch.bfloat16).float()
+
+
+def flash_attention_bwd_mma_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                                  o: torch.Tensor, do: torch.Tensor, pos0: torch.Tensor,
+                                  valid_end: torch.Tensor):
+    """The bf16 backward kernels' arithmetic as torch ops: every product of
+    bf16 operands with f32 sums, P and dS computed in f32 and carried into
+    their products (``Pᵀ dO``, ``dS k``, ``dSᵀ q``) as a hi + lo pair of
+    bf16 values, each half a product of its own (the kernels' two
+    ``mma``s), then the results rounded to the operands' dtype once.  The
+    pair holds each value to 2^-16 of itself; a single bf16 rounding
+    (2^-9) adds up over the keys past ``chip_smoke.py``'s gate."""
+    B, H, S, hd = q.shape
+    scale = 1.0 / math.sqrt(hd)
+    qf, kf, dof, probs, ds = _bwd_terms(q, k, v, o, do, pos0, valid_end)
+    dv, dq, dk = 0.0, 0.0, 0.0
+    for p_half, ds_half in zip(_hi_lo(probs), _hi_lo(ds)):
+        dv = dv + torch.einsum("bkgst,bkgsh->bkth", p_half, dof)
+        dq = dq + torch.einsum("bkgst,bkth->bkgsh", ds_half, kf)
+        dk = dk + torch.einsum("bkgst,bkgsh->bkth", ds_half, qf)
+    return ((dq * scale).reshape(B, H, S, hd).to(q.dtype), (dk * scale).to(k.dtype),
+            dv.to(v.dtype))
+
+
+def _row_aligned(t: torch.Tensor) -> torch.Tensor:
+    """t itself when the backward kernels can read its rows as 16-byte
+    vectors (a contiguous last dim, a 16-byte aligned start and strides),
+    else a contiguous copy."""
+    step = 16 // t.element_size()
+    if t.stride(3) == 1 and t.data_ptr() % 16 == 0 and not any(st % step for st in t.stride()[:3]):
+        return t
+    return t.clone(memory_format=torch.contiguous_format)
 
 
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor,
@@ -385,8 +489,11 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: to
     (dq, dk, dv) in the operands' dtype.  CUDA tensors launch
     ``csrc/flash_attention_bwd.cu`` (or raise); CPU tensors run
     ``flash_attention_bwd_plain``.  On the card the operands take the
-    forward's dtypes, head dims and G; q, o and do are copied to contiguous
-    buffers where they are views."""
+    forward's dtypes, head dims and G; bf16 runs the tensor-core kernels,
+    f32 the CUDA-core ones (``_bwd_route``); k and v are contiguous and
+    16-byte aligned; q, o and do may be views with a contiguous last dim
+    (copied only where a row is not 16-byte aligned), and dq takes q's
+    layout."""
     if q.device.type == "cpu":
         return flash_attention_bwd_plain(q, k, v, o, do, pos0, valid_end)
     if q.device.type != "cuda":
@@ -418,20 +525,32 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: to
                          f"{_QUERIES_PER_BLOCK}")
     if B * H * max(S, T) * hd >= 2**31:
         raise ValueError("flash_attention_bwd: operands of 2^31 elements or more")
-    q, o, do = (t.contiguous() for t in (q, o, do))
+    q, o, do = (_row_aligned(t) for t in (q, o, do))
+    if max(max(t.stride()) for t in (q, o, do)) >= 2**31:
+        raise ValueError("flash_attention_bwd: strides of 2^31 or more")
     pos0 = pos0.to(torch.int64).contiguous()
     valid_end = valid_end.to(torch.int64).contiguous()
-    check_operands("flash_attention_bwd", {"k": k, "v": v, "o": o, "do": do, "pos0": pos0,
+    check_operands("flash_attention_bwd", {"k": k, "v": v, "pos0": pos0,
                                            "valid_end": valid_end}, q.device)
-    dq = torch.empty_like(q)
+    for key, t in (("o", o), ("do", do)):
+        if t.device != q.device:
+            raise ValueError(f"flash_attention_bwd: {key} is on {t.device}, not {q.device}")
+    if k.data_ptr() % 16 or v.data_ptr() % 16:  # read as 16-byte vectors
+        raise ValueError("flash_attention_bwd: k and v must start on a 16-byte boundary")
+    dq = torch.empty_like(q)  # q's layout: its rows are 16-byte aligned too
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
-    # each query row's log-sum-exp of its visible logits and rowsum(dO ∘ O)
+    # each query vector's log-sum-exp (base 2) of its visible scaled logits
+    # and rowsum(dO ∘ O), from the dq kernel to the dkdv kernel
     stats = torch.empty((2, B, H, S), dtype=torch.float32, device=q.device)
     launch("flash_attention_bwd", q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
            do.data_ptr(), pos0.data_ptr(), valid_end.data_ptr(), dq.data_ptr(), dk.data_ptr(),
            dv.data_ptr(), stats[0].data_ptr(), stats[1].data_ptr(), B, H, KV, S, T, hd,
-           _QUERIES_PER_BLOCK // (H // KV), int(q.dtype == torch.bfloat16),
+           _MMA_VECTORS // (H // KV),
+           _bwd_splits(B, KV, S, T, H // KV,
+                       torch.cuda.get_device_properties(q.device).multi_processor_count),
+           _BWD_ROUTES[_bwd_route(q.dtype)],
+           *q.stride()[:3], *o.stride()[:3], *do.stride()[:3], *dq.stride()[:3],
            torch.cuda.current_stream(q.device).cuda_stream)
     count_launch(flash_attention_bwd)
     return dq, dk, dv

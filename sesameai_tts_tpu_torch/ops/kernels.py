@@ -33,7 +33,7 @@ _SIGNATURES = {
     "quant4_matmul": [_P] * 4 + [_I] * 9 + [_P],
     "quant_mlp": [_P] * 8 + [_I] * 10 + [_P],
     "flash_attention": [_P] * 6 + [_I] * 15 + [_P],
-    "flash_attention_bwd": [_P] * 12 + [_I] * 8 + [_P],
+    "flash_attention_bwd": [_P] * 12 + [_I] * 21 + [_P],
 }
 KERNELS = tuple(_SIGNATURES)
 

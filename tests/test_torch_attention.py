@@ -346,3 +346,120 @@ def test_no_function_without_grad():
     before = ta.flash_attention_bwd.launches
     ta.flash_attention(q, k, v, p0, ve).sum().backward()
     assert q.grad is not None and ta.flash_attention_bwd.launches == before  # the CPU: plain
+
+
+# -- the backward kernels' tile plan and bf16 arithmetic ------------------------------
+
+
+def _visible(S, T, pos0, valid_end):
+    """(S, T + 64) bool: row i sees key t (keys past the cache see nothing)."""
+    rows = pos0 + np.arange(S)[:, None]
+    keys = np.arange(T + 64)[None, :]
+    return (keys <= rows) & (keys < valid_end) & (keys < T)
+
+
+@pytest.mark.parametrize("S,G,T,pos0,valid_end", [
+    (256, 4, 256, 0, 256),  # main[train]'s backbone window
+    (512, 4, 512, 0, 300),  # a right-padded row
+    (256, 4, 256, 0, 0),  # a row that sees no key
+    (32, 4, 32, 0, 32),  # the decoder's K positions: half a key tile
+    (40, 1, 100, 30, 70),  # G = 1, a window after a context, ending mid-tile
+    (20, 16, 20, 0, 20),  # G = 16: 4 rows a tile
+    (37, 2, 37, 0, 30),  # the tiny flavor, ragged tiles
+    (50, 3, 130, 60, 100),  # G = 3: 21 rows, 63 vectors a tile
+])
+def test_bwd_tile_plan(S, G, T, pos0, valid_end):
+    """Each kernel covers every visible (query, key, head) pair exactly once,
+    visits no tile that is wholly invisible, and masks exactly the tiles
+    that some row misses some key of (the causal diagonal, valid_end or
+    the cache's end)."""
+    plan = ta._bwd_tile_plan(S, G, T, pos0, valid_end)
+    seen = _visible(S, T, pos0, valid_end)
+    BQ, BK = 64 // G, 64
+    q_tiles = list(range(0, S, BQ))
+    rect = {(q0, kt): seen[q0:q0 + BQ, kt:kt + BK] for q0 in q_tiles for kt in range(0, T, BK)}
+    want_visits = {pair for pair, r in rect.items() if r.any()}
+    want_masked = {pair for pair in want_visits if not rect[pair].all()}
+
+    dq = plan["dq"]
+    assert [q0 for q0, _, _, _ in dq] == q_tiles
+    assert [rows for _, rows, _, _ in dq] == [min(BQ, S - q0) for q0 in q_tiles]
+    dkdv = plan["dkdv"]
+    assert [kt for kt, _, _, _ in dkdv] == list(range(0, T, BK))
+    assert [keys for _, keys, _, _ in dkdv] == [min(BK, T - kt) for kt in range(0, T, BK)]
+    for visits in (
+        [((q0, kt), kt in masked) for q0, _, tiles, masked in dq for kt in tiles],
+        [((q0, kt), q0 in masked) for kt, _, tiles, masked in dkdv for q0 in tiles],
+    ):
+        pairs = [pair for pair, _ in visits]
+        assert len(pairs) == len(set(pairs)) and set(pairs) == want_visits
+        assert {pair for pair, m in visits if m} == want_masked
+        # every visible pair once, for each of the G heads of the tile's vectors
+        covered = sum(int(rect[pair].sum()) * G for pair in pairs)
+        assert covered == int(seen.sum()) * G
+    if valid_end <= 0:
+        assert all(not tiles for _, _, tiles, _ in dq + dkdv)
+
+
+# (B, H, KV, S, hd, valid_end per row): the backbone's and the decoder's head
+# counts (and one rank's of a tp = 2 mesh) at a small S, with a right-padded
+# row and a row that sees no key
+_BWD_MMA_CASES = {
+    "backbone, a right-padded row": (2, 32, 8, 48, 64, (48, 30)),
+    "backbone, a row without keys": (2, 32, 8, 24, 64, (24, 0)),
+    "decoder": (4, 8, 2, 32, 128, (32,) * 4),
+    "backbone tp2 shard": (2, 16, 4, 40, 64, (40, 40)),
+    "decoder tp2 shard": (4, 4, 1, 32, 128, (32,) * 4),
+    "tiny flavor": (2, 4, 2, 37, 16, (37, 20)),
+}
+
+
+@pytest.mark.parametrize("case", list(_BWD_MMA_CASES.values()), ids=list(_BWD_MMA_CASES))
+def test_bwd_mma_plain_within_the_chip_gate(case):
+    """The bf16 kernels' rounding (P and dS as hi + lo bf16 pairs, f32 sums)
+    lies within chip_smoke.py's bf16 gate of the f32 gradient, on bf16
+    inputs as the kernel phase makes them, o from the forward kernels'
+    arithmetic; a row that sees no key gets exact zeros."""
+    from chip_smoke import _BWD_TOL
+
+    B, H, KV, S, hd, valid_end = case
+    rng = np.random.default_rng(11)
+
+    def randn(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).bfloat16()
+
+    q = randn(B, S, H, hd).transpose(1, 2)
+    k, v = randn(B, KV, S, hd), randn(B, KV, S, hd)
+    do = randn(B, S, H, hd).transpose(1, 2)
+    p0, ve = torch.zeros(B, dtype=torch.int64), torch.tensor(valid_end)
+    o = ta.flash_attention_tiled_plain(q, k, v, p0, ve)
+    got = ta.flash_attention_bwd_mma_plain(q, k, v, o, do, p0, ve)
+    want = ta.flash_attention_bwd_plain(q, k, v, o, do, p0, ve)
+    rtol, atol_of_peak = _BWD_TOL["bfloat16"]
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and g.dtype == torch.bfloat16
+        w = w.float()
+        diff = (g.float() - w).abs()
+        assert bool((diff <= rtol * w.abs() + atol_of_peak * w.abs().max()).all()), \
+            float(diff.max())
+    for b, e in enumerate(valid_end):
+        if e <= 0:
+            assert not any(g[b].any() for g in got)
+
+
+@pytest.mark.parametrize("dtype,want", [(torch.bfloat16, "mma"), (torch.float32, "simt")])
+def test_bwd_route_by_dtype(dtype, want):
+    assert ta._bwd_route(dtype) == want
+
+
+@pytest.mark.parametrize("B,KV,S,T,G,want", [
+    (2, 8, 256, 256, 4, 2),  # main[train]'s backbone: 64 key tiles x 2 = 128 blocks
+    (2, 4, 256, 256, 4, 4),  # one tp 2 rank's backbone heads
+    (2, 8, 512, 512, 4, 1),  # 128 blocks fill the card already
+    (2, 8, 2048, 2048, 4, 1),
+    (8, 2, 32, 32, 4, 2),  # the decoder: a walk of 2 query tiles
+    (1, 4, 40, 100, 1, 1),  # G = 1: one query tile
+    (1, 1, 1024, 64, 4, 8),  # at most 8
+])
+def test_bwd_splits(B, KV, S, T, G, want):
+    assert ta._bwd_splits(B, KV, S, T, G, 132) == want

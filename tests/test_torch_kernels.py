@@ -522,7 +522,8 @@ def _assert_grad_close(got, want):
     (2, 8, 2, 64, 64, 128, (0, 0), (64, 0)),  # a row that sees no key
     (2, 4, 2, 37, 37, 16, (0, 0), (37, 30)),  # tiny flavor, ragged tiles
     (1, 4, 4, 40, 100, 64, (30,), (70,)),  # G = 1, a window after a context
-    (1, 16, 1, 20, 20, 64, (0,), (20,)),  # G = 16: one row a block
+    (1, 16, 1, 20, 20, 64, (0,), (20,)),  # G = 16: four rows a tile
+    (1, 4, 1, 256, 256, 64, (0,), (256,)),  # one KV head: dkdv clusters of 8
 ])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_flash_attention_bwd_matches_plain(cuda, B, H, KV, S, T, hd, pos0, valid_end, dtype):
