@@ -9,9 +9,11 @@ Phases, each of which fails the run if it fails:
 1. device: the card's name and power limit (``nvidia-smi``);
 2. build: compile every kernel in ``csrc/`` (one ``nvcc`` per source, all
    started together) and print each build's time;
-3. kernels vs plain: ``quant_matmul``, ``quant4_matmul``, ``quant_mlp``
-   and ``flash_attention`` against their plain PyTorch versions at the
-   main paths' shapes (and the tensor-core prefill at hd 128), eagerly
+3. kernels vs plain: ``quant_matmul``, ``quant4_matmul`` (each row
+   naming its route: the CUDA cores at S = 1, the tensor cores at 2-64),
+   ``quant_mlp`` and ``flash_attention`` against their plain PyTorch
+   versions at the main paths' shapes (and the tensor-core prefill at hd
+   128), eagerly
    and from a CUDA-graph replay, a repeated call and the replay bit-equal
    to the first call, each timed beside its plain version, a library
    yardstick and the card's bound (``quant_mlp`` also beside the port's
@@ -146,9 +148,10 @@ _MLP_SHAPES = (
     ("backbone.mlp", 2048, 8192, 2048, 16),
     ("decoder.mlp", 1024, 8192, 1024, 128),
 )
-# every S tile of the three quant kernels (1, 2, 4, 8): S = 1 is the
-# single-stream decode, S = 2 the rehearsal's 2-slot serving pool, S = 8 the
-# 8-slot pool, S = 64 the widest qdot sends to a kernel
+# S = 1 is the single-stream decode (quant_matmul and quant4_matmul on the
+# CUDA cores), S = 2 the rehearsal's 2-slot serving pool, S = 8 the 8-slot
+# pool, S = 64 the widest qdot sends to a kernel (2-64 on the tensor cores;
+# every S tile of quant_mlp: 1, 2, 4)
 _S_VALUES = (1, 2, 4, 8, 64)
 # one rank's shards at tp = 2 (parallel/mesh.py): the trunk linears (qkv
 # holds H/2 q heads and their kv heads: the decoder's one of its 2; w13 I/2
@@ -561,6 +564,21 @@ def _measure(torch, label: str, row: dict, got, want, kernel, plain, library, co
     return row
 
 
+def _quant_launch(quant, sms: int, S: int, D: int, F: int, G: int = None) -> dict:
+    """quant_matmul's (G None) or quant4_matmul's route, cluster size and
+    blocks at this shape."""
+    route = quant.quant_route(S)
+    if route == "simt":
+        vec, tpr, splits, _ = (quant._qmm_geometry(D, F, sms) if G is None
+                               else quant._q4mm_geometry(D, F, G, sms))
+        cols = vec * tpr
+    else:
+        plan = (quant._qmm_mma_plan(S, D, F, sms) if G is None
+                else quant._q4mm_mma_plan(S, D, F, G, sms))
+        splits, cols = plan.splits, plan.cols
+    return {"route": route, "cluster": splits, "blocks": splits * math.ceil(F / cols)}
+
+
 def phase_quant_matmul(torch, quant, peak_bw, peak_flops, shapes=_FLAGSHIP_SHAPES,
                        s_values=_S_VALUES):
     """quant_matmul vs quant_matmul_plain at every flagship shape."""
@@ -575,12 +593,10 @@ def phase_quant_matmul(torch, quant, peak_bw, peak_flops, shapes=_FLAGSHIP_SHAPE
         ws = [w] + [w.clone() for _ in range(copies - 1)]
         for S in s_values:
             x = torch.randn((S, D), generator=gen, device="cuda").to(torch.bfloat16)
-            vec, tpr, splits, _, s_tile = quant._qmm_geometry(S, D, F, quant._sms(x.device))
-            blocks = splits * math.ceil(F / (vec * tpr)) * math.ceil(S / s_tile)
             rows.append(_measure(
                 torch, "quant_matmul",
                 {"shape": name, "S": S, "D": D, "F": F, "per_frame": per_frame,
-                 "cluster": splits, "blocks": blocks},
+                 **_quant_launch(quant, quant._sms(x.device), S, D, F)},
                 quant.quant_matmul(x, q, scale), quant.quant_matmul_plain(x, q, scale),
                 lambda i: quant.quant_matmul(x, qs[i % copies], scale),
                 lambda i: quant.quant_matmul_plain(x, qs[i % copies], scale),
@@ -610,12 +626,10 @@ def phase_quant4_matmul(torch, quant, peak_bw, peak_flops):
         ws = [w] + [w.clone() for _ in range(_copies(2 * D * F) - 1)]
         for S in _S_VALUES:
             x = torch.randn((S, D), generator=gen, device="cuda").to(torch.bfloat16)
-            vec, tpr, splits, _, s_tile = quant._q4mm_geometry(S, D, F, G, quant._sms(x.device))
-            blocks = splits * math.ceil(F / (vec * tpr)) * math.ceil(S / s_tile)
             rows.append(_measure(
                 torch, "quant4_matmul",
                 {"shape": name, "S": S, "D": D, "F": F, "G": G, "per_frame": per_frame,
-                 "cluster": splits, "blocks": blocks},
+                 **_quant_launch(quant, quant._sms(x.device), S, D, F, G)},
                 quant.quant4_matmul(x, q4, scale), quant.quant4_matmul_plain(x, q4, scale),
                 lambda i: quant.quant4_matmul(x, q4s[i % copies], scale),
                 lambda i: quant.quant4_matmul_plain(x, q4s[i % copies], scale),
@@ -3748,7 +3762,7 @@ def _entry(name: str, source: str, replaces: str, rows, launches: dict, path: st
         **({"unfused_pair_ms": per_frame("unfused_ms")} if "unfused_ms" in main_rows[0] else {}),
         "timed_as": f"device time (CUDA graph replay, weights past L2) summed over one "
                     f"decoded frame's launches on the {path} path at S=1",
-        "shapes": [{k: r[k] for k in ("shape", "S", "D", "F", "G", "Dout", "kernel_ms",
+        "shapes": [{k: r[k] for k in ("shape", "S", "route", "D", "F", "G", "Dout", "kernel_ms",
                                       "kernel_eager_ms", "plain_ms", "library_ms", "bound_ms",
                                       "unfused_ms", "block_i", "threads", "prefetch_rows",
                                       "smem", "cluster", "blocks", "max_abs_err",
@@ -3997,7 +4011,7 @@ def main() -> int:
                 **shards["per_frame"][entry["name"]],
                 "launches": launches["mesh"][entry["name"]],
                 "timed_as": "device time summed over one decoded frame's launches on one rank",
-                "shapes": [{k: r[k] for k in ("shape", "S", "kernel_ms", "plain_ms",
+                "shapes": [{k: r[k] for k in ("shape", "S", "route", "kernel_ms", "plain_ms",
                                               "library_ms", "bound_ms", "max_abs_err") if k in r}
                            for r in shards[entry["name"]]]}
     decode_ms = {r["pos0"][0]: r["kernel_ms"] for r in rows["flash_attention"]

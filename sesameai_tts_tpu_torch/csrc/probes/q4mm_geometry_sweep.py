@@ -41,7 +41,7 @@ for sname, D, F, per_frame in cs._FLAGSHIP_SHAPES:
         x = torch.randn((1, D), generator=gen, device="cuda").to(torch.bfloat16)
         want = quant.quant4_matmul_plain(x, q4, scale).float()
         tol = 1e-2 * want.abs() + 1e-3 * want.abs().max()
-        current = geometry(1, D, F, G, sms)
+        current = geometry(D, F, G, sms)
         D2 = D // 2
         rows_out, seen = [], set()
         for tpr in (16, 8, 4, 2, 1):
@@ -50,7 +50,7 @@ for sname, D, F, per_frame in cs._FLAGSHIP_SHAPES:
                 rows = math.ceil(math.ceil(D2 / want_splits) / 8) * 8
                 splits = math.ceil(D2 / rows)
                 blocks = splits * tiles
-                geo = (16, tpr, splits, rows, 1)
+                geo = (16, tpr, splits, rows)
                 if rows < 32 or blocks > 4 * sms or blocks < sms // 2 or geo in seen:
                     continue
                 seen.add(geo)

@@ -1,7 +1,7 @@
 """Build and bind the port's hand-written CUDA kernels (``csrc/*.cu``).
 
 Every kernel is a CUDA C++ source with a plain C entry point of the same
-name.  ``build_kernels`` compiles each for ``sm_90a`` with ``nvcc`` into
+name (and, for a kernel with a second route, a second entry point).  ``build_kernels`` compiles each for ``sm_90a`` with ``nvcc`` into
 the checkout's git-ignored ``build/torch_kernels/`` (one ``nvcc`` per
 source, all started together) and loads it with ``ctypes``; ``launch``
 calls an entry point and raises on a non-zero CUDA error; ``count_launch``
@@ -27,15 +27,20 @@ _CSRC = Path(__file__).resolve().parents[1] / "csrc"
 _BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-# kernel name → the C entry point's argument types (pointers, ints, stream)
+# C entry point → its argument types (pointers, ints, stream)
 _SIGNATURES = {
-    "quant_matmul": [_P] * 4 + [_I] * 9 + [_P],
-    "quant4_matmul": [_P] * 4 + [_I] * 9 + [_P],
+    "quant_matmul": [_P] * 4 + [_I] * 8 + [_P],
+    "quant_matmul_mma": [_P] * 4 + [_I] * 10 + [_P],
+    "quant4_matmul": [_P] * 4 + [_I] * 8 + [_P],
+    "quant4_matmul_mma": [_P] * 4 + [_I] * 11 + [_P],
     "quant_mlp": [_P] * 8 + [_I] * 10 + [_P],
     "flash_attention": [_P] * 6 + [_I] * 15 + [_P],
     "flash_attention_bwd": [_P] * 12 + [_I] * 21 + [_P],
 }
-KERNELS = tuple(_SIGNATURES)
+# entry points that live in another kernel's source (a second route)
+_SOURCE_OF = {"quant_matmul_mma": "quant_matmul", "quant4_matmul_mma": "quant4_matmul"}
+# the kernels: one source and one wrapper each
+KERNELS = tuple(name for name in _SIGNATURES if name not in _SOURCE_OF)
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _lib_lock = threading.Lock()
@@ -59,7 +64,7 @@ def build_kernels(force: bool = False) -> Dict[str, ctypes.CDLL]:
         if _libs and not force:
             return _libs
         stale = [
-            name for name in _SIGNATURES
+            name for name in KERNELS
             if force or not _library(name).exists()
             or _library(name).stat().st_mtime < (_CSRC / f"{name}.cu").stat().st_mtime
         ]
@@ -91,20 +96,20 @@ def build_kernels(force: bool = False) -> Dict[str, ctypes.CDLL]:
                     os.replace(tmp, _library(name))  # atomic: a loader sees old or new
             if failed:
                 raise RuntimeError("\n".join(failed))
-        for name, argtypes in _SIGNATURES.items():
-            lib = ctypes.CDLL(str(_library(name)))
-            fn = getattr(lib, name)
+        for name in KERNELS:
+            _libs[name] = ctypes.CDLL(str(_library(name)))
+        for entry, argtypes in _SIGNATURES.items():
+            fn = getattr(_libs[_SOURCE_OF.get(entry, entry)], entry)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
-            _libs[name] = lib
         return _libs
 
 
-def launch(name: str, *args) -> None:
-    """Call kernel ``name``'s C entry point; a non-zero CUDA error raises."""
-    err = getattr(build_kernels()[name], name)(*args)
+def launch(entry: str, *args) -> None:
+    """Call the C entry point ``entry``; a non-zero CUDA error raises."""
+    err = getattr(build_kernels()[_SOURCE_OF.get(entry, entry)], entry)(*args)
     if err != 0:
-        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+        raise RuntimeError(f"{entry} kernel launch failed: CUDA error {err}")
 
 
 def count_launch(wrapper: Callable, n: int = 1) -> None:

@@ -15,6 +15,9 @@ and never materialize a bf16 copy of it:
 - ``quant_mlp`` (``csrc/quant_mlp.cu``): the whole int8 SwiGLU MLP in one
   launch, taken by ``qmlp`` when the caller asks for the fused MLP.
 
+The first two take one of two routes by S (``quant_route``): a GEMV on the
+CUDA cores at S = 1 ("simt"), the tensor cores for 2 <= S <= 64 ("mma").
+
 Each wrapper launches its kernel for a CUDA tensor and runs its plain
 version (the same arithmetic as torch ops) for a CPU tensor.  The kernels
 are built at first use by ``ops/kernels.py``, so importing this module
@@ -24,7 +27,7 @@ needs neither ``nvcc`` nor a card.
 from __future__ import annotations
 
 import math
-from typing import Optional, Union
+from typing import NamedTuple, Optional, Union
 
 import torch
 import torch.nn.functional as F_
@@ -39,14 +42,31 @@ _MIN_SPLIT_ROWS = 32  # fewest weight rows one block reduces over
 _QMM_TPRS = (16, 8, 4)
 _QMM_MAX_CLUSTER = 16
 _QMM_BLOCKS_PER_SM = 2
-# quant4_matmul.cu: lane pairs per tile row, columns per pair by S tile (its
-# (s_tile, vec) instantiations: fewer at wide S tiles, to keep two f32 sums
-# per column and row of x within 128 registers), the packed weight bytes
-# aimed at per block, and the bounds of that aim in blocks per SM
+# quant4_matmul.cu: lane pairs per tile row, the packed weight bytes aimed
+# at per block, and the bounds of that aim in blocks per SM
 _Q4MM_TPR = 2
-_Q4MM_VEC = {1: 16, 2: 16, 4: 8, 8: 4}
 _Q4MM_BYTES_PER_BLOCK = 4096
 _Q4MM_BLOCKS_PER_SM = (1, 2)
+# the tensor-core route (qmm_mma, q4mm_mma): rows of D a k-step, warps a
+# block, and per n-tiles of 8 rows of x a warp (1, 2, 4, 8) the m-tiles of
+# 16 columns a warp and the warps along D (the rest go along F): the
+# accumulators stay at <= 64 f32 a lane, and from S = 17 on the block
+# widens in F so that its staged x rows stay small beside its weight bytes;
+# then (int4) the groups of 4 warps a block, which split the n-tiles (at
+# S > 32 its 2 x 64 accumulators would leave one block of 4 warps an SM;
+# quant_matmul.cu has one group).
+# The splits: at least _MMA_SPLIT_ROWS weight rows each (a packed int4 row
+# holds two), at most _MMA_BLOCKS_PER_SM blocks per SM in all; S > 16
+# halves the rows and takes a power-of-two cluster (a block's shared memory
+# then keeps two to an SM, and clusters of 11 ran 1.7x slower than of 8).
+# csrc/probes/quant_mma_sweep.py measured these on the H100.
+_MMA_K_STEP = 16
+_MMA_WARPS = 4
+_QMM_MMA_TILES = {1: (4, 4, 1), 2: (8, 4, 1), 4: (4, 2, 1), 8: (2, 1, 1)}
+_Q4MM_MMA_TILES = {1: (4, 4, 1), 2: (4, 4, 1), 4: (2, 2, 1), 8: (2, 1, 2)}
+_MMA_SPLIT_ROWS = 256
+_MMA_BLOCKS_PER_SM = 2
+_MAX_SMEM = 232448  # 227 KB
 # quant_mlp.cu: intermediate tile widths, widest first; the cluster sizes,
 # largest first; the clusters of each size one H100 holds at once with 1
 # or 2 blocks per SM (csrc/probes/cluster_occupancy.cu, H100 80GB HBM3: a
@@ -58,7 +78,7 @@ _QMLP_CLUSTERS = (16, 8, 4, 2, 1)
 _QMLP_CLUSTER_SLOTS = {1: {16: 7, 8: 15, 4: 30, 2: 66, 1: 132},
                        2: {16: 14, 8: 30, 4: 62, 2: 132, 1: 264}}
 _QMLP_SLOT_SMS = 132
-_QMLP_MAX_SMEM = 232448  # 227 KB
+_QMLP_MAX_SMEM = _MAX_SMEM
 _QMLP_SM_SMEM = 233472  # 228 KB
 _QMLP_BLOCK_RESERVED = 1024
 _QMLP_MAX_THREADS = 512
@@ -122,31 +142,122 @@ def _dequant4(w: dict, dtype=torch.bfloat16) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def _s_tile(S: int) -> int:
-    return 1 if S == 1 else 2 if S == 2 else 4 if S <= 4 else 8
+def quant_route(S: int) -> str:
+    """The route of ``quant_matmul`` and ``quant4_matmul`` for S rows of x:
+    "simt" (a GEMV on the CUDA cores) at S = 1, "mma" (the tensor cores)
+    from 2 to ``_KERNEL_MAX_ROWS``."""
+    if not 1 <= S <= _KERNEL_MAX_ROWS:
+        raise ValueError(f"the quant kernels take 1 <= S <= {_KERNEL_MAX_ROWS} rows, not {S} "
+                         f"(qdot sends more rows to x @ dequant(w))")
+    return "simt" if S == 1 else "mma"
 
 
-def _qmm_geometry(S: int, D: int, F: int, sms: int):
-    """quant_matmul.cu's launch → (vec, tpr, splits, rows_per_split,
-    s_tile).  Each thread reads ``vec`` columns (16, or 8 when F % 16 != 0)
-    and ``tpr`` threads cover a tile row; the widest tile is taken whose
-    grid can still reach ``_QMM_BLOCKS_PER_SM`` blocks per SM with clusters
-    of at most ``_QMM_MAX_CLUSTER`` blocks, then the fewest splits of D
-    that reach it (or the most allowed), at least ``_MIN_SPLIT_ROWS`` rows
-    each.  One cluster is the ``splits`` blocks of a column tile; every
-    split is non-empty."""
+def _qmm_geometry(D: int, F: int, sms: int):
+    """quant_matmul.cu's S = 1 launch → (vec, tpr, splits, rows_per_split).
+    Each thread reads ``vec`` columns (16, or 8 when F % 16 != 0) and
+    ``tpr`` threads cover a tile row; the widest tile is taken whose grid
+    can still reach ``_QMM_BLOCKS_PER_SM`` blocks per SM with clusters of at
+    most ``_QMM_MAX_CLUSTER`` blocks, then the fewest splits of D that
+    reach it (or the most allowed), at least ``_MIN_SPLIT_ROWS`` rows each.
+    One cluster is the ``splits`` blocks of a column tile; every split is
+    non-empty."""
     vec = 16 if F % 16 == 0 else 8
-    s_tile = _s_tile(S)
-    s_tiles = math.ceil(S / s_tile)
     max_splits = max(1, min(_QMM_MAX_CLUSTER, D // _MIN_SPLIT_ROWS))
     want = _QMM_BLOCKS_PER_SM * sms
     for tpr in _QMM_TPRS:
-        tiles = math.ceil(F / (vec * tpr)) * s_tiles
+        tiles = math.ceil(F / (vec * tpr))
         if tiles * max_splits >= want:
             break
     splits = max(1, min(max_splits, math.ceil(want / tiles)))
     rows = math.ceil(math.ceil(D / splits) / 8) * 8
-    return vec, tpr, math.ceil(D / rows), rows, s_tile
+    return vec, tpr, math.ceil(D / rows), rows
+
+
+class _MmaPlan(NamedTuple):
+    """A tensor-core launch: ``mt`` m-tiles of 16 columns a warp and ``nt``
+    n-tiles of 8 rows of x a block, ``wk`` of a group's 4 warps along D,
+    ``wn`` groups that split the n-tiles, clusters of ``splits`` blocks over
+    ``rows`` rows of D each (packed rows for int4), ``smem`` bytes of
+    dynamic shared memory."""
+    mt: int
+    nt: int
+    wk: int
+    wn: int
+    splits: int
+    rows: int
+    smem: int
+
+    @property
+    def cols(self) -> int:
+        """The columns of F a block (and a cluster) covers."""
+        return _MMA_WARPS // self.wk * 16 * self.mt
+
+    def grid(self, F: int):
+        """The launch's grid: the splits of a cluster along x, the column
+        tiles along y; no S axis (every block carries every row of x)."""
+        return self.splits, math.ceil(F / self.cols), 1
+
+
+_MMA_RING = 3  # the kernels' NS: chunks of x in the ring
+
+
+def _ring_bytes(mt: int, nt: int, wk: int) -> int:
+    """One plane of the kernels' x ring: NS chunks of 8 nt rows of KC = 16 *
+    (16 / mt) * wk bf16 values, each row padded to ``x_stride(KC)``."""
+    kc = 16 * (16 // mt) * wk
+    return _MMA_RING * 8 * nt * ((kc + 63) // 64 * 64 + 16) * 2
+
+
+def _recv_bytes(S: int, cols: int, splits: int) -> int:
+    """The cluster's partials of the 4-vectors one block finishes."""
+    return splits * -(-(S * cols // 4) // splits) * 16
+
+
+def _qmm_mma_smem(S: int, mt: int, nt: int, wk: int, splits: int) -> int:
+    """quant_matmul.cu's ``qmm_mma_smem``: the x ring, or the warps' f32
+    sums that replace it, then the cluster's partials."""
+    cols = _MMA_WARPS // wk * 16 * mt
+    region = max(_ring_bytes(mt, nt, wk), wk * 8 * nt * cols * 4)
+    return -(-region // 16) * 16 + _recv_bytes(S, cols, splits)
+
+
+def _q4mm_mma_smem(S: int, mt: int, nt: int, wk: int, splits: int) -> int:
+    """quant4_matmul.cu's ``q4mm_mma_smem``: the ring of x's two halves,
+    the warps' running f32 sums, then the cluster's partials."""
+    cols = _MMA_WARPS // wk * 16 * mt
+    return 2 * _ring_bytes(mt, nt, wk) + wk * 8 * nt * cols * 4 + _recv_bytes(S, cols, splits)
+
+
+def _mma_plan(S: int, D: int, F: int, sms: int, tiles: dict, smem_of, name: str,
+              packed: int = 1) -> _MmaPlan:
+    """The tensor-core launch over D rows (packed rows of ``packed`` weight
+    rows each for int4): ``nt`` the fewest n-tiles that hold S rows, ``mt``
+    ``wk`` and ``wn`` from ``tiles`` (mt at most 4 where F % 16 != 0), then
+    as many splits as keep ``_MMA_SPLIT_ROWS`` weight rows each (S > 16:
+    half, and a power of two; at most 16), fewer where the grid would pass
+    ``_MMA_BLOCKS_PER_SM`` blocks per SM, rows a multiple of the k-step,
+    every split non-empty.  The shared memory (at most 172 KB, int4 at
+    S = 64) does not depend on the split: x goes through a fixed ring."""
+    if quant_route(S) != "mma":
+        raise ValueError(f"{name}: the tensor-core route takes 2 <= S <= {_KERNEL_MAX_ROWS}")
+    nt = next(n for n in (1, 2, 4, 8) if 8 * n >= S)
+    mt, wk, wn = tiles[nt]
+    if F % (2 * mt):
+        mt = 4  # F % 8 == 0: 8-byte loads of 8 columns a lane
+    cols = _MMA_WARPS // wk * 16 * mt
+    split_rows = _MMA_SPLIT_ROWS // (2 if S > 16 else 1) // packed
+    most = max(1, _MMA_BLOCKS_PER_SM * sms // math.ceil(F / cols))
+    want = max(1, min(_QMM_MAX_CLUSTER, math.ceil(D / split_rows), most))
+    if S > 16:
+        want = 1 << (want.bit_length() - 1)
+    rows = math.ceil(math.ceil(D / want) / _MMA_K_STEP) * _MMA_K_STEP
+    splits = math.ceil(D / rows)
+    return _MmaPlan(mt, nt, wk, wn, splits, rows, smem_of(S, mt, nt, wk, splits))
+
+
+def _qmm_mma_plan(S: int, D: int, F: int, sms: int) -> _MmaPlan:
+    """quant_matmul.cu's tensor-core launch (``_mma_plan`` over D)."""
+    return _mma_plan(S, D, F, sms, _QMM_MMA_TILES, _qmm_mma_smem, "quant_matmul")
 
 
 def _sms(device: torch.device) -> int:
@@ -165,6 +276,32 @@ def _refuse_grad(name: str, x: torch.Tensor) -> None:
     if torch.is_grad_enabled() and x.requires_grad:
         raise TypeError(f"{name}: the kernel has no gradient, and x requires grad; train "
                         f"dense weights and quantize them afterwards")
+
+
+def quant_matmul_cluster_plain(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
+                               rows_per_split: int, warps: int = 1,
+                               k_step: int = _MMA_K_STEP) -> torch.Tensor:
+    """The tensor-core route's order of sums as torch ops: D is cut into
+    splits of ``rows_per_split`` rows (one block each); in a block, warp w
+    of ``warps`` takes every ``warps``-th k-step of ``k_step`` rows from the
+    w-th on and adds their f32 products in order; the warps' sums are added
+    in warp order, the blocks' in rank order; × scale in f32, cast to
+    x.dtype.  (Inside a k-step the tensor cores add its products in an order
+    of their own.)"""
+    S, D = x.shape
+    xb = x.to(torch.bfloat16).float()
+    qf = q.to(torch.bfloat16).float()
+    total = torch.zeros((S, q.shape[1]), dtype=torch.float32, device=x.device)
+    for begin in range(0, D, rows_per_split):
+        end = min(D, begin + rows_per_split)
+        block = torch.zeros_like(total)
+        for w in range(warps):
+            acc = torch.zeros_like(total)
+            for a in range(begin + w * k_step, end, warps * k_step):
+                acc = acc + xb[:, a:min(end, a + k_step)] @ qf[a:min(end, a + k_step)]
+            block = block + acc
+        total = total + block
+    return (total * scale.float()).to(x.dtype)
 
 
 def quant_matmul_plain(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
@@ -206,11 +343,19 @@ def quant_matmul(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor) -> torch
     check_operands("quant_matmul", {"x": x, "q": q, "scale": scale}, x.device)
     if F % 8 != 0 or S * F >= 2**31:
         raise ValueError(f"quant_matmul: need F % 8 == 0 and S*F < 2^31 (S={S}, F={F})")
-    vec, tpr, splits, rows, s_tile = _qmm_geometry(S, D, F, _sms(x.device))
+    if q.data_ptr() % 16 or scale.data_ptr() % 16:  # read as 16-byte vectors
+        raise ValueError("quant_matmul: q and scale must start on a 16-byte boundary")
     y = torch.empty((S, F), dtype=x.dtype, device=x.device)
-    launch("quant_matmul", x.data_ptr(), q.data_ptr(), scale.data_ptr(), y.data_ptr(),
-           S, D, F, splits, rows, tpr, vec, s_tile, int(x.dtype == torch.bfloat16),
-           torch.cuda.current_stream(x.device).cuda_stream)
+    ptrs = (x.data_ptr(), q.data_ptr(), scale.data_ptr(), y.data_ptr())
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    x_is_bf16 = int(x.dtype == torch.bfloat16)
+    if quant_route(S) == "simt":
+        vec, tpr, splits, rows = _qmm_geometry(D, F, _sms(x.device))
+        launch("quant_matmul", *ptrs, S, D, F, splits, rows, tpr, vec, x_is_bf16, stream)
+    else:
+        p = _qmm_mma_plan(S, D, F, _sms(x.device))
+        launch("quant_matmul_mma", *ptrs, S, D, F, p.splits, p.rows, p.mt, p.nt, p.wk, p.smem,
+               x_is_bf16, stream)
     count_launch(quant_matmul)
     return y
 
@@ -223,27 +368,24 @@ quant_matmul.launches = 0
 # ---------------------------------------------------------------------------
 
 
-def _q4mm_geometry(S: int, D: int, F: int, G: int, sms: int):
-    """quant4_matmul.cu's launch → (vec, tpr, splits, rows_per_split,
-    s_tile).  A pair of lanes reads ``vec`` columns of a packed row (16 at
-    S tiles of 1-2, fewer at wider ones) and ``_Q4MM_TPR`` pairs cover a
-    tile row: the narrowest tile, so that the fewest splits (the smallest
-    clusters, the cheapest barrier) fill the card.  The grid aims at one
-    block per ``_Q4MM_BYTES_PER_BLOCK`` packed bytes, held between 1 and 2
-    blocks per SM, and takes the fewest splits of the D/2 packed rows that
-    reach it (or the most allowed), at least ``_MIN_SPLIT_ROWS`` rows
-    each, in clusters of at most ``_QMM_MAX_CLUSTER``.  One cluster is the
-    ``splits`` blocks of a column tile; every split is non-empty.  A split
-    may cut a scale group of D/G packed rows or span several: the kernel
-    scales each group where a block's rows leave it (``_q4mm_segments``)."""
+def _q4mm_geometry(D: int, F: int, G: int, sms: int):
+    """quant4_matmul.cu's S = 1 launch → (vec, tpr, splits, rows_per_split).
+    A pair of lanes reads ``vec`` columns of a packed row (16, or 8 when
+    F % 16 != 0) and ``_Q4MM_TPR`` pairs cover a tile row: the narrowest
+    tile, so that the fewest splits (the smallest clusters, the cheapest
+    barrier) fill the card.  The grid aims at one block per
+    ``_Q4MM_BYTES_PER_BLOCK`` packed bytes, held between 1 and 2 blocks per
+    SM, and takes the fewest splits of the D/2 packed rows that reach it (or
+    the most allowed), at least ``_MIN_SPLIT_ROWS`` rows each, in clusters
+    of at most ``_QMM_MAX_CLUSTER``.  One cluster is the ``splits`` blocks
+    of a column tile; every split is non-empty.  A split may cut a scale
+    group of D/G packed rows or span several: the kernel scales each group
+    where a block's rows leave it (``_q4mm_segments``)."""
     if G <= 0 or G % 2 or D % G:
         raise ValueError(f"quant4_matmul: G={G} must be even and divide D={D}")
-    s_tile = _s_tile(S)
-    vec = _Q4MM_VEC[s_tile]
-    if F % vec:
-        vec = 8  # F % 8 == 0: the S tile's instantiation at 8 columns
+    vec = 16 if F % 16 == 0 else 8
     D2 = D // 2
-    tiles = math.ceil(F / (vec * _Q4MM_TPR)) * math.ceil(S / s_tile)
+    tiles = math.ceil(F / (vec * _Q4MM_TPR))
     max_splits = max(1, min(_QMM_MAX_CLUSTER, D2 // _MIN_SPLIT_ROWS))
     lo, hi = (n * sms for n in _Q4MM_BLOCKS_PER_SM)
     want = min(hi, max(lo, D2 * F / _Q4MM_BYTES_PER_BLOCK))
@@ -252,7 +394,19 @@ def _q4mm_geometry(S: int, D: int, F: int, G: int, sms: int):
         splits = math.ceil(D2 / rows)
         if splits * tiles >= want:
             break
-    return vec, _Q4MM_TPR, splits, rows, s_tile
+    return vec, _Q4MM_TPR, splits, rows
+
+
+def _q4mm_mma_plan(S: int, D: int, F: int, G: int, sms: int) -> _MmaPlan:
+    """quant4_matmul.cu's tensor-core launch (``_mma_plan`` over the D/2
+    packed rows).  A 16-row k-step must lie in one scale group: D/G, the
+    packed rows of a group, is a multiple of 16 (the trunks' G = 2 and
+    128-row groups are)."""
+    if G <= 0 or G % 2 or D % G or (D // G) % _MMA_K_STEP:
+        raise ValueError(f"quant4_matmul: at S >= 2, G={G} must be even and divide D={D} "
+                         f"into groups of a multiple of {_MMA_K_STEP} rows")
+    return _mma_plan(S, D // 2, F, sms, _Q4MM_MMA_TILES, _q4mm_mma_smem, "quant4_matmul",
+                     packed=2)
 
 
 def _q4mm_segments(D: int, G: int, begin: int, end: int):
@@ -265,28 +419,55 @@ def _q4mm_segments(D: int, G: int, begin: int, end: int):
 
 
 def quant4_matmul_cluster_plain(x: torch.Tensor, q4: torch.Tensor, scale: torch.Tensor,
-                                rows_per_split: int) -> torch.Tensor:
-    """The kernel's order of sums as torch ops: the D/2 packed rows are cut
-    into splits of ``rows_per_split`` (one block each); a block takes, for
-    each group its rows touch (``_q4mm_segments``), the f32 partial dots of
-    bf16(x)'s low half with the low nibbles and of its high half with the
-    high nibbles over its rows of the group, times the group's two scales,
-    into its running f32 sum; the blocks' sums are added in rank order and
-    cast to x.dtype.  (The kernel scales each thread's share of a group and
-    adds the shares inside the block: the same terms, f32 sums in another
-    order.)"""
+                                rows_per_split: int, warps: Optional[int] = None,
+                                k_step: int = _MMA_K_STEP) -> torch.Tensor:
+    """The kernels' order of sums as torch ops: the D/2 packed rows are cut
+    into splits of ``rows_per_split`` (one block each) and the blocks' f32
+    sums are added in rank order and cast to x.dtype.  A group's partial
+    dots, of bf16(x)'s low half with the low nibbles and of its high half
+    with the high nibbles, are scaled by the group's two scales before they
+    join any sum across groups.
+
+    Without ``warps`` (the S = 1 route) a block takes, for each group its
+    rows touch (``_q4mm_segments``), the partials over its rows of the group
+    into its running sum.  (The kernel scales each thread's share of a group
+    and adds the shares inside the block: the same terms, f32 sums in
+    another order.)  With ``warps`` (the tensor-core route) warp w of a
+    block takes every ``warps``-th k-step of ``k_step`` packed rows from the
+    w-th on, adds the partials of a group's k-steps in order, scales them
+    into its running sum when its k-steps leave the group, and the warps'
+    sums are added in warp order; a k-step never crosses a group."""
     S, D = x.shape
     G, F = scale.shape
-    D2 = D // 2
+    D2, gs = D // 2, D // G
+    if warps is not None and gs % k_step:
+        raise ValueError(f"a group of {gs} packed rows is not whole k-steps of {k_step}")
     lo, hi = (n.float() for n in _unpack_int4(q4))
     xb = x.to(torch.bfloat16).float()
     x_lo, x_hi = xb[:, :D2], xb[:, D2:]
     total = torch.zeros((S, F), dtype=torch.float32, device=x.device)
+
+    def scaled(group, p_lo, p_hi):
+        return p_lo * scale[group].float() + p_hi * scale[G // 2 + group].float()
+
     for begin in range(0, D2, rows_per_split):
+        end = min(D2, begin + rows_per_split)
         block = torch.zeros_like(total)
-        for g, a, b in _q4mm_segments(D, G, begin, min(D2, begin + rows_per_split)):
-            block = (block + (x_lo[:, a:b] @ lo[a:b]) * scale[g].float()
-                     + (x_hi[:, a:b] @ hi[a:b]) * scale[G // 2 + g].float())
+        if warps is None:
+            for g, a, b in _q4mm_segments(D, G, begin, end):
+                block = block + scaled(g, x_lo[:, a:b] @ lo[a:b], x_hi[:, a:b] @ hi[a:b])
+        for w in range(warps or 0):
+            run, p_lo, p_hi = (torch.zeros_like(total) for _ in range(3))
+            group = begin // gs
+            for a in range(begin + w * k_step, end, warps * k_step):
+                b = min(end, a + k_step)
+                if a // gs != group:
+                    run = run + scaled(group, p_lo, p_hi)
+                    p_lo, p_hi = torch.zeros_like(total), torch.zeros_like(total)
+                    group = a // gs
+                p_lo = p_lo + x_lo[:, a:b] @ lo[a:b]
+                p_hi = p_hi + x_hi[:, a:b] @ hi[a:b]
+            block = block + (run + scaled(group, p_lo, p_hi))
         total = total + block
     return total.to(x.dtype)
 
@@ -341,11 +522,16 @@ def quant4_matmul(x: torch.Tensor, q4: torch.Tensor, scale: torch.Tensor) -> tor
         raise ValueError(f"quant4_matmul: need F % 8 == 0 and S*F < 2^31 (S={S}, F={F})")
     if q4.data_ptr() % 16 or scale.data_ptr() % 16:  # read as 16-byte vectors
         raise ValueError("quant4_matmul: q4 and scale must start on a 16-byte boundary")
-    vec, tpr, splits, rows, s_tile = _q4mm_geometry(S, D, F, G, _sms(x.device))
     y = torch.empty((S, F), dtype=torch.bfloat16, device=x.device)
-    launch("quant4_matmul", x.data_ptr(), q4.data_ptr(), scale.data_ptr(), y.data_ptr(),
-           S, D, F, G, splits, rows, tpr, vec, s_tile,
-           torch.cuda.current_stream(x.device).cuda_stream)
+    ptrs = (x.data_ptr(), q4.data_ptr(), scale.data_ptr(), y.data_ptr())
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    if quant_route(S) == "simt":
+        vec, tpr, splits, rows = _q4mm_geometry(D, F, G, _sms(x.device))
+        launch("quant4_matmul", *ptrs, S, D, F, G, splits, rows, tpr, vec, stream)
+    else:
+        p = _q4mm_mma_plan(S, D, F, G, _sms(x.device))
+        launch("quant4_matmul_mma", *ptrs, S, D, F, G, p.splits, p.rows, p.mt, p.nt, p.wk,
+               p.wn, p.smem, stream)
     count_launch(quant4_matmul)
     return y
 

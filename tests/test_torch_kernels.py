@@ -14,6 +14,25 @@ from sesameai_tts_tpu_torch.ops import attention as ta
 from sesameai_tts_tpu_torch.ops import quant as tq
 
 
+def test_bindings_match_the_c_entry_points():
+    """Every C entry point in csrc/ is bound with its own argument list: a
+    pointer for each pointer parameter, an int for each int (ctypes would
+    otherwise pass a shifted or truncated argument without complaint)."""
+    import ctypes
+    import re
+    from pathlib import Path
+
+    from sesameai_tts_tpu_torch.ops import kernels
+
+    found = {}
+    for src in (Path(kernels.__file__).parents[1] / "csrc").glob("*.cu"):
+        for name, params in re.findall(r'extern "C" int (\w+)\(([^)]*)\)', src.read_text()):
+            found[name] = [ctypes.c_void_p if "*" in p else ctypes.c_int
+                           for p in params.split(",")]
+            assert kernels._SOURCE_OF.get(name, name) == src.stem
+    assert found == kernels._SIGNATURES
+
+
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
@@ -77,6 +96,51 @@ def test_quant_matmul_is_deterministic(cuda, S, D, F):
     first = tq.quant_matmul(x, q, scale)
     assert torch.equal(tq.quant_matmul(x, q, scale), first)
     assert torch.equal(_replayed(lambda: tq.quant_matmul(x, q, scale)), first)
+
+
+# the tensor-core route (2 <= S <= 64): every n-tile count, at flagship
+# shapes (decoder.w13, backbone.w2, decoder.o_proj), tp = 2 shard shapes
+# (backbone.w13, decoder.qkv) and F % 16 == 8
+_MMA_S = [2, 5, 8, 16, 33, 64]
+_MMA_SHAPES = [(1024, 16384), (8192, 2048), (1024, 1024), (2048, 8192), (1024, 768),
+               (1024, 1000)]
+
+
+def _check_launch_and_bits(wrapper, call, want):
+    """One launch, agreement with the plain version, and the same bits from
+    a second call and from a CUDA-graph replay."""
+    before = wrapper.launches
+    got = call()
+    assert wrapper.launches == before + 1
+    _assert_close_to_plain(got, want)
+    assert torch.equal(call(), got)
+    assert torch.equal(_replayed(call), got)
+    return got
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("S", _MMA_S)
+@pytest.mark.parametrize("D,F", _MMA_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_quant_matmul_tensor_cores(cuda, S, D, F, dtype):
+    q, scale = _int8_weight(cuda, D, F)
+    x = torch.randn((S, D), generator=cuda, device="cuda").to(dtype)
+    got = _check_launch_and_bits(tq.quant_matmul, lambda: tq.quant_matmul(x, q, scale),
+                                 tq.quant_matmul_plain(x, q, scale))
+    assert got.dtype == dtype and got.shape == (S, F)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_quant_matmul_tensor_cores_stage_an_unaligned_x(cuda, dtype):
+    """An x that starts off a 16-byte boundary (a view into a larger
+    buffer) is staged one value at a time, to the same result."""
+    q, scale = _int8_weight(cuda, 1024, 1536)
+    buf = torch.randn(8 * 1024 + 1, generator=cuda, device="cuda").to(dtype)
+    x = buf[1:].view(8, 1024)
+    got = _check_launch_and_bits(tq.quant_matmul, lambda: tq.quant_matmul(x, q, scale),
+                                 tq.quant_matmul_plain(x, q, scale))
+    assert torch.equal(got, tq.quant_matmul(x.clone(), q, scale))
 
 
 @pytest.mark.gpu
@@ -156,6 +220,28 @@ def test_quant4_matmul_is_deterministic(cuda, S, D, F, G):
     first = tq.quant4_matmul(x, q4, scale)
     assert torch.equal(tq.quant4_matmul(x, q4, scale), first)
     assert torch.equal(_replayed(lambda: tq.quant4_matmul(x, q4, scale)), first)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("S", _MMA_S)
+@pytest.mark.parametrize("D,F", _MMA_SHAPES)
+@pytest.mark.parametrize("G_of", ["halves", "128-row groups"])
+def test_quant4_matmul_tensor_cores(cuda, S, D, F, G_of):
+    q4, scale = _int4_weight(cuda, D, F, 2 if G_of == "halves" else D // 128)
+    x = torch.randn((S, D), generator=cuda, device="cuda").to(torch.bfloat16)
+    got = _check_launch_and_bits(tq.quant4_matmul, lambda: tq.quant4_matmul(x, q4, scale),
+                                 tq.quant4_matmul_plain(x, q4, scale))
+    assert got.dtype == torch.bfloat16 and got.shape == (S, F)
+
+
+@pytest.mark.gpu
+def test_quant4_matmul_tensor_cores_stage_an_unaligned_x(cuda):
+    q4, scale = _int4_weight(cuda, 1024, 1536, 8)
+    buf = torch.randn(8 * 1024 + 1, generator=cuda, device="cuda").to(torch.bfloat16)
+    x = buf[1:].view(8, 1024)
+    got = _check_launch_and_bits(tq.quant4_matmul, lambda: tq.quant4_matmul(x, q4, scale),
+                                 tq.quant4_matmul_plain(x, q4, scale))
+    assert torch.equal(got, tq.quant4_matmul(x.clone(), q4, scale))
 
 
 @pytest.mark.gpu

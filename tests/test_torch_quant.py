@@ -90,26 +90,231 @@ def test_quant_matmul_cpu_runs_plain_without_launching(qweight):
 @pytest.mark.parametrize("D,F", [(2048, 3072), (2048, 16384), (8192, 2048), (1024, 1024),
                                  (8192, 1024), (64, 128), (100, 8)])
 def test_split_plan_covers_the_reduction(S, D, F):
-    vec, tpr, splits, rows, s_tile = tq._qmm_geometry(S, D, F, sms=132)
-    assert rows % 8 == 0 and 1 <= splits <= 16  # one cluster, at most 16 blocks
+    """Either route's launch: one cluster of at most 16 non-empty splits
+    over D, within the kernel's limits."""
+    if tq.quant_route(S) == "simt":
+        vec, tpr, splits, rows = tq._qmm_geometry(D, F, sms=132)
+        assert rows % 8 == 0 and F % vec == 0 and 32 % tpr == 0 and tpr * vec <= 256
+    else:
+        p = tq._qmm_mma_plan(S, D, F, sms=132)
+        splits, rows = p.splits, p.rows
+        assert rows % 16 == 0 and F % (2 * p.mt) == 0 and 8 * p.nt >= S
+        assert (p.mt, p.nt, p.wk, p.wn) in _QMM_MMA_KERNELS
+    assert 1 <= splits <= 16  # one cluster, at most 16 blocks
     assert splits * rows >= D and (splits - 1) * rows < D  # every split non-empty
-    assert F % vec == 0 and 32 % tpr == 0 and tpr * vec <= 256  # the kernel's limits
-    assert s_tile in (1, 2, 4, 8) and (S <= 8) == (s_tile >= S)
 
 
-# quant_matmul's decode shapes (chip_smoke.py's flagship linears)
+# quant_matmul's decode shapes (chip_smoke.py's flagship linears) and one
+# rank's shards of them at tp = 2
 _FLAGSHIP = [(2048, 3072), (2048, 2048), (2048, 16384), (8192, 2048),
              (1024, 1536), (1024, 1024), (1024, 16384), (8192, 1024)]
+_TP2 = [(2048, 1536), (1024, 2048), (2048, 8192), (4096, 2048),
+        (1024, 768), (512, 1024), (1024, 8192), (4096, 1024)]
+# the (mt, nt, wk) instantiations of quant_matmul.cu's and quant4_matmul.cu's
+# tensor-core kernels
+_QMM_MMA_KERNELS = {(4, 1, 4, 1), (8, 2, 4, 1), (4, 2, 4, 1), (4, 4, 2, 1), (2, 8, 1, 1)}
+_Q4MM_MMA_KERNELS = {(4, 1, 4, 1), (4, 2, 4, 1), (2, 4, 2, 1), (2, 8, 1, 2)}
+# the S = 1 launches of the CUDA-core route before the tensor-core route
+# came, (vec, tpr, splits, rows): that route keeps them exactly
+_QMM_S1_PLANS = {
+    (2048, 3072): (16, 8, 11, 192), (2048, 2048): (16, 4, 9, 232),
+    (2048, 16384): (16, 16, 5, 416), (8192, 2048): (16, 4, 9, 912),
+    (1024, 1536): (16, 4, 11, 96), (1024, 1024): (16, 4, 16, 64),
+    (1024, 16384): (16, 16, 5, 208), (8192, 1024): (16, 4, 16, 512),
+    (2048, 1536): (16, 4, 11, 192), (1024, 2048): (16, 4, 9, 120),
+    (2048, 8192): (16, 16, 9, 232), (4096, 2048): (16, 4, 9, 456),
+    (1024, 768): (16, 4, 16, 64), (512, 1024): (16, 4, 16, 32),
+    (1024, 8192): (16, 16, 9, 120), (4096, 1024): (16, 4, 16, 256),
+}
+_Q4MM_S1_PLANS = {
+    (2048, 3072): (16, 2, 3, 344), (2048, 2048): (16, 2, 5, 208),
+    (2048, 16384): (16, 2, 1, 1024), (8192, 2048): (16, 2, 5, 824),
+    (1024, 1536): (16, 2, 4, 128), (1024, 1024): (16, 2, 5, 104),
+    (1024, 16384): (16, 2, 1, 512), (8192, 1024): (16, 2, 9, 456),
+    (2048, 1536): (16, 2, 6, 176), (1024, 2048): (16, 2, 4, 128),
+    (2048, 8192): (16, 2, 2, 512), (4096, 2048): (16, 2, 5, 416),
+    (1024, 768): (16, 2, 6, 88), (512, 1024): (16, 2, 5, 56),
+    (1024, 8192): (16, 2, 2, 256), (4096, 1024): (16, 2, 9, 232),
+}
 
 
 @pytest.mark.parametrize("D,F", _FLAGSHIP)
 def test_flagship_geometry_fills_the_card(D, F):
     """At S = 1 every flagship shape puts at least one block on each of the
     H100's 132 SMs, in clusters of at most 16 non-empty splits."""
-    vec, tpr, splits, rows, _ = tq._qmm_geometry(1, D, F, sms=132)
+    vec, tpr, splits, rows = tq._qmm_geometry(D, F, sms=132)
     blocks = splits * math.ceil(F / (vec * tpr))
     assert blocks >= 132 and splits <= 16
     assert vec == 16 and (splits - 1) * rows < D <= splits * rows
+
+
+def _mma_coverage(plan, D, F):
+    """The (row, column) visits of a tensor-core launch, walked as the
+    kernel walks them: each split's warps w (w % wk along D, w // wk along
+    F) take k-steps s = w % wk, + wk, ...; lane (g, t) loads rows k_begin +
+    16 s + 4 t + i (i < 4, below the split's end) of its 2 * mt columns
+    (those below F).  → (rows visited per column group, columns visited)."""
+    rows, cols = [], []
+    for split in range(plan.splits):
+        begin, end = split * plan.rows, min(D, (split + 1) * plan.rows)
+        for wk in range(plan.wk):
+            for s in range(wk, math.ceil((end - begin) / 16), plan.wk):
+                rows += [r for t in range(4) for i in range(4)
+                         if (r := begin + 16 * s + 4 * t + i) < end]
+    for tile in range(plan.grid(F)[1]):
+        for wc in range(tq._MMA_WARPS // plan.wk):
+            for g in range(8):
+                f = tile * plan.cols + wc * 16 * plan.mt + g * 2 * plan.mt
+                cols += [f + c for c in range(2 * plan.mt) if f < F]
+    return rows, cols
+
+
+@pytest.mark.parametrize("S", [1, 2, 4, 8, 16, 64])
+@pytest.mark.parametrize("D,F", _FLAGSHIP + _TP2 + [(100, 24), (1024, 1000)])
+def test_qmm_plan_per_route(S, D, F):
+    """quant_matmul's launch at the flagship and tp = 2 shard shapes (and a
+    ragged D, and F % 16 == 8): S = 1 keeps the CUDA-core plan exactly; from
+    S = 2 on the tensor-core plan visits every row of D and every column of
+    F once, in clusters of at most 16 non-empty splits, with at most 65,535
+    column tiles, no S axis in its grid, and at most 232,448 bytes of shared
+    memory, enough for the kernel's layout."""
+    if S == 1:
+        assert tq.quant_route(S) == "simt"
+        if (D, F) in _QMM_S1_PLANS:
+            assert tq._qmm_geometry(D, F, sms=132) == _QMM_S1_PLANS[(D, F)]
+        return
+    assert tq.quant_route(S) == "mma"
+    p = tq._qmm_mma_plan(S, D, F, sms=132)
+    assert (p.mt, p.nt, p.wk, p.wn) in _QMM_MMA_KERNELS and F % (2 * p.mt) == 0 and 8 * p.nt >= S
+    splits, tiles, z = p.grid(F)
+    assert 1 <= splits <= 16 and tiles <= 65535 and z == 1
+    assert (splits - 1) * p.rows < D <= splits * p.rows and p.rows % 16 == 0
+    rows, cols = _mma_coverage(p, D, F)
+    assert sorted(rows) == list(range(D)) and sorted(cols) == list(range(F))
+    assert p.smem <= 232448 and p.smem == tq._qmm_mma_smem(S, p.mt, p.nt, p.wk, splits)
+    # the x ring (3 chunks of 8 nt rows of 16 * 16 / mt * wk bf16, padded),
+    # or the warps' sums after it, then the cluster's 4-vectors: splits *
+    # ceil(S * cols / 4 / splits)
+    ring = 3 * 8 * p.nt * (16 * 16 // p.mt * p.wk + 16) * 2
+    assert p.smem >= max(ring, p.wk * 8 * p.nt * p.cols * 4) + S * p.cols * 4
+
+
+@pytest.mark.parametrize("S", [1, 2, 4, 8, 16, 64])
+@pytest.mark.parametrize("G_of", ["halves", "128-row groups"])
+@pytest.mark.parametrize("D,F", _FLAGSHIP + _TP2 + [(96, 24), (1024, 1000)])
+def test_q4mm_plan_per_route(S, D, F, G_of):
+    """quant4_matmul's launch, as ``test_qmm_plan_per_route``, over the D/2
+    packed rows at G = 2 and at groups of 128 rows (16 for D = 96): every
+    k-step of 16 packed rows lies inside one scale group."""
+    G = 2 if G_of == "halves" else D // (128 if D >= 256 else 16)
+    if S == 1:
+        assert tq.quant_route(S) == "simt"
+        if (D, F) in _Q4MM_S1_PLANS:
+            assert tq._q4mm_geometry(D, F, G, sms=132) == _Q4MM_S1_PLANS[(D, F)]
+        return
+    p = tq._q4mm_mma_plan(S, D, F, G, sms=132)
+    D2, gs = D // 2, D // G
+    assert (p.mt, p.nt, p.wk, p.wn) in _Q4MM_MMA_KERNELS and F % (2 * p.mt) == 0 and 8 * p.nt >= S
+    splits, tiles, z = p.grid(F)
+    assert 1 <= splits <= 16 and tiles <= 65535 and z == 1
+    assert (splits - 1) * p.rows < D2 <= splits * p.rows and p.rows % 16 == 0
+    rows, cols = _mma_coverage(p, D2, F)
+    assert sorted(rows) == list(range(D2)) and sorted(cols) == list(range(F))
+    assert gs % 16 == 0 and all(r // 16 * 16 // gs == r // gs for r in rows)
+    assert p.smem <= 232448 and p.smem == tq._q4mm_mma_smem(S, p.mt, p.nt, p.wk, splits)
+
+
+@pytest.mark.parametrize("D,G", [(96, 4), (256, 32), (64, 2)])
+def test_q4mm_plan_refuses_groups_that_cut_a_k_step(D, G):
+    """A group of D/G packed rows that is not whole 16-row k-steps (or a G
+    the kernel does not take) raises from S = 2 on; S = 1 takes any even G
+    that divides D."""
+    if (D // G) % 16:
+        with pytest.raises(ValueError):
+            tq._q4mm_mma_plan(2, D, 64, G, sms=132)
+        tq._q4mm_geometry(D, 64, G, sms=132)
+    else:
+        assert tq._q4mm_mma_plan(2, D, 64, G, sms=132).rows % 16 == 0
+    with pytest.raises(ValueError):
+        tq._q4mm_mma_plan(2, D, 64, 3, sms=132)
+
+
+@pytest.mark.parametrize("S", [0, 65, 128])
+def test_quant_route_takes_1_to_64_rows(S):
+    """The kernels take 1-64 rows; qdot sends more to x @ dequant(w)."""
+    with pytest.raises(ValueError):
+        tq.quant_route(S)
+
+
+@pytest.fixture(scope="module")
+def qweight_ragged():
+    """int8 weight (200 → 128): 200 rows, not whole 16-row k-steps."""
+    w = np.random.default_rng(3).standard_normal((200, 128)).astype(np.float32) / 8
+    jw = jq.quantize_weight(jnp.asarray(w))
+    return jw, {k: torch.from_numpy(np.array(v)) for k, v in jw.items()}
+
+
+def _qmv_kernel_body(x, jw, block_f=128):
+    """The JAX int8 kernel body, run by ``pallas_call`` in interpret mode on
+    the CPU, with ``quant_matmul_pallas``'s BlockSpecs (without the TPU
+    memory space) and an f32 output."""
+    import jax
+    from jax.experimental import pallas as pl
+
+    S, D = x.shape
+    F = jw["q"].shape[1]
+    return pl.pallas_call(
+        jq._qmv_kernel,
+        grid=(F // block_f,),
+        in_specs=[
+            pl.BlockSpec((S, D), lambda i: (0, 0)),
+            pl.BlockSpec((D, block_f), lambda i: (0, i)),
+            pl.BlockSpec((1, block_f), lambda i: (0, i)),
+        ],
+        out_specs=pl.BlockSpec((S, block_f), lambda i: (0, i)),
+        out_shape=jax.ShapeDtypeStruct((S, F), jnp.float32),
+        interpret=True,
+    )(x, jw["q"], jw["scale"].reshape(1, F))
+
+
+@pytest.mark.parametrize("rows,warps", [(16, 1), (48, 2), (64, 4), (208, 4), (96, 1)])
+@pytest.mark.parametrize("S", [2, 3, 8, 13, 64])
+def test_quant_matmul_cluster_plain_matches_plain_and_jax_kernel_body(qweight_ragged, S, rows,
+                                                                      warps):
+    """The tensor-core route's order of sums (splits of ``rows`` rows, each
+    split's 16-row k-steps dealt to ``warps`` warps in turn, warps and then
+    blocks added in order) against ``quant_matmul_plain`` and the JAX
+    kernel body in interpret mode: the same exact products, f32 sums in
+    another order."""
+    jw, tw = qweight_ragged
+    x = np.random.default_rng(80 + S).standard_normal((S, 200)).astype(np.float32)
+    xb = jnp.asarray(x).astype(jnp.bfloat16)
+    xt = torch.from_numpy(np.array(xb.astype(jnp.float32)))
+    got = tq.quant_matmul_cluster_plain(xt, tw["q"], tw["scale"], rows, warps)
+    assert got.dtype == torch.float32 and got.shape == (S, 128)
+    _close(got.numpy(), tq.quant_matmul_plain(xt, tw["q"], tw["scale"]).numpy())
+    _close(got.numpy(), np.asarray(_qmv_kernel_body(xb, jw)))
+    # an f32 x is rounded to bf16 first, as the kernel stages it
+    _close(tq.quant_matmul_cluster_plain(torch.from_numpy(x), tw["q"], tw["scale"], rows,
+                                         warps).numpy(), got.numpy())
+    got_bf16 = tq.quant_matmul_cluster_plain(xt.to(torch.bfloat16), tw["q"], tw["scale"], rows,
+                                             warps)
+    assert got_bf16.dtype == torch.bfloat16
+    _close(got_bf16.float().numpy(), got.numpy(), rtol=2**-8)
+
+
+@pytest.mark.parametrize("D,F", [(2048, 3072), (8192, 1024), (1024, 1000)])
+@pytest.mark.parametrize("S", [2, 8, 64])
+def test_quant_matmul_cluster_plain_at_the_plans(S, D, F):
+    """The order of sums of each tensor-core plan at full width (the
+    flagship shapes, and F % 16 == 8) against quant_matmul_plain."""
+    rng = np.random.default_rng(D + S)
+    q = torch.from_numpy(rng.integers(-127, 128, (D, F), dtype=np.int8))
+    scale = torch.from_numpy(rng.random(F, dtype=np.float32) * 1e-2 + 1e-3)
+    x = torch.from_numpy(rng.standard_normal((S, D)).astype(np.float32)).to(torch.bfloat16)
+    p = tq._qmm_mma_plan(S, D, F, sms=132)
+    got = tq.quant_matmul_cluster_plain(x.float(), q, scale, p.rows, p.wk)
+    _close(got.numpy(), tq.quant_matmul_plain(x.float(), q, scale).numpy())
 
 
 def test_quantize_and_dequantize_csm_match_jax():
@@ -248,12 +453,17 @@ def test_q4mm_geometry_covers_every_row(S, D, F, G):
     """Every packed row lies in exactly one split, every split is
     non-empty, a cluster holds at most 16 blocks, and the launch is one the
     kernel is built for; each split's group segments cover its rows once."""
-    vec, tpr, splits, rows, s_tile = tq._q4mm_geometry(S, D, F, G, sms=132)
     D2 = D // 2
-    assert 1 <= splits <= 16 and rows >= tq._MIN_SPLIT_ROWS or splits == 1
+    if tq.quant_route(S) == "simt":
+        vec, tpr, splits, rows = tq._q4mm_geometry(D, F, G, sms=132)
+        assert 1 <= splits <= 16 and rows >= tq._MIN_SPLIT_ROWS or splits == 1
+        assert vec in (16, 8) and F % vec == 0 and 16 % tpr == 0
+    else:
+        p = tq._q4mm_mma_plan(S, D, F, G, sms=132)
+        splits, rows = p.splits, p.rows
+        assert 1 <= splits <= 16 and (p.mt, p.nt, p.wk, p.wn) in _Q4MM_MMA_KERNELS
+        assert F % (2 * p.mt) == 0 and 8 * p.nt >= S
     assert splits * rows >= D2 and (splits - 1) * rows < D2  # every split non-empty
-    assert (s_tile, vec) in {(1, 16), (1, 8), (2, 16), (2, 8), (4, 8), (8, 4)}
-    assert F % vec == 0 and 16 % tpr == 0 and (S <= 8) == (s_tile >= S)
     covered = []
     for k in range(splits):
         begin, end = k * rows, min(D2, (k + 1) * rows)
@@ -269,7 +479,7 @@ def test_q4mm_flagship_geometry_fills_the_card(D, F, G_of):
     clusters of at most 16 non-empty splits, at the trunks' G = 2 and at
     G = D/128; the split count is the fewest that reaches that aim."""
     G = 2 if G_of == "halves" else D // 128
-    vec, tpr, splits, rows, _ = tq._q4mm_geometry(1, D, F, G, sms=132)
+    vec, tpr, splits, rows = tq._q4mm_geometry(D, F, G, sms=132)
     tiles = math.ceil(F / (vec * tpr))
     want = min(2 * 132, max(132, D * F / 2 / 4096))
     assert splits * tiles >= want and (splits == 1 or (splits - 1) * tiles < want)
@@ -310,6 +520,39 @@ def test_quant4_matmul_cluster_plain_matches_plain_and_jax_kernel_body(q4weight,
     _close(got.numpy(), np.asarray(_q4_kernel_body(xb, jw)))
     got_bf16 = tq.quant4_matmul_cluster_plain(xt.to(torch.bfloat16), tw["q4"], tw["scale"], rows)
     assert got_bf16.dtype == torch.bfloat16
+
+
+@pytest.mark.parametrize("rows,warps", [(16, 1), (48, 2), (64, 4), (128, 4), (112, 1)])
+@pytest.mark.parametrize("G", [2, 16])
+@pytest.mark.parametrize("S", [2, 3, 8, 13, 64])
+def test_quant4_matmul_cluster_plain_per_warp_matches_plain_and_jax_kernel_body(q4weight, S, G,
+                                                                                rows, warps):
+    """The tensor-core route's order of sums (each split's 16-row k-steps
+    dealt to ``warps`` warps in turn, a warp's group partials scaled into
+    its running sum as its k-steps leave the group, warps and then blocks
+    added in order) against ``quant4_matmul_plain`` and the JAX kernel body
+    in interpret mode: the same exact products, f32 sums in another order."""
+    jw, tw = q4weight[G]
+    x = np.random.default_rng(90 + S).standard_normal((S, 256)).astype(np.float32)
+    xb = jnp.asarray(x).astype(jnp.bfloat16)
+    xt = torch.from_numpy(np.array(xb.astype(jnp.float32)))
+    got = tq.quant4_matmul_cluster_plain(xt, tw["q4"], tw["scale"], rows, warps)
+    assert got.dtype == torch.float32 and got.shape == (S, 256)
+    _close(got.numpy(), tq.quant4_matmul_plain(xt, tw["q4"], tw["scale"]).numpy())
+    _close(got.numpy(), np.asarray(_q4_kernel_body(xb, jw)))
+    got_bf16 = tq.quant4_matmul_cluster_plain(xt.to(torch.bfloat16), tw["q4"], tw["scale"],
+                                              rows, warps)
+    assert got_bf16.dtype == torch.bfloat16
+    _close(got_bf16.float().numpy(), got.numpy(), rtol=2**-8)
+
+
+def test_quant4_matmul_cluster_plain_per_warp_refuses_groups_that_cut_a_k_step(q4weight):
+    _, tw = q4weight[16]
+    x = torch.zeros((2, 256))
+    scale8 = tw["scale"].reshape(8, 2, 256)[:, 0].contiguous()  # G = 8: groups of 32 rows
+    tq.quant4_matmul_cluster_plain(x, tw["q4"], scale8, 64, 2)
+    with pytest.raises(ValueError):  # groups of 16 rows are not whole k-steps of 32
+        tq.quant4_matmul_cluster_plain(x, tw["q4"], tw["scale"], 64, 2, k_step=32)
 
 
 def test_quantize_and_dequantize_csm_int4_match_jax():
