@@ -150,8 +150,8 @@ _MLP_SHAPES = (
 )
 # S = 1 is the single-stream decode (quant_matmul and quant4_matmul on the
 # CUDA cores), S = 2 the rehearsal's 2-slot serving pool, S = 8 the 8-slot
-# pool, S = 64 the widest qdot sends to a kernel (2-64 on the tensor cores;
-# every S tile of quant_mlp: 1, 2, 4)
+# pool, S = 64 the widest qdot sends to a kernel (2-64 on the tensor cores,
+# for quant_mlp too)
 _S_VALUES = (1, 2, 4, 8, 64)
 # one rank's shards at tp = 2 (parallel/mesh.py): the trunk linears (qkv
 # holds H/2 q heads and their kv heads: the decoder's one of its 2; w13 I/2
@@ -329,6 +329,7 @@ SERVE_SESSIONS = (
 SERVE_CANCEL, SERVE_LONG_PROMPT, SERVE_ROOM = 5, 11, 9
 SERVE_STREAM_MS = 8000  # the streamed HTTP responses (>= 4 s verify)
 SERVE_BURST = 64  # /tts requests at once against max_pending=32 with every slot busy
+SERVE_TICK_REPS = 3  # graphed ticks from one state, the fastest kept (the pools' tick ms)
 
 # main[smoke]: the silentcipher network at the real grid (SilentCipherConfig(),
 # the fixture's hidden 32) on a SMOKE_CLIP_S clip made at 24 kHz and resampled
@@ -641,6 +642,24 @@ def phase_quant4_matmul(torch, quant, peak_bw, peak_flops):
     return rows
 
 
+def _qmlp_launch(quant, sms: int, S: int, D: int, F: int, Dout: int) -> dict:
+    """quant_mlp's route and launch at this shape: at S = 1 the CUDA-core
+    geometry (tile, cluster, threads, prefetched w2 rows), else the
+    tensor-core plan (tile, its passes, n-tiles, the phase-2 column tile
+    (chunk), its splits of F and their rows, the ring's stage rows per
+    phase); no cluster."""
+    if quant.quant_route(S) == "simt":
+        block_i, cluster, threads, prefetch, smem = quant._qmlp_geometry(S, D, F, Dout, sms)
+        return {"route": "simt", "block_i": block_i, "cluster": cluster,
+                "blocks": F // block_i, "threads": threads, "prefetch_rows": prefetch,
+                "smem": smem}
+    p = quant._qmlp_mma_plan(S, D, F, Dout, sms)
+    return {"route": "mma", "block_i": p.block_i, "cluster": 1, "blocks": F // p.block_i,
+            "threads": 32 * quant._QMLP_MMA_WARPS, "pass_cols": p.pass_cols, "nt": p.nt,
+            "chunk": p.cols, "splits": p.splits, "rows": p.rows, "stage_rows": [p.kc1, p.kc2],
+            "smem": p.smem}
+
+
 def phase_quant_mlp(torch, quant, peak_bw, peak_flops, shapes=_MLP_SHAPES, s_values=_S_VALUES):
     """quant_mlp vs quant_mlp_plain at the backbone and decoder MLPs, with
     the launch geometry in each row.  The library yardstick is the dense
@@ -671,13 +690,10 @@ def phase_quant_mlp(torch, quant, peak_bw, peak_flops, shapes=_MLP_SHAPES, s_val
 
         for S in s_values:
             x = torch.randn((S, D), generator=gen, device="cuda").to(torch.bfloat16)
-            block_i, cluster, threads, prefetch, smem, _ = quant._qmlp_geometry(
-                S, D, F, Dout, quant._sms(x.device))
             row = _measure(
                 torch, "quant_mlp",
                 {"shape": name, "S": S, "D": D, "F": F, "Dout": Dout, "per_frame": per_frame,
-                 "block_i": block_i, "cluster": cluster, "blocks": F // block_i,
-                 "threads": threads, "prefetch_rows": prefetch, "smem": smem},
+                 **_qmlp_launch(quant, quant._sms(x.device), S, D, F, Dout)},
                 quant.quant_mlp(x, q13, s13, q2, s2), quant.quant_mlp_plain(x, q13, s13, q2, s2),
                 lambda i: quant.quant_mlp(x, mats[i % copies][0], s13, mats[i % copies][1], s2),
                 lambda i: quant.quant_mlp_plain(x, mats[i % copies][0], s13, mats[i % copies][1],
@@ -1804,18 +1820,17 @@ def _pool_tensors(srv):
     return list(_tensors(srv._ticker._slot(srv.B)))
 
 
-def _pool_ticks(torch, srv, greedy: bool, ms0, seed: int = 77):
+def _pool_ticks(torch, srv, greedy: bool, ms0, seed: int = 77, modes=("graphed", "eager")):
     """One tick of the pool as it stands, on the graphs and then on the eager
-    step from the same state (restored in between) → (graphed, eager): each
-    (frames, valid, done, PCM) on the host, plus the graphed tick's wall ms
-    (synchronized)."""
+    step from the same state (restored in between) → {mode: ((frames,
+    valid, done, PCM) on the host, the tick's wall ms, synchronized)}."""
     from sesameai_tts_tpu_torch.convert import tree_map
     from sesameai_tts_tpu_torch.runtime.serving import _on
 
     t = srv._ticker
     snapshot = [x.clone() for x in _pool_tensors(srv)]
     out = {}
-    for mode in ("graphed", "eager"):
+    for mode in modes:
         for dst, src in zip(_pool_tensors(srv), snapshot):
             dst.copy_(src)
         if mode == "eager":  # the yardstick of _eager_twin, on the pool's own state
@@ -1833,6 +1848,98 @@ def _pool_ticks(torch, srv, greedy: bool, ms0, seed: int = 77):
         out[mode] = ([x.cpu().numpy() for x in res[:4]], wall_ms)
     for dst, src in zip(_pool_tensors(srv), snapshot):
         dst.copy_(src)
+    return out
+
+
+def _admit_all(srv, texts) -> list:
+    """One fresh admission in every slot of a stopped pool → ms each
+    (prefill + first chunk + its fetch, one at a time)."""
+    from sesameai_tts_tpu_torch.runtime.serving import Session, _on
+
+    admit_ms = []
+    for slot in range(srv.B):
+        ms, temp, k = SERVE_SESSIONS[slot]
+        session = Session(text=texts[slot], speaker=0, max_audio_length_ms=6000,
+                          temperature=temp, topk=k)
+        t0 = time.perf_counter()
+        item = srv._dispatch_admission(session)
+        _check(item is not None, f"serve: admission failed: {session.error}")
+        item[-1].wait()
+        admit_ms.append((time.perf_counter() - t0) * 1e3)
+        with _on(srv._ticker):
+            srv._attach(slot, item)
+    return admit_ms
+
+
+def _tick_checks(torch, srv, ms0) -> dict:
+    """The pool's tick on its graphs against the eager step from the same
+    state, sampled then greedy (topk 1 in every slot from then on)."""
+    import numpy as np
+
+    checks = {}
+    for label, greedy in (("sampled", False), ("greedy", True)):
+        if greedy:
+            srv._ticker._slot(srv.B).bufs.topk.fill_(1)
+        ticks = _pool_ticks(torch, srv, greedy, ms0)
+        (g, g_ms), (e, e_ms) = ticks["graphed"], ticks["eager"]
+        checks[label] = {"frames_bit_equal": bool(np.array_equal(g[0], e[0])),
+                         "valid_equal": bool(np.array_equal(g[1], e[1])),
+                         "pcm_max_abs_diff": float(np.abs(g[3] - e[3]).max()),
+                         "tick_ms_graphed": g_ms, "tick_ms_eager": e_ms,
+                         "frames": int(g[0].shape[0])}
+    return checks
+
+
+def _tick_ms_per_frame_step(torch, srv, ms0, reps: int = SERVE_TICK_REPS):
+    """The fastest of ``reps`` graphed greedy ticks from the same state, in
+    wall ms per frame-step (synchronized; Mimi's decode of the tick
+    included) → (that, the first tick's (frames, valid, done, PCM))."""
+    runs = [_pool_ticks(torch, srv, True, ms0, modes=("graphed",))["graphed"]
+            for _ in range(reps)]
+    return min(ms for _, ms in runs) / runs[0][0][0].shape[0], runs[0][0]
+
+
+def _fused_pool(torch, wrappers, gen, texts, unfused_tick_ms: float) -> dict:
+    """The fused-MLP configuration's pool: ``Generator(fused_mlp=True)`` on
+    gen's int8 tree, ``BatchedTTSServer(slots=8, chunk_frames=10)``,
+    warmed, 8 fresh admissions, then its tick on the graphs against the
+    eager step, sampled and greedy: bit-equal, and the launches exact
+    (quant_mlp 144 and quant_matmul 288 a frame-step, at S = 8;
+    flash_attention 144).  Its graphed tick's ms per frame-step beside the
+    unfused pool's, taken the same way."""
+    import numpy as np
+
+    from sesameai_tts_tpu_torch.convert import tree_map
+    from sesameai_tts_tpu_torch.runtime.serving import BatchedTTSServer
+
+    fgen = _sibling(gen, gen._params, fused_mlp=True)
+    srv = BatchedTTSServer(fgen, slots=SERVE_SLOTS, chunk_frames=SERVE_CHUNK)
+    t0 = time.perf_counter()
+    srv.warmup()
+    warmup_s = time.perf_counter() - t0
+    admit_ms = _admit_all(srv, texts)
+    torch.cuda.synchronize()
+    ms0 = tree_map(lambda x: x.clone(), srv._mimi_state)
+    _reset_counts(wrappers)
+    checks = _tick_checks(torch, srv, ms0)
+    launches = _counts(wrappers)
+    steps = 2 * sum(c["frames"] for c in checks.values())  # graphed and eager ticks
+    per_frame = next(launches for path, _, launches, _ in _PATHS if path == "fused")
+    want = {**{k: n * steps for k, n in per_frame.items()}, "flash_attention": 144 * steps,
+            "flash_attention_bwd": 0}
+    tick_ms, _ = _tick_ms_per_frame_step(torch, srv, ms0)
+    out = {"slots": srv.B, "warmup_s": warmup_s, "admission_ms_p50": float(np.median(admit_ms)),
+           "graph_vs_eager": checks, "frame_steps": steps, "launches": launches,
+           "tick_ms_per_frame_step": tick_ms, "unfused_tick_ms_per_frame_step": unfused_tick_ms}
+    print("main[serve] fused pool " + json.dumps(out), flush=True)
+    for label, c in checks.items():
+        _check(c["frames_bit_equal"] and c["valid_equal"],
+               f"serve: the fused pool's {label} tick on the graphs differs from the eager "
+               f"step: {c}")
+    _check(launches == want, f"serve: the fused pool's launches {launches}, want {want} "
+                             f"({steps} frame-steps at B={srv.B})")
+    del srv, fgen
+    _collect(torch)
     return out
 
 
@@ -2070,30 +2177,11 @@ def phase_serve(torch, wrappers, card: str):
            f"{result['graphs_after_traffic']}")
 
     # -- the pool's graphs against the eager step, from 8 fresh admissions
-    admit_ms = []
-    for slot in range(srv.B):
-        ms, temp, k = SERVE_SESSIONS[slot]
-        session = Session(text=texts[slot], speaker=0, max_audio_length_ms=6000,
-                          temperature=temp, topk=k)
-        t0 = time.perf_counter()
-        item = srv._dispatch_admission(session)
-        _check(item is not None, f"serve: admission failed: {session.error}")
-        item[-1].wait()
-        admit_ms.append((time.perf_counter() - t0) * 1e3)
-        with _on(srv._ticker):
-            srv._attach(slot, item)
+    admit_ms = _admit_all(srv, texts)
     torch.cuda.synchronize()
     ms0 = tree_map(lambda x: x.clone(), srv._mimi_state)
-    checks = {}
-    for label, greedy in (("sampled", False), ("greedy", True)):
-        if greedy:
-            srv._ticker._slot(srv.B).bufs.topk.fill_(1)
-        ticks = _pool_ticks(torch, srv, greedy, ms0)
-        (g, g_ms), (e, e_ms) = ticks["graphed"], ticks["eager"]
-        checks[label] = {"frames_bit_equal": bool(np.array_equal(g[0], e[0])),
-                         "valid_equal": bool(np.array_equal(g[1], e[1])),
-                         "pcm_max_abs_diff": float(np.abs(g[3] - e[3]).max()),
-                         "tick_ms_graphed": g_ms, "tick_ms_eager": e_ms}
+    checks = _tick_checks(torch, srv, ms0)
+    tick_ms, g = _tick_ms_per_frame_step(torch, srv, ms0)
     codes = torch.from_numpy(g[0]).to(srv._ticker.device).permute(1, 2, 0)
     with _on(srv._ticker):
         t = srv._ticker
@@ -2126,6 +2214,8 @@ def phase_serve(torch, wrappers, card: str):
     for label, c in checks.items():
         _check(c["frames_bit_equal"] and c["valid_equal"],
                f"serve: the pool's {label} tick on the graphs differs from the eager step: {c}")
+    # -- the fused-MLP configuration's pool on the same int8 tree (quant_mlp at S = 8)
+    result["fused_pool"] = _fused_pool(torch, wrappers, gen, texts, tick_ms)
     del gen
     _collect(torch)
     return result

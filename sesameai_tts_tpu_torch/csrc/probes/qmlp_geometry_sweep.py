@@ -53,11 +53,11 @@ for sname, D, F, Dout, per_frame in cs._MLP_SHAPES:
                 for cluster in (1, 2, 4, 8, 16):
                     if blocks % cluster:
                         continue
-                    need = quant._qmlp_smem_bytes(1, block_i, Dout, threads, cluster, block_i)
+                    need = quant._qmlp_smem_bytes(block_i, Dout, threads, cluster, block_i)
                     smem = min(quant._QMLP_MAX_SMEM, budget, max(need, spread))
                     if need > smem:
                         continue
-                    geo = (block_i, cluster, threads, block_i, smem, 1)
+                    geo = (block_i, cluster, threads, block_i, smem)
                     quant._qmlp_geometry = lambda *a, geo=geo: geo
                     try:
                         got = quant.quant_mlp(x, q13, s13, q2, s2).float()

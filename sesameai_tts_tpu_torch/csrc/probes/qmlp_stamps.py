@@ -34,9 +34,9 @@ MARKS = (
     ("  if (csize > 1) cluster_arrive_relaxed();", 0, "after"),
     ("  // ---- phase 2: the w2 tile", 1, "before"),
     ("  mbar_wait(bar, 0);", 2, "after"),
-    ("    if (csize > 1 && s0 == 0) cluster_wait();", 3, "before"),
-    ("    grid_barrier(barrier);", 4, "before"),
-    ("    grid_barrier(barrier);", 5, "after"),
+    ("  if (csize > 1) cluster_wait();", 3, "before"),
+    ("  grid_barrier(barrier);", 4, "before"),
+    ("  grid_barrier(barrier);", 5, "after"),
 )
 
 
@@ -79,15 +79,15 @@ for label, D, F, Dout in (("backbone.mlp", 2048, 8192, 2048), ("decoder.mlp", 10
     s13 = torch.rand(2 * F, generator=gen, device="cuda") * 1e-3
     s2 = torch.rand(Dout, generator=gen, device="cuda") * 1e-2
     x = torch.randn((1, D), generator=gen, device="cuda").to(torch.bfloat16)
-    block_i, cluster, threads, rows, smem, s_tile = quant._qmlp_geometry(1, D, F, Dout, sms)
-    part, word = quant._qmlp_workspace(x.device, quant._qmlp_parts(1, F, Dout, block_i, cluster))
+    block_i, cluster, threads, rows, smem = quant._qmlp_geometry(1, D, F, Dout, sms)
+    part, word = quant._qmlp_workspace(x.device, quant._qmlp_parts(F, Dout, block_i, cluster))
     y = torch.empty((1, Dout), dtype=torch.bfloat16, device="cuda")
     stream = torch.cuda.current_stream().cuda_stream
     for i in range(2 * copies):
         a, b = mats[i % copies]
         err = launch(x.data_ptr(), a.data_ptr(), s13.data_ptr(), b.data_ptr(), s2.data_ptr(),
-                     y.data_ptr(), part.data_ptr(), word.data_ptr(), 1, D, F, Dout, block_i,
-                     cluster, threads, rows, smem, s_tile, stream)
+                     y.data_ptr(), part.data_ptr(), word.data_ptr(), D, F, Dout, block_i,
+                     cluster, threads, rows, smem, stream)
         assert err == 0, f"launch failed: CUDA error {err}"
     torch.cuda.synchronize()
     want = quant.quant_mlp_plain(x, a, s13, b, s2).float()

@@ -33,12 +33,14 @@ _SIGNATURES = {
     "quant_matmul_mma": [_P] * 4 + [_I] * 10 + [_P],
     "quant4_matmul": [_P] * 4 + [_I] * 8 + [_P],
     "quant4_matmul_mma": [_P] * 4 + [_I] * 11 + [_P],
-    "quant_mlp": [_P] * 8 + [_I] * 10 + [_P],
+    "quant_mlp": [_P] * 8 + [_I] * 8 + [_P],
+    "quant_mlp_mma": [_P] * 9 + [_I] * 13 + [_P],
     "flash_attention": [_P] * 6 + [_I] * 15 + [_P],
     "flash_attention_bwd": [_P] * 12 + [_I] * 21 + [_P],
 }
 # entry points that live in another kernel's source (a second route)
-_SOURCE_OF = {"quant_matmul_mma": "quant_matmul", "quant4_matmul_mma": "quant4_matmul"}
+_SOURCE_OF = {"quant_matmul_mma": "quant_matmul", "quant4_matmul_mma": "quant4_matmul",
+              "quant_mlp_mma": "quant_mlp"}
 # the kernels: one source and one wrapper each
 KERNELS = tuple(name for name in _SIGNATURES if name not in _SOURCE_OF)
 

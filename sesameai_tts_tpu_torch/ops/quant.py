@@ -15,8 +15,8 @@ and never materialize a bf16 copy of it:
 - ``quant_mlp`` (``csrc/quant_mlp.cu``): the whole int8 SwiGLU MLP in one
   launch, taken by ``qmlp`` when the caller asks for the fused MLP.
 
-The first two take one of two routes by S (``quant_route``): a GEMV on the
-CUDA cores at S = 1 ("simt"), the tensor cores for 2 <= S <= 64 ("mma").
+All three take one of two routes by S (``quant_route``): the CUDA cores at
+S = 1 ("simt"), the tensor cores for 2 <= S <= 64 ("mma").
 
 Each wrapper launches its kernel for a CUDA tensor and runs its plain
 version (the same arithmetic as torch ops) for a CPU tensor.  The kernels
@@ -26,6 +26,7 @@ needs neither ``nvcc`` nor a card.
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import NamedTuple, Optional, Union
 
@@ -82,6 +83,16 @@ _QMLP_MAX_SMEM = _MAX_SMEM
 _QMLP_SM_SMEM = 233472  # 228 KB
 _QMLP_BLOCK_RESERVED = 1024
 _QMLP_MAX_THREADS = 512
+# quant_mlp.cu's tensor-core route (2 <= S <= 64): 8 warps a block, at most
+# one block an SM (the grid barriers need the F / block_i blocks resident
+# at once); the phase-2 column tiles, in order of preference
+# (csrc/probes/qmlp_mma_sweep.py); the shared-memory ring
+_QMLP_MMA_WARPS = 8
+_QMLP_MMA_NT = (1, 2, 4, 8)  # the kernel's n-tiles of 8 rows of x a warp
+_QMLP_MMA_COLS = (128, 64)
+_QMLP_MMA_STAGES = 6  # the ring's stages (NSTAGE)
+_QMLP_MMA_STAGE_BYTES = 16384  # weight bytes a stage aims at
+_QMLP_MMA_HEADER = 64 + 1024  # the stages' mbarriers, and room to align the ring
 
 
 def quantize_weight(w: torch.Tensor) -> dict:
@@ -143,9 +154,9 @@ def _dequant4(w: dict, dtype=torch.bfloat16) -> torch.Tensor:
 
 
 def quant_route(S: int) -> str:
-    """The route of ``quant_matmul`` and ``quant4_matmul`` for S rows of x:
-    "simt" (a GEMV on the CUDA cores) at S = 1, "mma" (the tensor cores)
-    from 2 to ``_KERNEL_MAX_ROWS``."""
+    """The route of ``quant_matmul``, ``quant4_matmul`` and ``quant_mlp``
+    for S rows of x: "simt" (the CUDA cores) at S = 1, "mma" (the tensor
+    cores) from 2 to ``_KERNEL_MAX_ROWS``."""
     if not 1 <= S <= _KERNEL_MAX_ROWS:
         raise ValueError(f"the quant kernels take 1 <= S <= {_KERNEL_MAX_ROWS} rows, not {S} "
                          f"(qdot sends more rows to x @ dequant(w))")
@@ -544,37 +555,32 @@ quant4_matmul.launches = 0
 # ---------------------------------------------------------------------------
 
 
-def _qmlp_s_tile(S: int) -> int:
-    return 1 if S == 1 else 2 if S == 2 else 4
-
-
-def _qmlp_smem_bytes(S: int, block_i: int, Dout: int, threads: int, cluster: int,
+def _qmlp_smem_bytes(block_i: int, Dout: int, threads: int, cluster: int,
                      prefetch_rows: int) -> int:
-    """quant_mlp.cu's ``layout(...).total``: the mbarrier, the prefetched w2
-    rows, h of every S tile, the larger of the phase-1 warp sums and the
+    """quant_mlp.cu's ``layout(...).total`` (the S = 1 route): the mbarrier,
+    the prefetched w2 rows, h, the larger of the phase-1 warp sums and the
     phase-2 slice sums, and the cluster's receive slots."""
-    s_tile = _qmlp_s_tile(S)
     rg2 = min(max(1, threads // (Dout // 8)), block_i)
     slice_ = -(-(Dout // 4) // cluster) * 4
-    return (16 + -(-prefetch_rows * Dout // 16) * 16 + -(-S // s_tile) * s_tile * block_i * 4
-            + max(threads // 32 * s_tile * 2 * block_i * 4, rg2 * s_tile * Dout * 4)
-            + cluster * s_tile * slice_ * 4)
+    return (16 + -(-prefetch_rows * Dout // 16) * 16 + block_i * 4
+            + max(threads // 32 * 2 * block_i * 4, rg2 * Dout * 4) + cluster * slice_ * 4)
 
 
 def _qmlp_geometry(S: int, D: int, F: int, Dout: int, sms: int):
-    """quant_mlp.cu's launch → (block_i, cluster, threads, prefetch_rows,
-    smem, s_tile).  The widest tile whose F / block_i blocks still reach
-    every SM (else the narrowest), k = ceil(blocks / SMs) blocks per SM of
-    512 / k threads (at most 8 * block_i: 64 row groups), and the largest
-    cluster that divides the grid and whose clusters the card holds at once
-    with k blocks per SM (``_QMLP_CLUSTER_SLOTS``, scaled to ``sms``): one
-    wave.  The w2 tile is prefetched whole where a block's share of the
-    SM's shared memory holds it, else its first rows (an even count), and
-    ``smem`` asks for enough shared memory that no (k+1)-th block fits on
-    an SM.  D does not enter: x is not staged."""
-    if F % _QMLP_TILES[-1] or Dout % 8 or not 1 <= S <= 64:
-        raise ValueError(f"quant_mlp: need F % {_QMLP_TILES[-1]} == 0, Dout % 8 == 0 and "
-                         f"1 <= S <= 64 (S={S}, F={F}, Dout={Dout})")
+    """quant_mlp.cu's S = 1 launch (the CUDA-core route) → (block_i,
+    cluster, threads, prefetch_rows, smem).  The widest tile whose F /
+    block_i blocks still reach every SM (else the narrowest), k =
+    ceil(blocks / SMs) blocks per SM of 512 / k threads (at most 8 *
+    block_i: 64 row groups), and the largest cluster that divides the grid
+    and whose clusters the card holds at once with k blocks per SM
+    (``_QMLP_CLUSTER_SLOTS``, scaled to ``sms``): one wave.  The w2 tile is
+    prefetched whole where a block's share of the SM's shared memory holds
+    it, else its first rows (an even count), and ``smem`` asks for enough
+    shared memory that no (k+1)-th block fits on an SM.  D does not enter:
+    x is not staged."""
+    if quant_route(S) != "simt" or F % _QMLP_TILES[-1] or Dout % 8:
+        raise ValueError(f"quant_mlp: the CUDA-core route takes S = 1, F % {_QMLP_TILES[-1]} "
+                         f"== 0 and Dout % 8 == 0 (S={S}, F={F}, Dout={Dout})")
     block_i = next((b for b in _QMLP_TILES if F % b == 0 and F // b >= sms), _QMLP_TILES[-1])
     blocks = F // block_i
     per_sm = min(2, -(-blocks // sms))
@@ -586,22 +592,145 @@ def _qmlp_geometry(S: int, D: int, F: int, Dout: int, sms: int):
         raise ValueError(f"quant_mlp: F={F} needs {blocks} blocks, more than one wave holds")
     budget = min(_QMLP_MAX_SMEM, _QMLP_SM_SMEM // per_sm - _QMLP_BLOCK_RESERVED)
     rows = block_i
-    while rows > 0 and _qmlp_smem_bytes(S, block_i, Dout, threads, cluster, rows) > budget:
+    while rows > 0 and _qmlp_smem_bytes(block_i, Dout, threads, cluster, rows) > budget:
         rows -= 2
-    need = _qmlp_smem_bytes(S, block_i, Dout, threads, cluster, rows)
+    need = _qmlp_smem_bytes(block_i, Dout, threads, cluster, rows)
     if need > budget:
-        raise ValueError(f"quant_mlp: S={S}, Dout={Dout} need more shared memory than a "
-                         f"block has")
+        raise ValueError(f"quant_mlp: Dout={Dout} needs more shared memory than a block has")
     spread = _QMLP_SM_SMEM // (per_sm + 1) - _QMLP_BLOCK_RESERVED + 16
-    return block_i, cluster, threads, rows, min(budget, max(need, spread)), _qmlp_s_tile(S)
+    return block_i, cluster, threads, rows, min(budget, max(need, spread))
 
 
-def _qmlp_parts(S: int, F: int, Dout: int, block_i: int, cluster: int) -> int:
-    """f32 elements of the cluster partials one call keeps: F / block_i /
-    cluster partials of (s_tile, Dout), twice when the call has more than
-    one S tile."""
-    s_tile = _qmlp_s_tile(S)
-    return F // block_i // cluster * s_tile * Dout * (2 if S > s_tile else 1)
+class _QmlpPlan(NamedTuple):
+    """A launch of quant_mlp.cu's tensor-core route: ``nt`` n-tiles of 8
+    rows of x a warp; F / ``block_i`` blocks, each
+    walking its intermediate tile in passes of ``pass_cols`` columns (phase
+    1); phase 2's column tiles of ``cols`` columns of Dout, each over
+    ``splits`` row ranges of ``rows`` rows of F; ``kc1`` / ``kc2`` rows of
+    the reduction a stage of the shared-memory ring holds in phase 1 / 2;
+    ``smem`` bytes of dynamic shared memory."""
+    nt: int
+    block_i: int
+    pass_cols: int
+    cols: int
+    rows: int
+    splits: int
+    kc1: int
+    kc2: int
+    smem: int
+
+    @property
+    def wk1(self) -> int:
+        """Phase 1's warps along D."""
+        return _QMLP_MMA_WARPS // (self.pass_cols // 32)
+
+    @property
+    def wk2(self) -> int:
+        """Phase 2's warps along F."""
+        return _QMLP_MMA_WARPS // (self.cols // 64)
+
+
+def _qmlp_stage_bytes(kc: int, rb: int, sp: int) -> int:
+    """quant_mlp.cu's ``stage_bytes``: kc weight rows of rb bytes (dense,
+    swizzled), then sp activation rows of kc bf16 padded to 16 (mod 128)
+    bytes, rounded up to the swizzle's 1024-byte period."""
+    return kc * rb + -(-sp * ((kc + 63) // 64 * 64 + 8) * 2 // 1024) * 1024
+
+
+def _qmlp_mma_smem(nt: int, pass_cols: int, cols: int, kc1: int, kc2: int) -> int:
+    """quant_mlp.cu's ``mma_smem``: the ring stages' mbarriers (64 bytes)
+    and 1024 to align the region, then the larger of either phase's ring
+    (``_QMLP_MMA_STAGES`` stages) and its warps' f32 sums, which replace the
+    ring after the phase's products."""
+    sp = 8 * nt
+    wk1 = _QMLP_MMA_WARPS // (pass_cols // 32)
+    wk2 = _QMLP_MMA_WARPS // (cols // 64)
+    return _QMLP_MMA_HEADER + max(
+        _QMLP_MMA_STAGES * _qmlp_stage_bytes(kc1, 2 * pass_cols, sp),
+        wk1 * sp * 2 * pass_cols * 4,
+        _QMLP_MMA_STAGES * _qmlp_stage_bytes(kc2, cols, sp), wk2 * sp * cols * 4)
+
+
+def _qmlp_stage_rows(wk: int, rb: int, sp: int) -> Optional[int]:
+    """Rows of the reduction a ring stage holds: the most of 256, 128, 64,
+    32, 16 that is whole k-steps of every warp along it (16 * wk), keeps a
+    stage's weight bytes within ``_QMLP_MMA_STAGE_BYTES`` and the ring
+    within a block's shared memory; None if none does."""
+    fits = [kc for kc in (256, 128, 64, 32, 16) if kc % (16 * wk) == 0
+            and _QMLP_MMA_HEADER + _QMLP_MMA_STAGES * _qmlp_stage_bytes(kc, rb, sp) <= _MAX_SMEM]
+    return next((kc for kc in fits if kc * rb <= _QMLP_MMA_STAGE_BYTES), fits[-1] if fits else None)
+
+
+def _qmlp_mma_plan(S: int, D: int, F: int, Dout: int, sms: int,
+                   block_i: Optional[int] = None, cols: Optional[int] = None) -> _QmlpPlan:
+    """quant_mlp.cu's tensor-core launch for 2 <= S <= 64.  ``nt`` the
+    fewest n-tiles (a power of two) that hold S rows, every warp over all of
+    them; ``block_i`` (unless given) the narrowest tile of whole 32-column
+    groups whose F / block_i blocks fit one to an SM; the widest pass (1, 2
+    or 4 warps of 32 columns); then the first of ``_QMLP_MMA_COLS`` (or
+    ``cols``) whose column tiles leave each at least one split of the grid,
+    with as many splits of F as the blocks hold, rows a multiple of 16,
+    every split non-empty; the ring's stage rows by ``_qmlp_stage_rows``.
+    ``smem`` asks for enough shared memory that no second block fits on an
+    SM, so the blocks spread over the SMs."""
+    if quant_route(S) != "mma":
+        raise ValueError(f"quant_mlp: the tensor-core route takes 2 <= S <= {_KERNEL_MAX_ROWS}")
+    if D % 16 or F % 32 or Dout % 8:
+        raise ValueError(f"quant_mlp: at S >= 2 need D % 16 == 0, F % 32 == 0 and Dout % 8 == 0 "
+                         f"(D={D}, F={F}, Dout={Dout})")
+    nt = next(n for n in _QMLP_MMA_NT if 8 * n >= S)
+    if block_i is None:
+        block_i = next((b for b in range(32, F + 1, 32) if F % b == 0 and F // b <= sms), None)
+    if block_i is None or block_i % 32 or F % block_i:
+        raise ValueError(f"quant_mlp: no tile of whole 32-column groups divides F={F} into at "
+                         f"most {sms} blocks")
+    blocks = F // block_i
+    spread = _QMLP_SM_SMEM // 2 - _QMLP_BLOCK_RESERVED + 16
+    wc = next(w for w in (4, 2, 1) if block_i % (32 * w) == 0)
+    kc1 = _qmlp_stage_rows(_QMLP_MMA_WARPS // wc, 64 * wc, 8 * nt)
+    for c in (cols,) if cols else _QMLP_MMA_COLS:
+        tiles = -(-Dout // c)
+        kc2 = _qmlp_stage_rows(_QMLP_MMA_WARPS // (c // 64), c, 8 * nt)
+        if tiles > blocks or kc1 is None or kc2 is None:
+            continue
+        rows = -(-F // (blocks // tiles) // 16) * 16
+        need = _qmlp_mma_smem(nt, 32 * wc, c, kc1, kc2)
+        if need <= _MAX_SMEM:
+            return _QmlpPlan(nt, block_i, 32 * wc, c, rows, -(-F // rows), kc1, kc2,
+                             max(need, spread))
+    raise ValueError(f"quant_mlp: no column tile fits Dout={Dout} at F={F}, S={S}")
+
+
+def _qmlp_mma_parts(S: int, Dout: int, plan: _QmlpPlan) -> int:
+    """f32 elements of a tensor-core call's split partials, (splits, S, Dout),
+    rounded up to 16 bytes: h (S, F) bf16 follows them in the buffer."""
+    return -(-plan.splits * S * Dout // 4) * 4
+
+
+@functools.lru_cache(maxsize=None)
+def _qmlp_numel(D: int, F: int, Dout: int, sms: int) -> int:
+    """f32 elements of the per-stream buffer every call of this shape fits
+    in, whatever its S: the S = 1 route's cluster partials, or the
+    tensor-core route's split partials and h at the most rows of each
+    n-tile count.  So a stream whose first call of a shape ran eagerly at any
+    S may capture that shape at any other."""
+    need = 0
+    for S in (1, 8, 16, 32, 64):
+        try:
+            if S == 1:
+                need = max(need, _qmlp_parts(F, Dout, *_qmlp_geometry(1, D, F, Dout, sms)[:2]))
+            else:
+                plan = _qmlp_mma_plan(S, D, F, Dout, sms)
+                need = max(need, _qmlp_mma_parts(S, Dout, plan) + -(-S * F // 2))
+        except ValueError:
+            continue
+    return need
+
+
+def _qmlp_parts(F: int, Dout: int, block_i: int, cluster: int) -> int:
+    """f32 elements of the cluster partials an S = 1 call keeps: F /
+    block_i / cluster partials of Dout."""
+    return F // block_i // cluster * Dout
 
 
 # per (device, stream): [f32 cluster partials, the grid barrier's int32
@@ -690,13 +819,32 @@ def quant_mlp_cluster_plain(x: torch.Tensor, q13: torch.Tensor, s13: torch.Tenso
     return (lanes[0] * s2.float()).to(x.dtype)
 
 
+def quant_mlp_mma_plain(x: torch.Tensor, q13: torch.Tensor, s13: torch.Tensor,
+                        q2: torch.Tensor, s2: torch.Tensor, plan: _QmlpPlan) -> torch.Tensor:
+    """The tensor-core route's order of sums as torch ops.  Phase 1: warp w
+    of ``plan.wk1`` takes every wk1-th 16-row k-step of D from the w-th and
+    adds their f32 products in order, the warps' sums in warp order, × s13,
+    rounded to bf16; h = bf16(bf16(silu(a1)) · a3).  Phase 2: F is cut into
+    splits of ``plan.rows`` rows; in each, warp w of ``plan.wk2`` takes every
+    wk2-th k-step of the split from the w-th, the warps' sums in warp order;
+    the splits' partials are added in split order, × s2, cast to x.dtype.
+    (Inside a k-step the tensor cores add its products in an order of their
+    own.)"""
+    F = q13.shape[1] // 2
+    a = quant_matmul_cluster_plain(x.to(torch.bfloat16), q13, s13, x.shape[1], plan.wk1)
+    h = F_.silu(a[:, :F].float()).to(torch.bfloat16) * a[:, F:]
+    return quant_matmul_cluster_plain(h, q2, s2, plan.rows, plan.wk2).to(x.dtype)
+
+
 def quant_mlp(x: torch.Tensor, q13: torch.Tensor, s13: torch.Tensor, q2: torch.Tensor,
               s2: torch.Tensor) -> torch.Tensor:
     """silu(x@W1)·(x@W3) @ W2 with all three weights int8, one kernel:
     x (S, D) bf16; q13 (D, 2F) int8 (w1 columns [:F], w3 [F:]); s13 (2F,)
     f32; q2 (F, Dout) int8; s2 (Dout,) f32 → (S, Dout) bf16.  CUDA tensors
-    launch the kernel (or raise); CPU tensors run ``quant_mlp_plain``.
-    ``quant_mlp.launches`` counts launches."""
+    launch the kernel's route for S (``quant_route``: the S = 1 geometry
+    ``_qmlp_geometry`` or the tensor-core plan ``_qmlp_mma_plan``), or
+    raise; CPU tensors run ``quant_mlp_plain``.  ``quant_mlp.launches``
+    counts launches."""
     if x.device.type == "cpu":
         return quant_mlp_plain(x, q13, s13, q2, s2)
     if x.device.type != "cuda":
@@ -724,14 +872,25 @@ def quant_mlp(x: torch.Tensor, q13: torch.Tensor, s13: torch.Tensor, q2: torch.T
         raise ValueError(f"quant_mlp: need D % 16 == 0 (D={D})")
     if q13.data_ptr() % 16 or q2.data_ptr() % 16 or s2.data_ptr() % 16:
         raise ValueError("quant_mlp: q13, q2 and s2 must start on a 16-byte boundary")
-    block_i, cluster, threads, rows, smem, s_tile = _qmlp_geometry(S, D, F, Dout,
-                                                                   _sms(x.device))
-    part, barrier = _qmlp_workspace(x.device, _qmlp_parts(S, F, Dout, block_i, cluster))
+    sms = _sms(x.device)
+    if quant_route(S) == "simt":
+        geometry = _qmlp_geometry(S, D, F, Dout, sms)
+        need = _qmlp_parts(F, Dout, *geometry[:2])
+    else:
+        p = _qmlp_mma_plan(S, D, F, Dout, sms)
+        parts = _qmlp_mma_parts(S, Dout, p)
+        need = parts + -(-S * F // 2)  # the split partials, then h
+    part, barrier = _qmlp_workspace(x.device, max(_qmlp_numel(D, F, Dout, sms), need))
     y = torch.empty((S, Dout), dtype=torch.bfloat16, device=x.device)
-    launch("quant_mlp", x.data_ptr(), q13.data_ptr(), s13.data_ptr(), q2.data_ptr(),
-           s2.data_ptr(), y.data_ptr(), part.data_ptr(), barrier.data_ptr(), S, D, F, Dout,
-           block_i, cluster, threads, rows, smem, s_tile,
-           torch.cuda.current_stream(x.device).cuda_stream)
+    ptrs = (x.data_ptr(), q13.data_ptr(), s13.data_ptr(), q2.data_ptr(), s2.data_ptr(),
+            y.data_ptr(), part.data_ptr())
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    if quant_route(S) == "simt":
+        launch("quant_mlp", *ptrs, barrier.data_ptr(), D, F, Dout, *geometry, stream)
+    else:
+        launch("quant_mlp_mma", *ptrs, part.data_ptr() + 4 * parts, barrier.data_ptr(), S, D, F,
+               Dout, p.block_i, p.pass_cols, p.nt, p.cols, p.rows, p.splits, p.kc1, p.kc2, p.smem,
+               stream)
     count_launch(quant_mlp)
     return y
 

@@ -315,7 +315,8 @@ def test_quant_mlp_is_deterministic(cuda, S, D, F, Dout):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("S,D,F,Dout", [(1, 1024, 8192, 1024), (9, 2048, 8192, 2048)])
+@pytest.mark.parametrize("S,D,F,Dout", [(1, 1024, 8192, 1024), (9, 2048, 8192, 2048),
+                                        (64, 1024, 8192, 1024)])
 def test_quant_mlp_allocates_only_its_output(cuda, S, D, F, Dout):
     """The persistent buffer is allocated once per device and stream: a
     call then allocates its (S, Dout) bf16 output and nothing else."""
@@ -330,6 +331,42 @@ def test_quant_mlp_allocates_only_its_output(cuda, S, D, F, Dout):
     assert torch.cuda.memory_allocated() - before == len(outs) * block
 
 
+# the tensor-core route (2 <= S <= 64): every n-tile count at the flagship
+# MLPs, a tp = 2 shard, and a tiny shape whose w2 rows are not 16-byte
+# aligned (phase 2 reads them from device memory)
+_QMLP_MMA_S = [2, 3, 8, 17, 64]
+_QMLP_MMA_SHAPES = [(2048, 8192, 2048), (1024, 8192, 1024), (2048, 4096, 2048), (64, 256, 24)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("S", _QMLP_MMA_S)
+@pytest.mark.parametrize("D,F,Dout", _QMLP_MMA_SHAPES)
+def test_quant_mlp_tensor_cores(cuda, S, D, F, Dout):
+    """One launch of the tensor-core route, against the plain version, and
+    the same bits from a second call and from a CUDA-graph replay."""
+    q13, s13, q2, s2 = _mlp_weights(cuda, D, F, Dout)
+    x = (torch.randn((S, D), generator=cuda, device="cuda") * 0.3).to(torch.bfloat16)
+    assert tq.quant_route(S) == "mma"
+    got = _check_launch_and_bits(tq.quant_mlp, lambda: tq.quant_mlp(x, q13, s13, q2, s2),
+                                 tq.quant_mlp_plain(x, q13, s13, q2, s2))
+    assert got.dtype == torch.bfloat16 and got.shape == (S, Dout)
+
+
+@pytest.mark.gpu
+def test_quant_mlp_tensor_cores_refused_launch_raises(cuda, monkeypatch):
+    """A plan whose blocks the card cannot hold at once (256 blocks of 32
+    columns, one an SM by shared memory) is refused by the launch, and the
+    wrapper raises without counting: nothing falls back."""
+    q13, s13, q2, s2 = _mlp_weights(cuda, 1024, 8192, 1024)
+    x = torch.randn((8, 1024), generator=cuda, device="cuda").to(torch.bfloat16)
+    plan = tq._qmlp_mma_plan(8, 1024, 8192, 1024, 132, block_i=32)
+    monkeypatch.setattr(tq, "_qmlp_mma_plan", lambda *a, **k: plan)
+    before = tq.quant_mlp.launches
+    with pytest.raises(RuntimeError):
+        tq.quant_mlp(x, q13, s13, q2, s2)
+    assert tq.quant_mlp.launches == before
+
+
 @pytest.mark.gpu
 def test_quant_mlp_refused_launch_raises(cuda, monkeypatch):
     """A grid whose clusters the card cannot hold at once (512 blocks of 16
@@ -338,7 +375,7 @@ def test_quant_mlp_refused_launch_raises(cuda, monkeypatch):
     q13, s13, q2, s2 = _mlp_weights(cuda, 1024, 8192, 1024)
     x = torch.randn((1, 1024), generator=cuda, device="cuda").to(torch.bfloat16)
     monkeypatch.setattr(tq, "_qmlp_geometry",
-                        lambda *a: (16, 2, 256, 16, tq._QMLP_MAX_SMEM, 1))
+                        lambda *a: (16, 2, 256, 16, tq._QMLP_MAX_SMEM))
     before = tq.quant_mlp.launches
     with pytest.raises(RuntimeError):
         tq.quant_mlp(x, q13, s13, q2, s2)
@@ -346,16 +383,17 @@ def test_quant_mlp_refused_launch_raises(cuda, monkeypatch):
 
 
 @pytest.mark.gpu
-def test_qmlp_fused_sends_the_mlp_to_the_kernel(cuda):
+@pytest.mark.parametrize("rows", [2, 8])
+def test_qmlp_fused_sends_the_mlp_to_the_kernel(cuda, rows):
     q13, s13, q2, s2 = _mlp_weights(cuda, 256, 128, 256)
     w13, w2 = {"q": q13, "scale": s13}, {"q": q2, "scale": s2}
-    x = (torch.randn((1, 2, 256), generator=cuda, device="cuda") * 0.3).to(torch.bfloat16)
+    x = (torch.randn((1, rows, 256), generator=cuda, device="cuda") * 0.3).to(torch.bfloat16)
     mlp0, mm0 = tq.quant_mlp.launches, tq.quant_matmul.launches
     got = tq.qmlp(x, w13, w2, fused=True)
     assert (tq.quant_mlp.launches, tq.quant_matmul.launches) == (mlp0 + 1, mm0)
-    assert got.shape == (1, 2, 256) and got.dtype == torch.bfloat16
-    _assert_close_to_plain(got.reshape(2, 256), tq.quant_mlp_plain(x.reshape(2, 256), q13, s13,
-                                                                   q2, s2))
+    assert got.shape == (1, rows, 256) and got.dtype == torch.bfloat16
+    _assert_close_to_plain(got.reshape(rows, 256), tq.quant_mlp_plain(x.reshape(rows, 256), q13,
+                                                                      s13, q2, s2))
     unfused = tq.qmlp(x, w13, w2)  # the default: two quant_matmul launches
     assert (tq.quant_mlp.launches, tq.quant_matmul.launches) == (mlp0 + 1, mm0 + 2)
     _assert_close_to_plain(got, unfused)

@@ -666,15 +666,25 @@ def test_qmlp_on_the_cpu_is_the_unfused_sequence(mlp_weights, fused):
 _MLP_FLAGSHIP = [(2048, 8192, 2048), (1024, 8192, 1024)]  # backbone, decoder MLPs
 
 
+_MLP_TP2 = [(2048, 4096, 2048), (1024, 4096, 1024)]  # one rank's shards at tp = 2
+
+
 @pytest.mark.parametrize("S", [1, 8, 64])
 @pytest.mark.parametrize("D,F,Dout", _MLP_FLAGSHIP)
 def test_qmlp_geometry_fits_one_wave(S, D, F, Dout):
-    """quant_mlp.cu's launch on a 132-SM H100: whole tiles, clusters of at
-    most 16 that divide the grid and that the card holds at once (one
-    wave), shared memory within a block's 227 KB and at least the layout's,
-    the prefetched w2 rows even and within the tile, and at least one block
-    per SM at S = 1."""
-    block_i, cluster, threads, rows, smem, s_tile = tq._qmlp_geometry(S, D, F, Dout, 132)
+    """quant_mlp.cu's launch on a 132-SM H100, per route.  S = 1: whole
+    tiles, clusters of at most 16 that divide the grid and that the card
+    holds at once (one wave), shared memory within a block's 227 KB and at
+    least the layout's, the prefetched w2 rows even and within the tile,
+    and at least one block per SM.  S >= 2 (the tensor-core route): one
+    block an SM at most, every block resident (the grid barriers)."""
+    if tq.quant_route(S) == "mma":
+        plan = tq._qmlp_mma_plan(S, D, F, Dout, 132)
+        assert F // plan.block_i <= 132
+        # a second block on an SM would not fit beside the first
+        assert 2 * (plan.smem + tq._QMLP_BLOCK_RESERVED) > tq._QMLP_SM_SMEM
+        return
+    block_i, cluster, threads, rows, smem = tq._qmlp_geometry(S, D, F, Dout, 132)
     blocks = F // block_i
     assert F % block_i == 0 and block_i in tq._QMLP_TILES
     assert 1 <= cluster <= 16 and blocks % cluster == 0
@@ -682,11 +692,10 @@ def test_qmlp_geometry_fits_one_wave(S, D, F, Dout):
     assert per_sm <= 2 and blocks // cluster <= tq._QMLP_CLUSTER_SLOTS[per_sm][cluster]
     assert threads % 32 == 0 and threads * per_sm <= 512 and threads % block_i == 0
     assert 0 <= rows <= block_i and rows % 2 == 0
-    need = tq._qmlp_smem_bytes(S, block_i, Dout, threads, cluster, rows)
+    need = tq._qmlp_smem_bytes(block_i, Dout, threads, cluster, rows)
     assert need <= smem <= tq._QMLP_MAX_SMEM
     # no more blocks share an SM than the grid needs: clusters spread out
     assert (per_sm + 1) * (smem + tq._QMLP_BLOCK_RESERVED) > tq._QMLP_SM_SMEM
-    assert s_tile == (1 if S == 1 else 4)
     if S == 1:
         assert blocks >= 132 and rows == block_i  # the whole w2 tile is prefetched
 
@@ -695,6 +704,103 @@ def test_qmlp_geometry_fits_one_wave(S, D, F, Dout):
 def test_qmlp_geometry_rejects_what_the_kernel_does_not_take(S, F, Dout):
     with pytest.raises(ValueError):
         tq._qmlp_geometry(S, 64, F, Dout, 132)
+
+
+@pytest.mark.parametrize("D,F,Dout", _MLP_FLAGSHIP + _MLP_TP2)
+def test_qmlp_mma_plan_covers_the_mlp(D, F, Dout):
+    """The tensor-core plan at every S from 2 to 64, walked as the kernel
+    walks it: the n-tiles hold S rows; F / block_i blocks of whole passes
+    of 32-column warps, one block an SM on a 132-SM H100 (a second would
+    not fit beside it: every block is resident for the grid barriers);
+    8 warps in each phase; the column tiles and the splits of F cover Dout
+    and F once, every split non-empty, all on the grid's blocks; shared
+    memory the layout's and within 227 KB, its ring stages whole k-steps of
+    every warp."""
+    for S in range(2, 65):
+        p = tq._qmlp_mma_plan(S, D, F, Dout, 132)
+        blocks = F // p.block_i
+        assert p.nt in tq._QMLP_MMA_NT and 8 * p.nt >= S  # the fewest n-tiles
+        assert p.nt == 1 or S > 4 * p.nt
+        assert F % p.block_i == 0 and p.block_i % p.pass_cols == 0 and blocks <= 132
+        assert p.pass_cols // 32 * p.wk1 == 8 and p.cols // 64 * p.wk2 == 8
+        tiles = -(-Dout // p.cols)
+        assert tiles * p.splits <= blocks and p.rows % 16 == 0
+        assert (p.splits - 1) * p.rows < F <= p.splits * p.rows
+        assert p.kc1 % (16 * p.wk1) == 0 and p.kc2 % (16 * p.wk2) == 0  # whole k-steps a warp
+        need = tq._qmlp_mma_smem(p.nt, p.pass_cols, p.cols, p.kc1, p.kc2)
+        assert need <= p.smem <= tq._MAX_SMEM
+        assert 2 * (p.smem + tq._QMLP_BLOCK_RESERVED) > tq._QMLP_SM_SMEM
+
+
+@pytest.mark.parametrize("S,D,F,Dout", [(1, 64, 256, 64), (0, 64, 256, 64), (65, 64, 256, 64),
+                                        (8, 64, 240, 64), (8, 64, 256, 60), (8, 72, 256, 64)])
+def test_qmlp_mma_plan_refuses_what_the_route_does_not_take(S, D, F, Dout):
+    """S outside 2..64 (S = 1 is the CUDA-core route), F not whole
+    32-column groups, Dout % 8 != 0, D % 16 != 0."""
+    with pytest.raises(ValueError):
+        tq._qmlp_mma_plan(S, D, F, Dout, 132)
+    if not 1 <= S <= 64:
+        with pytest.raises(ValueError):
+            tq.quant_route(S)
+
+
+@pytest.mark.parametrize("wk,aw,sp", [(4, 128, 8), (2, 128, 64), (8, 64, 16), (1, 256, 64),
+                                      (4, 256, 32)])
+def test_qmlp_stage_rows_hold_whole_k_steps(wk, aw, sp):
+    """A ring stage holds whole k-steps of every warp along the reduction,
+    at most the aimed weight bytes unless a single round of k-steps is more,
+    and the ring fits a block's shared memory; a larger stage would break
+    one of these."""
+    kc = tq._qmlp_stage_rows(wk, aw, sp)
+    assert kc % (16 * wk) == 0
+    assert kc * aw <= tq._QMLP_MMA_STAGE_BYTES or kc == 16 * wk
+    ring = tq._QMLP_MMA_HEADER + tq._QMLP_MMA_STAGES * tq._qmlp_stage_bytes(kc, aw, sp)
+    assert ring <= tq._MAX_SMEM
+    bigger = 2 * kc
+    assert bigger > 256 or bigger * aw > tq._QMLP_MMA_STAGE_BYTES or (
+        tq._QMLP_MMA_HEADER + tq._QMLP_MMA_STAGES * tq._qmlp_stage_bytes(bigger, aw, sp)
+        > tq._MAX_SMEM)
+
+
+@pytest.mark.parametrize("S", [2, 3, 8, 17, 64])
+def test_quant_mlp_mma_plain_matches_jax_kernel_and_plain(mlp_weights, S):
+    """The tensor-core route's order of sums (warps over k-steps, the splits
+    of F in order) at the plan's tile against quant_mlp_pallas in interpret
+    mode at the same tile width (the fused-vs-unfused bound, as in
+    test_quant_mlp_plain_matches_jax_kernel) and against quant_mlp_plain
+    within the tolerance the card's kernel is held to (chip_smoke.py:
+    1e-2 relative plus 1e-3 of the peak): phase 1's sums run in another
+    order, so a few hidden values may round to the neighbouring bf16."""
+    jw13, jw2, tw13, tw2 = mlp_weights
+    xb, xt = _bf16_x(S, 70 + S)
+    plan = tq._qmlp_mma_plan(S, 128, 512, 128, 132)
+    got = tq.quant_mlp_mma_plain(xt, tw13["q"], tw13["scale"], tw2["q"], tw2["scale"], plan)
+    assert got.dtype == torch.bfloat16 and got.shape == (S, 128)
+    want = np.asarray(jq.quant_mlp_pallas(xb, jw13["q"], jw13["scale"], jw2["q"], jw2["scale"],
+                                          block_i=plan.block_i, interpret=True), np.float32)
+    np.testing.assert_allclose(got.float().numpy(), want, rtol=0,
+                               atol=2e-2 * np.abs(want).max() + 1e-6)
+    plain = tq.quant_mlp_plain(xt, tw13["q"], tw13["scale"], tw2["q"], tw2["scale"]).float()
+    assert bool(((got.float() - plain).abs() <= 1e-2 * plain.abs() + 1e-3 * plain.abs().max())
+                .all())
+
+
+@pytest.mark.parametrize("warps", [(2, 1), (4, 2), (8, 4)])
+def test_quant_mlp_mma_plain_walks_the_plan(warps):
+    """The emulation at other warp counts and a ragged split of F (F = 480
+    in splits of 208 rows): the same terms in another order, within the
+    card's tolerance of quant_mlp_plain."""
+    rng = np.random.default_rng(13)
+    D, F, Dout = 96, 480, 40
+    w13 = tq.quantize_weight(torch.from_numpy(rng.standard_normal((D, 2 * F)).astype(np.float32)))
+    w2 = tq.quantize_weight(torch.from_numpy(rng.standard_normal((F, Dout)).astype(np.float32)))
+    x = torch.from_numpy(rng.standard_normal((5, D)).astype(np.float32) * 0.3).to(torch.bfloat16)
+    wk1, wk2 = warps
+    plan = tq._QmlpPlan(1, 32, 256 // wk1, 512 // wk2, 208, 3, 128, 128, 0)
+    assert (plan.wk1, plan.wk2) == warps
+    got = tq.quant_mlp_mma_plain(x, w13["q"], w13["scale"], w2["q"], w2["scale"], plan).float()
+    want = tq.quant_mlp_plain(x, w13["q"], w13["scale"], w2["q"], w2["scale"]).float()
+    assert bool(((got - want).abs() <= 1e-2 * want.abs() + 1e-3 * want.abs().max()).all())
 
 
 @pytest.mark.parametrize("S,block_i,cluster", [(1, 32, 2), (2, 32, 4), (3, 64, 1), (8, 32, 16)])
