@@ -1008,8 +1008,8 @@ def _timing(torch, gen, outputs: dict, first_chunk_s: float) -> dict:
         # where the requests' wall time went; the rest is host-side
         # tokenization and the voice context's backbone pass
         "wall_s": sum(t for _, t in outputs.values()),
-        "breakdown_s": {k: summary[k]["total"] for k in ("prefill_s", "decode_s", "codec_s",
-                                                         "encode_s") if k in summary},
+        "breakdown_s": {k: summary[k]["total"] for k in ("prefill_s", "decode_s")
+                        if k in summary},
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
     }
 

@@ -193,12 +193,9 @@ class Generator:
 
     def _encode_audio(self, audio: np.ndarray) -> np.ndarray:
         """(T,) float32 → (K, F) codes."""
-        t0 = time.perf_counter()
         wav, frames = pad_audio_to_frame_bucket(audio, self._hop)
         codes = self._mimi.encode(self._mimi_params, torch.from_numpy(wav).to(self.device))
-        codes = codes[0, :, :frames].cpu().numpy()
-        self.metrics.record("encode_s", time.perf_counter() - t0)
-        return codes
+        return codes[0, :, :frames].cpu().numpy()
 
     def _tokenize_prompt(self, text, speaker, context):
         toks, masks = [], []
@@ -464,20 +461,30 @@ class Generator:
         self.metrics.record("prefill_s", time.perf_counter() - t0)
         return frame, finished, max_gen
 
-    def _replay_frames(self, batch_size, seed, n, start, greedy):
+    def _replay_frames(self, batch_size, seed, n, start, greedy, *, stamps=None):
         """``n`` frames from absolute index ``start`` on the static state at
         ``batch_size`` → (frames (n, B, K), valid (n, B)), new device tensors
-        copied out of the static buffers, which the next frame overwrites."""
+        copied out of the static buffers, which the next frame overwrites.
+        ``stamps(label)``, when given, is called on the host before each
+        frame's "backbone" and "sample" part and at the "loop"'s end, between
+        the graphs' replays (``runtime/serving.py`` records device stamps
+        there)."""
         _, bufs = self._slot(batch_size)
         frames = torch.empty((n,) + tuple(bufs.frame.shape), dtype=bufs.frame.dtype,
                              device=self.device)
         valid = torch.empty((n,) + tuple(bufs.valid.shape), dtype=torch.bool, device=self.device)
         for i in range(n):
             self._rng.manual_seed(csm_model.frame_seed(seed, start + i))
+            if stamps is not None:
+                stamps("backbone")
             self._run(batch_size, "backbone", greedy)
+            if stamps is not None:
+                stamps("sample")
             self._run(batch_size, "sample", greedy)
             frames[i].copy_(bufs.frame)
             valid[i].copy_(bufs.valid)
+        if stamps is not None:
+            stamps("loop")
         return frames, valid
 
     def _decode_chunk(self, seed, n, start, greedy):
@@ -523,20 +530,26 @@ class Generator:
                                                       mimi_state)
         return wav[:, 0].float(), mimi_state
 
-    def _serve_tick(self, batch_size: int, n: int, seed: int, greedy: bool, mimi_state):
+    def _serve_tick(self, batch_size: int, n: int, seed: int, greedy: bool, mimi_state, *,
+                    stamps=None):
         """One serving tick: ``n`` frames on the static state at
         ``batch_size`` (the serving pool; on the card ``n`` replays each of
         the ``backbone`` and ``sample`` graphs, frame i seeded
         ``frame_seed(seed, i)``), then the batched streaming Mimi decode of
         its (B, K, n) codes → (frames (n, B, K), valid (n, B), done (B,),
         PCM (B, n*hop) f32, the codec state after it), new device tensors:
-        nothing the next tick overwrites.  No host sync."""
+        nothing the next tick overwrites.  No host sync.  ``stamps`` goes to
+        ``_replay_frames``, and is called with "mimi" after the decode and
+        its cast."""
         _, bufs = self._slot(batch_size)
-        frames, valid = self._replay_frames(batch_size, seed, n, 0, greedy)
+        frames, valid = self._replay_frames(batch_size, seed, n, 0, greedy, stamps=stamps)
         done = bufs.done.clone()
         wav, mimi_state = self._mimi.decode_streaming(self._mimi_params, frames.permute(1, 2, 0),
                                                       mimi_state)
-        return frames, valid, done, wav[:, 0].float(), mimi_state
+        pcm = wav[:, 0].float()
+        if stamps is not None:
+            stamps("mimi")
+        return frames, valid, done, pcm, mimi_state
 
     def _generate_codes(self, text, speaker, context, max_audio_length_ms, temperature,
                         topk, cached_context, seed) -> torch.Tensor:
@@ -651,22 +664,14 @@ class Generator:
 
     def _stream_pcm(self, codes: torch.Tensor, mimi_state):
         """(1, K, F) device codes → ((F*hop,) float32 PCM, new codec state)
-        through the streaming decode.  Records the wall time, the copy to the
-        host (a sync) included, as ``codec_s``."""
-        t0 = time.perf_counter()
+        through the streaming decode."""
         wav, mimi_state = self._mimi.decode_streaming(self._mimi_params, codes, mimi_state)
-        pcm = wav[0, 0].float().cpu().numpy()
-        self.metrics.record("codec_s", time.perf_counter() - t0)
-        return pcm, mimi_state
+        return wav[0, 0].float().cpu().numpy(), mimi_state
 
     def _decode_codes(self, codes: torch.Tensor) -> np.ndarray:
-        """(F, K) device codes → (F*hop,) float32 PCM, one offline pass;
-        recorded as ``codec_s``."""
-        t0 = time.perf_counter()
+        """(F, K) device codes → (F*hop,) float32 PCM, one offline pass."""
         wav = self._mimi.decode(self._mimi_params, codes.T[None])
-        pcm = wav[0, 0].float().cpu().numpy()
-        self.metrics.record("codec_s", time.perf_counter() - t0)
-        return pcm
+        return wav[0, 0].float().cpu().numpy()
 
     def decode_audio(self, frames: np.ndarray) -> np.ndarray:
         """(F, K) frames → (F*hop,) float32 PCM via one offline Mimi pass."""

@@ -37,6 +37,26 @@ the ranks that hold the admission's slot, and with tp > 1 on rank 0's tp
 group, whose collectives meet in the same order on every rank of the
 group (a pipelined admission thread would issue them in another order on
 each rank).
+
+Spans (``spans=True``, the default): every time is ``time.perf_counter``
+seconds.  A session keeps its own ``Session.spans`` (``Span`` name, start,
+end, cause): "queued" (submit → the dispatch thread takes it), "prefill"
+(the host's part of ``_prefill_admission``), "admission" (on the card: a
+stamp on the admission stream before the prefill → the fetch event after
+its first chunk), "handover" (that fetch waited → the first chunk emitted,
+the session about to be queued for a slot), "slot_wait" (→ ``_attach``
+begins), "attach", one "chunk" per PCM chunk emitted (its cause the id of
+the ``Tick`` that made it, 0 for the admission's first chunk) and
+"finished" (the last chunk, error or cancel → the end put on the queue).
+Each tick is a ``Tick`` record that every session live at its launch
+keeps in ``Session.ticks``: its host launch span, device stamps on the
+tick stream around its frames and Mimi decode, and the host's read and
+emission of it.  Device stamps are events from a ``DeviceClock``, read
+only after the fetch waits the pool makes anyway (the tick's in
+``_process``, the admission's in ``_complete_admission``); no graph holds
+one.  Each span's seconds also go into the server's ``metrics`` series
+(``metrics_summary``).  On the CPU and on a mesh there are no device
+stamps.  ``spans=False`` stamps and keeps nothing.
 """
 
 from __future__ import annotations
@@ -49,7 +69,7 @@ import threading
 import time
 from dataclasses import dataclass, field
 from datetime import timedelta
-from typing import List, NamedTuple, Optional, Sequence
+from typing import Dict, List, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
@@ -57,7 +77,7 @@ import torch.distributed as dist
 
 from sesameai_tts_tpu_torch.models import csm as csm_model
 from sesameai_tts_tpu_torch.runtime.generator import FRAME_MS, Generator
-from sesameai_tts_tpu_torch.utils.profiling import Metrics
+from sesameai_tts_tpu_torch.utils.profiling import DeviceClock, Metrics, Span, Stamp
 
 log = logging.getLogger(__name__)
 
@@ -95,9 +115,13 @@ class Session:
     frames_out: List[np.ndarray] = field(default_factory=list)
     error: Optional[Exception] = None
     cancelled: bool = False
-    submitted_at: float = field(default_factory=time.time)
+    # time.perf_counter seconds
+    submitted_at: float = field(default_factory=time.perf_counter)
     first_audio_at: Optional[float] = None
     finished_at: Optional[float] = None
+    id: int = -1  # the submit order (a server's ids are unique)
+    spans: List[Span] = field(default_factory=list)  # the module docstring's
+    ticks: List["Tick"] = field(default_factory=list)  # those it was live at
 
     def cancel(self) -> None:
         """Stop generating for this session: frees its slot at the next
@@ -133,12 +157,41 @@ def _on(gen: Generator):
     return contextlib.nullcontext() if stream is None else torch.cuda.stream(stream)
 
 
+@dataclass(eq=False)
+class Tick:
+    """One tick of the pool (module docstring), kept by the sessions live at
+    its launch and dropped with them.
+
+    ``launch``: the host's ``_serve_tick`` call; ``read``: the host's read
+    and emission of the tick in ``_process``.  ``stamps``: device times on
+    the host's clock by label, filled once the tick's fetch has been
+    waited for: "backbone" and "sample" (before each frame's replay of
+    that graph), "loop" (after the frames' copies), "mimi" (after the
+    batched Mimi decode and its cast) and "fetch" (the copies to the host
+    done); ``issued``: the host's times just before each was recorded, by
+    the same labels (the card reaches a stamp no earlier); ``slack``: the
+    width of the clock's bracket when they were mapped (``DeviceClock``)."""
+
+    id: int
+    n: int  # frame-steps
+    live: tuple = ()  # ids of the sessions live at launch
+    launch: Optional[Span] = None
+    read: Optional[Span] = None
+    stamps: Dict[str, List[float]] = field(default_factory=dict)
+    issued: Dict[str, List[float]] = field(default_factory=dict)
+    slack: Optional[float] = None
+    events: list = field(default_factory=list, repr=False)  # (label, Stamp) until read
+
+
 class _Fetch:
     """Device tensors copied to pinned host memory without blocking, behind
-    an event on the current stream; ``wait`` syncs on that event alone."""
+    an event on the current stream (``event``, or a new one, recorded just
+    after host time ``issued``); ``wait`` syncs on that event alone and
+    notes when it returned (``waited``)."""
 
-    def __init__(self, tensors: Sequence[torch.Tensor]):
+    def __init__(self, tensors: Sequence[torch.Tensor], event=None):
         self.event = None
+        self.issued = self.waited = None
         if tensors[0].device.type == "cpu":
             self._host = list(tensors)
             return
@@ -147,12 +200,14 @@ class _Fetch:
             h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
             h.copy_(t, non_blocking=True)
             self._host.append(h)
-        self.event = torch.cuda.Event()
+        self.event = torch.cuda.Event() if event is None else event
+        self.issued = time.perf_counter()
         self.event.record()
 
     def wait(self) -> List[np.ndarray]:
         if self.event is not None:
             self.event.synchronize()
+        self.waited = time.perf_counter()
         return [h.numpy() for h in self._host]
 
 
@@ -192,6 +247,18 @@ class _Admitted(NamedTuple):
     max_gen: int
     ms1: object  # the codec state after the first chunk
     fetch: Optional["_Fetch"]
+    start: Optional[Stamp] = None  # before the prefill (spans on the card)
+
+
+class _Launched(NamedTuple):
+    """A launched tick waiting to be read: its fetch, frame-steps, the
+    sessions and budgets at launch, and its record (None without spans)."""
+
+    fetch: _Fetch
+    n: int
+    sessions: list
+    budget: np.ndarray
+    tick: Optional[Tick]
 
 
 class _Plan(NamedTuple):
@@ -201,6 +268,13 @@ class _Plan(NamedTuple):
     greedy: bool = True
     admits: tuple = ()
     frees: tuple = ()
+
+
+# each session span's series in the server's metrics ("finished" has none:
+# a finish records session_s)
+_SERIES = {"queued": "queue_wait_s", "prefill": "prefill_s", "admission": "admission_device_s",
+           "handover": "handover_s", "slot_wait": "slot_wait_s", "attach": "attach_s",
+           "chunk": "chunk_emit_s"}
 
 
 def _copy_row(pool, one, slot: int, axis: int) -> None:
@@ -221,11 +295,15 @@ class BatchedTTSServer:
 
     Admission prefill runs on its own thread and stream: the tick thread
     only copies ready states into slots, so new sessions do not stall the
-    decode in flight."""
+    decode in flight.  ``spans`` switches the spans and device stamps of
+    the module docstring on (the default) or off."""
 
     def __init__(self, generator: Generator, slots: int = 4, chunk_frames: int = 10,
-                 max_pending: Optional[int] = None):
+                 max_pending: Optional[int] = None, spans: bool = True):
         self.gen = generator
+        self.spans = spans
+        self._clock = DeviceClock(generator.device.type == "cuda") if spans else None
+        self._tick_ids = itertools.count(1)  # 0 is an admission's first chunk
         self.B = slots
         # the streaming Mimi decode carries a ring cache whose slack caps the
         # frames per tick (codec/transformer.py raises): clamp, not crash
@@ -291,7 +369,7 @@ class BatchedTTSServer:
         self.metrics = Metrics()
         self._sessions_total = 0
         self._frames_total = 0
-        self._started_at = time.time()
+        self._started_at = time.perf_counter()
         self._thread: Optional[threading.Thread] = None
         self._admitter_thread: Optional[threading.Thread] = None
         self._completer: Optional[threading.Thread] = None
@@ -433,7 +511,8 @@ class BatchedTTSServer:
                 if not self._running:
                     raise RuntimeError("server is not running (call start())")
                 try:
-                    self._pending.put_nowait((prio, next(self._seq), s))
+                    s.id = next(self._seq)
+                    self._pending.put_nowait((prio, s.id, s))
                     self._sessions_total += 1
                     return s
                 except queue.Full:
@@ -490,7 +569,7 @@ class BatchedTTSServer:
             "frames_total": self._frames_total,
             "slots": self.B,
             "slots_occupied": occupied,
-            "uptime_s": round(time.time() - self._started_at, 3),
+            "uptime_s": round(time.perf_counter() - self._started_at, 3),
             "series": self.metrics.summary(),
         }
 
@@ -526,8 +605,7 @@ class BatchedTTSServer:
                 # the session first
                 s = item if isinstance(item, Session) else next(
                     x for x in item if isinstance(x, Session))
-                s.error = err
-                s.chunks.put(None)
+                self._close(s, err)
 
     def stop(self):
         """Stop the threads (on a mesh the tick thread broadcasts the stop to
@@ -545,9 +623,8 @@ class BatchedTTSServer:
         for slot in range(self.B):
             s = self._sessions[slot]
             if s is not None:
-                s.error = err
                 self._sessions[slot] = None
-                s.chunks.put(None)
+                self._close(s, err)
 
     # -- admission (its own threads: prefill and the first chunk's fetch) -----
 
@@ -564,30 +641,35 @@ class BatchedTTSServer:
         max_gen = int(session.max_audio_length_ms / FRAME_MS)
         try:
             with _on(a):
+                start = None if self._clock is None else self._clock.stamp()
+                h0 = time.perf_counter()
                 frame, state1, done1, max_gen = a._prefill_admission(
                     session.text, session.speaker, list(session.context),
                     session.cached_context, max_gen, session.temperature, session.topk,
                     a._utterance_seed(None))
+                self._span(session, "prefill", h0, time.perf_counter())
                 pcm0, ms1 = a._first_chunk(frame)
                 # (done, frame, PCM) in one fetch: an admission's only host sync;
                 # its event also orders the pool's copy of state1 after the prefill
-                fetch = _Fetch([done1, frame, pcm0])
+                fetch = _Fetch([done1, frame, pcm0], self._fetch_event())
         except Exception as e:
-            session.error = e
-            session.chunks.put(None)
+            self._close(session, e)
             return None
-        return _Admitted(session, frame, state1, max_gen, ms1, fetch)
+        return _Admitted(session, frame, state1, max_gen, ms1, fetch, start)
 
     def _complete_admission(self, inflight) -> None:
         """Stage 2: wait for the dispatched first chunk, emit first audio, hand
         the session to the tick thread (or finish it on EOS)."""
-        session, max_gen = inflight.session, inflight.max_gen
+        session, max_gen, fetch = inflight.session, inflight.max_gen, inflight.fetch
         try:
-            done1_np, frame_np, wav0 = inflight.fetch.wait()
+            done1_np, frame_np, wav0 = fetch.wait()
         except Exception as e:
-            session.error = e
-            session.chunks.put(None)
+            self._close(session, e)
             return
+        if inflight.start is not None:  # spans on the card
+            a0, a1 = self._clock.settle([inflight.start], Stamp(fetch.event, fetch.issued),
+                                        fetch.waited)
+            self._span(session, "admission", a0, a1)
         done1_np = bool(done1_np[0])
         # first audio leaves here, on the admission thread: TTFA does not wait
         # for the tick thread to find a free slot
@@ -598,6 +680,8 @@ class BatchedTTSServer:
             # complete without ever occupying a slot
             self._finish_session(session)
             return
+        # a full _ready is a wait for a slot: the hand-over ends here
+        self._span(session, "handover", fetch.waited, time.perf_counter())
         placed = False
         while self._running:  # bounded queue: block without hanging stop()
             try:
@@ -607,21 +691,22 @@ class BatchedTTSServer:
             except queue.Full:
                 continue
         if not placed:  # stop() raced the bounded put: end the session
-            session.error = RuntimeError("server stopped")
-            session.chunks.put(None)
+            self._close(session, RuntimeError("server stopped"))
 
     def _dispatch_loop(self):
         """Admission stage 1 (own thread): enqueue session N+1's prefill while
         session N's first chunk is fetched on the completion thread."""
         while self._running:
+            session = inflight = None  # nothing ended stays alive while it waits
             try:
                 _, _, session = self._pending.get(timeout=0.05)
             except queue.Empty:
                 continue
+            self._span(session, "queued", session.submitted_at, time.perf_counter())
             with self._backlog_cv:  # a backlog place just freed: wake one
                 self._backlog_cv.notify()  # parked submit(wait=True)
             if session.cancelled:
-                session.chunks.put(None)
+                self._close(session)
                 continue
             self._add_admitting(1)
             inflight = self._dispatch_admission(session)
@@ -637,14 +722,14 @@ class BatchedTTSServer:
                 except queue.Full:
                     continue
             if not placed:  # stop() raced the bounded put
-                session.error = RuntimeError("server stopped")
-                session.chunks.put(None)
+                self._close(session, RuntimeError("server stopped"))
                 self._add_admitting(-1)
 
     def _completion_loop(self):
         """Admission stage 2 (own thread): fetch dispatched first chunks in
         dispatch order and hand the sessions to the tick thread."""
         while self._running:
+            inflight = None  # nothing ended stays alive while it waits
             try:
                 inflight = self._dispatched.get(timeout=0.05)
             except queue.Empty:
@@ -659,9 +744,13 @@ class BatchedTTSServer:
         pool's static tensors on the tick stream, after the admission's
         device work (its event).  The prefill's audio was already emitted;
         only live sessions with budget left get here."""
-        session, frame, state1, max_gen, ms1, fetch = item
+        session, frame, state1, max_gen, ms1, fetch = item[:6]
+        h0 = time.perf_counter()
+        handed = next((sp.end for sp in reversed(session.spans) if sp.name == "handover"), None)
+        if handed is not None:
+            self._span(session, "slot_wait", handed, h0)
         if session.cancelled:
-            session.chunks.put(None)
+            self._close(session)
             if self._mesh is not None:  # the other ranks attached it
                 self._freed.append(slot)
             return
@@ -681,6 +770,7 @@ class BatchedTTSServer:
                 x.record_stream(stream)
         self._sessions[slot] = session
         self._budget[slot] = max_gen - 1
+        self._span(session, "attach", h0, time.perf_counter())
 
     def _attach_state(self, slot: int, frame, state1, temperature, topk) -> None:
         """Row copies of a prefilled B=1 state into the pool's row of ``slot``,
@@ -696,27 +786,118 @@ class BatchedTTSServer:
         bufs.temperature[row] = temperature
         bufs.topk[row] = topk
 
-    def _emit_session(self, session: Session, frames: np.ndarray, pcm: np.ndarray):
+    # -- spans (the module docstring) --------------------------------------------
+
+    def _span(self, session: Session, name: str, start: Optional[float],
+              end: Optional[float], cause: Optional[int] = None) -> None:
+        """Keep a span of ``session`` (caused by itself unless ``cause``) and
+        record its seconds in its series; nothing without spans or times."""
+        if not self.spans or start is None or end is None:
+            return
+        span = Span(name, start, end, session.id if cause is None else cause)
+        session.spans.append(span)
+        if name in _SERIES:
+            self.metrics.record_span(_SERIES[name], span)
+
+    def _fetch_event(self):
+        """A fetch's event: a timing one with spans on the card, else None
+        (``_Fetch`` makes its own)."""
+        return None if self._clock is None else self._clock.event()
+
+    def _tick_record(self, n: int) -> Optional[Tick]:
+        return Tick(next(self._tick_ids), n) if self.spans else None
+
+    def _stamper(self, tick: Optional[Tick]):
+        """``tick``'s ``stamps`` callback for ``_serve_tick``; None without
+        the tick or a card."""
+        if tick is None or not self._clock.on_device:
+            return None
+        clock, events = self._clock, tick.events
+
+        def stamp(label: str) -> None:
+            events.append((label, clock.stamp()))
+
+        return stamp
+
+    def _launched(self, tick: Optional[Tick], h0: float) -> None:
+        """``tick`` was launched from ``h0`` to now; every session live now
+        keeps it."""
+        if tick is None:
+            return
+        live = [s for s in self._sessions if s is not None]
+        tick.live = tuple(s.id for s in live)
+        tick.launch = self.metrics.record_span(
+            "tick_launch_s", Span("launch", h0, time.perf_counter(), tick.id))
+        for s in live:
+            s.ticks.append(tick)
+
+    def _read_stamps(self, tick: Tick, fetch: _Fetch) -> None:
+        """After the tick's fetch returned: its device stamps onto the host's
+        clock (``Tick.stamps``, ``issued``, ``slack``) and into the series."""
+        events, tick.events = tick.events, []
+        if not events:  # the CPU, a mesh: host spans only
+            return
+        clock = self._clock
+        times = clock.settle([sp for _, sp in events], Stamp(fetch.event, fetch.issued),
+                             fetch.waited)
+        st, issued = tick.stamps, tick.issued
+        for (label, sp), t in zip(events, times):
+            st.setdefault(label, []).append(t)
+            issued.setdefault(label, []).append(sp.issued)
+        fetched = times[-1]
+        st["fetch"], issued["fetch"] = [fetched], [fetch.issued]
+        tick.slack = clock.slack()
+        backbone, sample = st["backbone"], st["sample"]
+        loop, mimi = st["loop"][0], st["mimi"][0]
+        m = self.metrics
+        m.record("tick_device_s", fetched - backbone[0])
+        m.record("tick_backbone_s", sum(s - b for b, s in zip(backbone, sample)))
+        m.record("tick_codebook_s", sum(b - s for s, b in zip(sample, backbone[1:] + [loop])))
+        m.record("tick_mimi_s", mimi - loop)
+        m.record("clock_slack_s", tick.slack)
+
+    def _close(self, session: Session, error: Optional[Exception] = None) -> None:
+        """End ``session`` with no more audio: an error, a cancel or a stop."""
+        if error is not None:
+            session.error = error
+        self._finished(session)
+        session.chunks.put(None)
+
+    def _finished(self, session: Session) -> None:
+        """The "finished" span: from the session's last span to now."""
+        if self.spans:
+            now = time.perf_counter()
+            last = max((sp.end for sp in session.spans), default=session.submitted_at)
+            self._span(session, "finished", last, now)
+
+    # -- emission ---------------------------------------------------------------------
+
+    def _emit_session(self, session: Session, frames: np.ndarray, pcm: np.ndarray,
+                      cause: int = 0):
         """Audio-emission bookkeeping shared by the tick and admission threads:
-        TTFA on first audio, frame counters, chunk delivery."""
+        TTFA on first audio, frame counters, chunk delivery; the chunk's span
+        names the tick that made it (``cause``; 0: the admission)."""
+        t0 = time.perf_counter()
         if session.first_audio_at is None:
-            session.first_audio_at = time.time()
+            session.first_audio_at = t0
             self.metrics.record("ttfa_s", session.first_audio_at - session.submitted_at)
         with self._lock:
             self._frames_total += frames.shape[0]
         session.frames_out.append(frames)
         session.chunks.put(pcm)
+        self._span(session, "chunk", t0, time.perf_counter(), cause)
 
     def _finish_session(self, session: Session):
-        session.finished_at = time.time()
+        session.finished_at = time.perf_counter()
         self.metrics.record("session_s", session.finished_at - session.submitted_at)
+        self._finished(session)
         session.chunks.put(None)
 
-    def _emit(self, slot: int, frames: np.ndarray, pcm: np.ndarray):
+    def _emit(self, slot: int, frames: np.ndarray, pcm: np.ndarray, cause: int = 0):
         session = self._sessions[slot]
         if session is None or frames.shape[0] == 0:
             return
-        self._emit_session(session, frames, pcm)
+        self._emit_session(session, frames, pcm, cause)
 
     def _finish(self, slot: int):
         session = self._sessions[slot]
@@ -786,9 +967,7 @@ class BatchedTTSServer:
                 except Exception as e:
                     # the popped session is in neither _sessions nor _ready, so
                     # the recovery cannot see it: end it here
-                    s = item[0]
-                    s.error = e
-                    s.chunks.put(None)
+                    self._close(item[0], e)
                     raise
 
         active = [s for s in self._sessions if s is not None]
@@ -806,12 +985,18 @@ class BatchedTTSServer:
         n = self._tick_size()
         greedy = all(csm_model.is_greedy(s.topk) for s in active)
         t = self._ticker
-        frames, valid, done, pcm, self._mimi_state = t._serve_tick(
-            self.B, n, t._utterance_seed(None), greedy, self._mimi_state)
+        tick = self._tick_record(n)
+        stamps = self._stamper(tick)
+        launch = (self.B, n, t._utterance_seed(None), greedy, self._mimi_state)
+        h0 = time.perf_counter()
+        frames, valid, done, pcm, self._mimi_state = (
+            t._serve_tick(*launch) if stamps is None else t._serve_tick(*launch, stamps=stamps))
+        self._launched(tick, h0)
         # launched before the previous tick is read: the host waits for that
         # tick only while this one runs.  Emission bookkeeping is taken at
         # launch: a session attached later gets none of this tick's audio
-        cur = (_Fetch([frames, valid, done, pcm]), n, list(self._sessions), self._budget.copy())
+        cur = _Launched(_Fetch([frames, valid, done, pcm], self._fetch_event()), n,
+                        list(self._sessions), self._budget.copy(), tick)
         self.metrics.record("tick_frames", n)  # frame-steps launched, B rows each
         for slot in range(self.B):
             if self._sessions[slot] is not None:
@@ -836,8 +1021,12 @@ class BatchedTTSServer:
 
     def _process(self, inflight):
         """Read and emit one launched tick (lag 1 behind its launch)."""
-        fetch, n, sessions, budget = inflight
+        fetch, n, sessions, budget, tick = inflight
+        h0 = time.perf_counter()
         frames_np, valid_np, done_np, pcm_np = fetch.wait()
+        if tick is not None:
+            self._read_stamps(tick, fetch)
+        cause = 0 if tick is None else tick.id
         hop = self._ticker._hop
         for slot in range(self.B):
             session = sessions[slot]
@@ -853,9 +1042,14 @@ class BatchedTTSServer:
             vmask = valid_np[:take, slot]
             n_emit = int(vmask.sum())  # valid frames are a prefix
             self._emit(slot, frames_np[:take, slot][vmask].astype(np.int32),
-                       pcm_np[slot, :n_emit * hop])
+                       pcm_np[slot, :n_emit * hop], cause)
             if done_np[slot] or budget[slot] - n <= 0:
                 self._finish(slot)
+        if tick is not None:
+            tick.read = self.metrics.record_span(
+                "tick_read_s", Span("read", h0, time.perf_counter(), tick.id))
+            if "fetch" in tick.stamps:
+                self.metrics.record("emit_lag_s", tick.read.end - tick.stamps["fetch"][0])
 
     # -- the pool on a mesh (module docstring) -------------------------------------
 
@@ -966,8 +1160,7 @@ class BatchedTTSServer:
                 # inputs are the plan's), so no rank leaves the plan's order
                 log.exception("admission to slot %d failed", a.slot)
                 if self._front:
-                    front[a.slot].error = e
-                    front[a.slot].chunks.put(None)
+                    self._close(front[a.slot], e)
         if plan.n == 0:
             return None
         frames, valid = t._replay_frames(self.B, plan.seed, plan.n, 0, plan.greedy)
@@ -997,18 +1190,18 @@ class BatchedTTSServer:
                 _, _, session = self._pending.get_nowait()
             except queue.Empty:
                 break
+            self._span(session, "queued", session.submitted_at, time.perf_counter())
             with self._backlog_cv:  # a backlog place just freed
                 self._backlog_cv.notify()
             if session.cancelled:
-                session.chunks.put(None)
+                self._close(session)
                 continue
             try:  # a prompt too long for the cache fails here, never planned
                 tokens, mask = a._tokenize_prompt(session.text, session.speaker,
                                                   list(session.context))
                 max_gen = a._room(tokens.shape[0], int(session.max_audio_length_ms / FRAME_MS))
             except Exception as e:
-                session.error = e
-                session.chunks.put(None)
+                self._close(session, e)
                 continue
             slot = idle.pop(0)
             admits.append(_Admission(slot, a._utterance_seed(None), session.temperature,
@@ -1040,13 +1233,16 @@ class BatchedTTSServer:
         greedy = all(csm_model.is_greedy(s.topk) for s in active + list(front.values()))
         frees, self._freed = tuple(self._freed), []
         plan = _Plan(_OP_TICK, n, t._utterance_seed(None), greedy, admits, frees)
+        tick = self._tick_record(n)  # host spans only
+        h0 = time.perf_counter()
         self._broadcast_plan(plan)
         gathered = self._run_plan(plan, front)
         frames, valid, done = (x.to(t.device) for x in gathered)
         wav, self._mimi_state = t._mimi.decode_streaming(t._mimi_params, frames.permute(1, 2, 0),
                                                          self._mimi_state)
-        cur = (_Fetch([frames, valid, done, wav[:, 0].float()]), n, list(self._sessions),
-               self._budget.copy())
+        self._launched(tick, h0)
+        cur = _Launched(_Fetch([frames, valid, done, wav[:, 0].float()], self._fetch_event()), n,
+                        list(self._sessions), self._budget.copy(), tick)
         self.metrics.record("tick_frames", n)
         for slot in range(self.B):
             if self._sessions[slot] is not None:

@@ -1,7 +1,7 @@
 """The port's ``utils/profiling.py`` as ``tests/test_profiling.py`` holds the
 JAX package's: ``Metrics`` (``record``, ``timer``, ``summary``,
-``dump_json``, ``reset``), the default ``metrics`` registry and
-``RTFMeter``, each beside the JAX one on the same series."""
+``dump_json``, ``reset``), beside the JAX one on the same series.  Its
+spans and device stamps are held in ``tests/test_torch_spans.py``."""
 
 import json
 import time
@@ -46,23 +46,3 @@ def test_summary_and_dump_json_match_the_jax_package():
     assert json.loads(ours.dump_json()) == json.loads(theirs.dump_json())
     assert ours.dump_json() == theirs.dump_json()
 
-
-def test_default_registry():
-    assert isinstance(profiling.metrics, profiling.Metrics)
-    assert isinstance(j_profiling.metrics, j_profiling.Metrics)
-    profiling.metrics.reset()
-    with profiling.metrics.timer("registry"):
-        pass
-    assert profiling.metrics.summary()["registry"]["count"] == 1
-    profiling.metrics.reset()
-
-
-def test_rtf_meter():
-    meter = profiling.RTFMeter(sample_rate=24_000)
-    time.sleep(0.01)
-    meter.on_chunk(np.zeros(24_000, np.float32))  # 1 s of audio
-    r = meter.result()
-    assert set(r) == set(j_profiling.RTFMeter(sample_rate=24_000).result())
-    assert r["audio_s"] == 1.0
-    assert r["first_audio_ms"] >= 10.0
-    assert r["rtf"] > 0 and r["xrt"] > 0

@@ -1,6 +1,6 @@
 """The port's service path (``service/tts.py`` ``TTS``, ``service/cli.py``,
-``audio/segment.py``, ``utils/text.py``, ``runtime/streaming.py``,
-``utils/profiling.py``) against the JAX package at the tiny f32 flavor.
+``audio/segment.py``, ``utils/text.py``, ``runtime/streaming.py``)
+against the JAX package at the tiny f32 flavor.
 
 Both ``TTS`` engines get Generators over one parameter tree (the JAX
 package draws it, the port converts it).  Greedy ``generate_with_context``
@@ -22,7 +22,6 @@ from sesameai_tts_tpu.runtime import streaming as j_streaming
 from sesameai_tts_tpu.runtime.loader import test_tiny_spec as j_tiny_spec
 from sesameai_tts_tpu.service import tts as j_tts
 from sesameai_tts_tpu.watermark import api as j_api
-from sesameai_tts_tpu.utils import profiling as j_profiling
 from sesameai_tts_tpu.utils import text as j_text
 from sesameai_tts_tpu_torch.audio import segment
 from sesameai_tts_tpu_torch.audio.io import read_wav, read_wav_mono, write_wav
@@ -35,7 +34,6 @@ from sesameai_tts_tpu_torch.runtime.loader import test_tiny_spec as tiny_spec
 from sesameai_tts_tpu_torch.service import cli
 from sesameai_tts_tpu_torch.service import tts as t_tts
 from sesameai_tts_tpu_torch.tokenizer.text import TinyHashTokenizer
-from sesameai_tts_tpu_torch.utils import profiling
 from sesameai_tts_tpu_torch.utils import text
 from sesameai_tts_tpu_torch.watermark import api as wm_api
 
@@ -237,28 +235,6 @@ def test_text_utils_match_jax(s):
     assert text.clean_text_for_tts(s) == j_text.clean_text_for_tts(s)
     assert text.split_sentences(s) == j_text.split_sentences(s)
     assert text.split_clean_sentences(s) == j_text.split_clean_sentences(s)
-
-
-def test_rtf_meter_matches_jax(monkeypatch):
-    # each meter reads the clock at its first chunk and at result()
-    clock = iter([0.25, 2.0, 0.25, 2.0])
-    monkeypatch.setattr("time.perf_counter", lambda: next(clock, 2.0))
-    chunks = [np.zeros(n, np.float32) for n in (1920, 3840, 24_000)]
-    results = []
-    for mod in (profiling, j_profiling):
-        meter = mod.RTFMeter(24_000, start=0.0)
-        for c in chunks:
-            meter.on_chunk(c)
-        results.append(meter.result())
-    assert results[0] == results[1]
-    assert results[0]["first_audio_ms"] == 250.0 and results[0]["audio_s"] == 1.24
-
-
-def test_device_trace_writes_a_trace(tmp_path):
-    with profiling.device_trace(str(tmp_path / "trace")):
-        torch.ones(8) @ torch.ones(8)
-    files = os.listdir(tmp_path / "trace")
-    assert len(files) == 1 and files[0].endswith(".json")
 
 
 @pytest.mark.parametrize("marked", [True, False])
