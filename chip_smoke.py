@@ -48,7 +48,8 @@ Phases, each of which fails the run if it fails:
    requests on an eager twin of the Generator, timed beside the graphed
    ones.  Then each configuration's profiled windows (device busy share,
    kernel mix), graphed and eager, the graphed step's device time by CUDA
-   events and the sampler's threshold search alone.  Before the profiled
+   events and the sampler alone, its kernel against its plain path at one
+   stream's shape and the pool's.  Before the profiled
    windows, ``main[cli]``: the command line from files (a 6.2 GB CSM-1B
    checkpoint written and read back bit-equal, a Llama-3-format
    tokenizer.json, a Mimi ``save_pytree`` file, a voice) speaks two
@@ -1864,7 +1865,7 @@ def _admit_all(srv, texts) -> list:
         t0 = time.perf_counter()
         item = srv._dispatch_admission(session)
         _check(item is not None, f"serve: admission failed: {session.error}")
-        item[-1].wait()
+        item.fetch.wait()
         admit_ms.append((time.perf_counter() - t0) * 1e3)
         with _on(srv._ticker):
             srv._attach(slot, item)
@@ -1905,8 +1906,9 @@ def _fused_pool(torch, wrappers, gen, texts, unfused_tick_ms: float) -> dict:
     warmed, 8 fresh admissions, then its tick on the graphs against the
     eager step, sampled and greedy: bit-equal, and the launches exact
     (quant_mlp 144 and quant_matmul 288 a frame-step, at S = 8;
-    flash_attention 144).  Its graphed tick's ms per frame-step beside the
-    unfused pool's, taken the same way."""
+    flash_attention 144; topk_sample 32 a sampled one).  Its graphed
+    tick's ms per frame-step beside the unfused pool's, taken the same
+    way."""
     import numpy as np
 
     from sesameai_tts_tpu_torch.convert import tree_map
@@ -1926,7 +1928,7 @@ def _fused_pool(torch, wrappers, gen, texts, unfused_tick_ms: float) -> dict:
     steps = 2 * sum(c["frames"] for c in checks.values())  # graphed and eager ticks
     per_frame = next(launches for path, _, launches, _ in _PATHS if path == "fused")
     want = {**{k: n * steps for k, n in per_frame.items()}, "flash_attention": 144 * steps,
-            "flash_attention_bwd": 0}
+            "flash_attention_bwd": 0, "topk_sample": 32 * 2 * checks["sampled"]["frames"]}
     tick_ms, _ = _tick_ms_per_frame_step(torch, srv, ms0)
     out = {"slots": srv.B, "warmup_s": warmup_s, "admission_ms_p50": float(np.median(admit_ms)),
            "graph_vs_eager": checks, "frame_steps": steps, "launches": launches,
@@ -1950,14 +1952,15 @@ def phase_serve(torch, wrappers, card: str):
     in-process sessions against 8 slots (``SERVE_SESSIONS``): each ends,
     its delivered PCM equals the offline Mimi decode of its delivered
     frames, and the launches are exact (quant_matmul 576 per frame-step at
-    S = 8, flash_attention 144 per frame-step and per admission).  Then
+    S = 8, flash_attention 144 per frame-step and per admission; topk_sample
+    32 a sampled one, and the plain sampler never on the card).  Then
     over HTTP with the DSP watermark: 8 concurrent /tts, a /tts/stream and
     an SSE /v1/audio/speech whose streamed marks verify, a burst past
     max_pending answered 429 with Retry-After, /healthz?deep=1 with the
     canary.  Then, the server stopped, 8 fresh admissions in the pool: one
     tick on the graphs bit-equal to the eager step from the same state,
-    sampled (mixed temperature and topk) and greedy.  Prints the numbers of
-    the serving cell."""
+    sampled (mixed temperature and topk: topk_sample 32 a frame-step) and
+    greedy (none).  Prints the numbers of the serving cell."""
     import base64
     import threading
     import urllib.error
@@ -2013,6 +2016,7 @@ def phase_serve(torch, wrappers, card: str):
         while (srv._inflight is not None or any(srv._sessions)) and time.monotonic() < deadline:
             time.sleep(0.01)
         launches = _counts(wrappers)
+        sampler = srv.metrics_summary()["sampler_launches"]
         frame_steps = int(srv.metrics.summary()["tick_frames"]["total"])
         admissions = int(srv._admitter.metrics.summary()["prefill_s"]["count"])
         frames = [np.concatenate(s.frames_out) if s.frames_out
@@ -2047,6 +2051,7 @@ def phase_serve(torch, wrappers, card: str):
             "long_prompt_frames": int(frames[SERVE_LONG_PROMPT].shape[0]),
             "stream_vs_offline_rel_err_max": max(rel),
             "launches": launches,
+            "sampler_launches": sampler,
             "greedy_prefix_vs_b1_generate_frames": greedy_prefix,
         }
         print("main[serve] traffic " + json.dumps(result["traffic"]), flush=True)
@@ -2058,8 +2063,14 @@ def phase_serve(torch, wrappers, card: str):
                f"frames with {SERVE_ROOM} rows of room")
         want = {"quant_matmul": 576 * frame_steps, "quant4_matmul": 0, "quant_mlp": 0,
                 "flash_attention": 144 * (frame_steps + admissions), "flash_attention_bwd": 0}
-        _check(launches == want, f"serve: launches {launches}, want {want} ({frame_steps} "
-                                 f"frame-steps at B={srv.B}, {admissions} admissions)")
+        draws = launches["topk_sample"]  # 32 a sampled frame-step or sampled admission
+        _check({k: v for k, v in launches.items() if k != "topk_sample"} == want,
+               f"serve: launches {launches}, want {want} ({frame_steps} frame-steps at "
+               f"B={srv.B}, {admissions} admissions)")
+        _check(draws % 32 == 0 and 0 < draws <= 32 * (frame_steps + admissions)
+               and sampler["topk_sample"] >= draws and sampler["sample_topk_plain"] == 0,
+               f"serve: topk_sample launched {draws} times ({frame_steps} frame-steps, "
+               f"{admissions} admissions), /metrics' sampler {sampler}")
 
         # -- over HTTP, the watermark on
         httpd = serve(srv, host="127.0.0.1", port=0, sample_rate=gen.sample_rate,
@@ -2122,7 +2133,7 @@ def phase_serve(torch, wrappers, card: str):
             item = srv._dispatch_admission(Session(text=texts[i], speaker=0,
                                                    max_audio_length_ms=2000))
             _check(item is not None, "serve: an admission beside the busy pool failed")
-            item[-1].wait()
+            item.fetch.wait()
             busy_admit_ms.append((time.perf_counter() - t0) * 1e3)
         http["admission_ms_beside_full_pool"] = busy_admit_ms
         codes = []
@@ -2180,7 +2191,9 @@ def phase_serve(torch, wrappers, card: str):
     admit_ms = _admit_all(srv, texts)
     torch.cuda.synchronize()
     ms0 = tree_map(lambda x: x.clone(), srv._mimi_state)
+    _reset_counts(wrappers)
     checks = _tick_checks(torch, srv, ms0)
+    tick_draws = _counts(wrappers)["topk_sample"]  # the sampled tick graphed and eager
     tick_ms, g = _tick_ms_per_frame_step(torch, srv, ms0)
     codes = torch.from_numpy(g[0]).to(srv._ticker.device).permute(1, 2, 0)
     with _on(srv._ticker):
@@ -2199,8 +2212,10 @@ def phase_serve(torch, wrappers, card: str):
     srv1 = BatchedTTSServer(gen, slots=1, chunk_frames=SERVE_CHUNK)
     canary_b1 = srv1.link_canary()
     del srv1
+    sampled_steps = 2 * checks["sampled"]["frames"]
     result.update({
         "graph_vs_eager": checks,
+        "tick_topk_sample_per_frame_step": {"sampled": tick_draws / sampled_steps, "greedy": 0},
         "admission_ms": {"p50": float(np.median(admit_ms)), "max": max(admit_ms),
                          "what": "prefill + first chunk + its fetch, one at a time"},
         "mimi_ms_per_tick": min(mimi_ms),
@@ -2214,6 +2229,9 @@ def phase_serve(torch, wrappers, card: str):
     for label, c in checks.items():
         _check(c["frames_bit_equal"] and c["valid_equal"],
                f"serve: the pool's {label} tick on the graphs differs from the eager step: {c}")
+    _check(tick_draws == 32 * sampled_steps,
+           f"serve: topk_sample launched {tick_draws} times for {sampled_steps} sampled "
+           f"frame-steps and a greedy tick (want 32 a sampled frame-step, none greedy)")
     # -- the fused-MLP configuration's pool on the same int8 tree (quant_mlp at S = 8)
     result["fused_pool"] = _fused_pool(torch, wrappers, gen, texts, tick_ms)
     del gen
@@ -2944,7 +2962,7 @@ def _mesh_rank(rank: int, world: int, tmp: str, case: str) -> None:
     import torch.distributed as dist
 
     sys.path.insert(0, HERE)
-    from sesameai_tts_tpu_torch.ops import attention, kernels, quant
+    from sesameai_tts_tpu_torch.ops import kernels
     from sesameai_tts_tpu_torch.parallel.mesh import make_mesh
     from sesameai_tts_tpu_torch.runtime.loader import build_generator, csm_1b_spec
     from sesameai_tts_tpu_torch.runtime.serving import BatchedTTSServer
@@ -2958,8 +2976,7 @@ def _mesh_rank(rank: int, world: int, tmp: str, case: str) -> None:
     store = dist.FileStore(os.path.join(tmp, "store"), world)
     # the ranks share one card: NCCL refuses that, so the caller asks for gloo
     dist.init_process_group("gloo", store=store, rank=rank, world_size=world)
-    wrappers = {name: getattr(attention if name.startswith("flash_attention") else quant, name)
-                for name in kernels.KERNELS}
+    wrappers = kernels.wrappers()
     out = {"rank": rank}
     try:
         dp, tp = (1, 2) if case == "tp" else (2, 1)
@@ -3279,7 +3296,7 @@ def _train_mesh_rank(rank: int, world: int, tmp: str, case: str, data: str,
     sys.path.insert(0, HERE)
     from sesameai_tts_tpu_torch.core.weights import save_pytree
     from sesameai_tts_tpu_torch.models import transformer
-    from sesameai_tts_tpu_torch.ops import attention, kernels, quant
+    from sesameai_tts_tpu_torch.ops import kernels
     from sesameai_tts_tpu_torch.training import finetune
     from sesameai_tts_tpu_torch.training import train_step as ts
 
@@ -3294,8 +3311,7 @@ def _train_mesh_rank(rank: int, world: int, tmp: str, case: str, data: str,
     torch.zeros(1, device="cuda:0")
     store = dist.FileStore(os.path.join(tmp, "store"), world)
     dist.init_process_group("gloo", store=store, rank=rank, world_size=world)
-    wrappers = {name: getattr(attention if name.startswith("flash_attention") else quant, name)
-                for name in kernels.KERNELS}
+    wrappers = kernels.wrappers()
     heads, collectives = set(), {}
     attend = transformer.flash_attention
 
@@ -3556,7 +3572,8 @@ def phase_profile(torch, wrappers):
     and the graphed step alone (``_graph_step``), with the seconds each
     part took.  The fused configuration runs on the int8 Generator's tree
     (``build_generator`` quantizes both alike; only the MLP route differs),
-    so it is not drawn twice.  Then the sampler's threshold search alone."""
+    so it is not drawn twice.  Then the sampler alone, kernel and plain
+    path (``_sampler_timing``)."""
     from sesameai_tts_tpu_torch.runtime.loader import build_generator, csm_1b_spec
 
     base = None
@@ -3599,7 +3616,8 @@ def phase_profile(torch, wrappers):
 # first match names the kind
 _KINDS = (
     ("quant_matmul", "qmm_"), ("quant4_matmul", "q4mm_"), ("quant_mlp", "qmlp_"),
-    ("flash_attention", "flash_fwd"), ("direct_copy", "direct_copy"), ("cat", "CatArray"),
+    ("flash_attention", "flash_fwd"), ("topk_sample", "topk_sample"),
+    ("direct_copy", "direct_copy"), ("cat", "CatArray"),
     ("index / gather", "index"), ("random", "distribution"), ("reduce", "reduce_kernel"),
     ("cuBLAS", "gemm"), ("cuBLAS", "gemv"), ("cuBLAS", "cutlass"),
     ("elementwise, other", "elementwise"),
@@ -3715,28 +3733,42 @@ def _graph_step(torch, gen) -> dict:
 
 
 def _sampler_timing(torch) -> dict:
-    """The sampler's top-k threshold (the JAX package's 4-phase 32-way
-    bracket search, ``topk_threshold``) and a whole ``sample_topk`` with
-    tensor temperature and topk, as the sampled graph calls them, on one
-    (1, 2051) row: device µs per call by CUDA-graph replay, and per
-    decoded frame (K = 32 calls); ``torch.topk``'s k-th value beside."""
+    """The sampler at one stream's shape (1, 2051) and the pool's (16,
+    2051), per-row topk 40 and temperature 0.8 as the sampled graph passes
+    them (the pool's rows also one in 8 greedy): the kernel
+    (``sample_topk``'s CUDA route) and the plain path
+    (``sample_topk_plain``, the JAX package's ops) on the same noise, device
+    µs per call by CUDA-graph replay and per frame-step (K = 32 calls),
+    their tokens bit-equal, the bound (the logits and noise read once at
+    3.35 TB/s), the plain path's top-k threshold alone and ``torch.topk``'s
+    k-th value beside."""
     from sesameai_tts_tpu_torch.ops import sampling
 
     gen = torch.Generator(device="cuda").manual_seed(4)
-    logits = torch.randn((1, 2051), generator=gen, device="cuda") * 3
-    gumbel = sampling.gumbel_noise(gen, logits.shape)
-    k = torch.full((1,), 40, dtype=torch.int64, device="cuda")
-    temperature = torch.full((1,), 0.8, device="cuda")
-    calls = {
-        "topk_threshold": lambda i: sampling.topk_threshold(logits, k[..., None]),
-        "sample_topk": lambda i: sampling.sample_topk(None, logits, k, temperature,
-                                                      gumbel=gumbel),
-        "torch.topk kth value": lambda i: torch.topk(logits, 40).values[..., -1:],
-    }
     out = {}
-    for name, fn in calls.items():
-        us = _device_ms(torch, fn, 64) * 1e3
-        out[name] = {"us_per_call": us, "ms_per_frame": us * 32 / 1e3}
+    for rows in (1, 16):
+        logits = torch.randn((rows, 2051), generator=gen, device="cuda") * 3
+        gumbel = sampling.gumbel_noise(gen, logits.shape)
+        k = torch.full((rows,), 40, dtype=torch.int64, device="cuda")
+        k[7::8] = 1
+        temperature = torch.full((rows,), 0.8, device="cuda")
+        kernel = sampling.sample_topk(None, logits, k, temperature, gumbel=gumbel)
+        plain = sampling.sample_topk_plain(None, logits, k, temperature, gumbel=gumbel)
+        calls = {
+            "kernel": lambda i: sampling.sample_topk(None, logits, k, temperature,
+                                                     gumbel=gumbel),
+            "plain": lambda i: sampling.sample_topk_plain(None, logits, k, temperature,
+                                                          gumbel=gumbel),
+            "plain topk_threshold": lambda i: sampling.topk_threshold(logits, k[..., None]),
+            "torch.topk kth value": lambda i: torch.topk(logits, 40).values[..., -1:],
+        }
+        shape = {"bit_equal": bool(torch.equal(kernel, plain)),
+                 "bound_us": (2 * logits.numel() * 4 + rows * 8) / 3.35e12 * 1e6}
+        for name, fn in calls.items():
+            us = _device_ms(torch, fn, 64) * 1e3
+            shape[name] = {"us_per_call": us, "ms_per_frame_step": us * 32 / 1e3}
+        _check(shape["bit_equal"], f"sampler: kernel != plain at ({rows}, 2051)")
+        out[f"({rows}, 2051)"] = shape
     return out
 
 
@@ -4030,8 +4062,7 @@ def main() -> int:
         phase_s[label] = round(time.perf_counter() - t0, 1)
         return out
 
-    wrappers = {name: getattr(attention if name.startswith("flash_attention") else quant, name)
-                for name in kernels.KERNELS}
+    wrappers = kernels.wrappers()
     try:
         name, card = phase_device(torch)
         peak_bw, peak_flops = _peaks(name)

@@ -56,7 +56,7 @@ for variant in ("normal", "high", "high", "normal"):
         t1 = time.perf_counter()
         item = srv._dispatch_admission(Session(text=texts[i], speaker=0,
                                                max_audio_length_ms=2000))
-        item[-1].wait()
+        item.fetch.wait()
         busy.append((time.perf_counter() - t1) * 1e3)
     for s in hold:
         s.cancel()

@@ -44,7 +44,7 @@ def admission() -> dict:
                                            speaker=0, max_audio_length_ms=2000))
     host_ms = (time.perf_counter() - t0) * 1e3
     end.record(stream)
-    item[-1].wait()
+    item.fetch.wait()
     total_ms = (time.perf_counter() - t0) * 1e3
     end.synchronize()
     return {"host_ms": host_ms, "device_span_ms": start.elapsed_time(end), "total_ms": total_ms}

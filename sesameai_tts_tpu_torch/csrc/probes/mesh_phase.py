@@ -21,7 +21,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.dirname(os.path.dirna
 import torch  # noqa: E402
 
 import chip_smoke as cs  # noqa: E402
-from sesameai_tts_tpu_torch.ops import attention, kernels, quant  # noqa: E402
+from sesameai_tts_tpu_torch.ops import kernels  # noqa: E402
 
 if __name__ == "__main__":
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -34,8 +34,7 @@ if __name__ == "__main__":
         cs.phase_shards(torch, quant, attention, peak_bw, peak_flops)
         print(f"tp2 shards phase {time.time() - t0:.1f} s", flush=True)
     if "--no-mesh" not in sys.argv:
-        wrappers = {n: getattr(attention if n.startswith("flash_attention") else quant, n)
-                    for n in kernels.KERNELS}
+        wrappers = kernels.wrappers()
         t0 = time.time()
         result = cs.phase_mesh(torch, wrappers, card)
         print(f"main[mesh] phase {time.time() - t0:.1f} s", flush=True)

@@ -58,7 +58,7 @@ def _rank(rank, port, tmp):
     import torch
 
     import chip_smoke as cs
-    from sesameai_tts_tpu_torch.ops import attention, kernels, quant
+    from sesameai_tts_tpu_torch.ops import kernels
     from sesameai_tts_tpu_torch.parallel.distributed import initialize_multihost
     from sesameai_tts_tpu_torch.parallel.mesh import make_mesh
     from sesameai_tts_tpu_torch.runtime.loader import build_generator
@@ -70,8 +70,7 @@ def _rank(rank, port, tmp):
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
     initialize_multihost(f"localhost:{port}", WORLD, rank, backend="gloo" if CPU else "nccl")
-    wrappers = {n: getattr(attention if n.startswith("flash_attention") else quant, n)
-                for n in kernels.KERNELS}
+    wrappers = kernels.wrappers()
     try:
         t0 = time.perf_counter()
         gen = build_generator(_spec(), device=device,

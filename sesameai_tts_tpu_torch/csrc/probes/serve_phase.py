@@ -16,7 +16,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.dirname(os.path.dirna
 import torch  # noqa: E402
 
 import chip_smoke as cs  # noqa: E402
-from sesameai_tts_tpu_torch.ops import attention, kernels, quant  # noqa: E402
+from sesameai_tts_tpu_torch.ops import kernels  # noqa: E402
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
@@ -24,7 +24,7 @@ t0 = time.time()
 kernels.build_kernels()
 print(f"kernels built in {time.time() - t0:.1f} s {kernels.build_seconds}", flush=True)
 _, card = cs.phase_device(torch)
-wrappers = {n: getattr(attention if n.startswith("flash_attention") else quant, n) for n in kernels.KERNELS}
+wrappers = kernels.wrappers()
 t0 = time.time()
 cs.phase_serve(torch, wrappers, card)
 print(f"main[serve] phase {time.time() - t0:.1f} s", flush=True)

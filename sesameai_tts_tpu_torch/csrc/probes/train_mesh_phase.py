@@ -24,7 +24,7 @@ import torch  # noqa: E402
 
 import chip_smoke as cs  # noqa: E402
 from sesameai_tts_tpu_torch.core.config import csm_1b  # noqa: E402
-from sesameai_tts_tpu_torch.ops import attention, kernels, quant  # noqa: E402
+from sesameai_tts_tpu_torch.ops import kernels  # noqa: E402
 
 if __name__ == "__main__":
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -38,8 +38,7 @@ if __name__ == "__main__":
         rows = cs.phase_flash_attention_bwd(torch, attention, peak_bw, peak_flops,
                                             next(f for key, f in cs._F32_FLOPS if key in name))
         print(f"flash_attention_bwd phase {time.time() - t0:.1f} s", flush=True)
-    wrappers = {n: getattr(attention if n.startswith("flash_attention") else quant, n)
-                for n in kernels.KERNELS}
+    wrappers = kernels.wrappers()
     t0 = time.time()
     result = cs.phase_train_mesh(torch, wrappers, card)
     print(f"main[train_mesh] phase {time.time() - t0:.1f} s", flush=True)

@@ -22,7 +22,7 @@ import torch  # noqa: E402
 
 import chip_smoke as cs  # noqa: E402
 from sesameai_tts_tpu_torch.core.config import csm_1b  # noqa: E402
-from sesameai_tts_tpu_torch.ops import attention, kernels, quant  # noqa: E402
+from sesameai_tts_tpu_torch.ops import kernels  # noqa: E402
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
@@ -34,8 +34,7 @@ rows = cs.phase_flash_attention_bwd(torch, attention, peak_bw, peak_flops,
                                     next(f for key, f in cs._F32_FLOPS if key in name))
 print(f"flash_attention_bwd phase {time.time() - t0:.1f} s", flush=True)
 if "--no-train" not in sys.argv:
-    wrappers = {n: getattr(attention if n.startswith("flash_attention") else quant, n)
-                for n in kernels.KERNELS}
+    wrappers = kernels.wrappers()
     t0 = time.time()
     result = cs.phase_train(torch, wrappers, card)
     print(f"main[train] phase {time.time() - t0:.1f} s", flush=True)

@@ -5,7 +5,8 @@ name (and, for a kernel with a second route, a second entry point).  ``build_ker
 the checkout's git-ignored ``build/torch_kernels/`` (one ``nvcc`` per
 source, all started together) and loads it with ``ctypes``; ``launch``
 calls an entry point and raises on a non-zero CUDA error; ``count_launch``
-adds to a wrapper's ``launches`` count, safely across threads.  Nothing
+adds to a wrapper's ``launches`` count, safely across threads, and
+``wrappers`` maps each kernel to its wrapper.  Nothing
 here runs when the module is imported, so importing it needs neither
 ``nvcc`` nor a card.
 """
@@ -26,8 +27,8 @@ import torch
 _CSRC = Path(__file__).resolve().parents[1] / "csrc"
 _BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
-# C entry point → its argument types (pointers, ints, stream)
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# C entry point → its argument types (pointers, ints, floats, stream)
 _SIGNATURES = {
     "quant_matmul": [_P] * 4 + [_I] * 8 + [_P],
     "quant_matmul_mma": [_P] * 4 + [_I] * 10 + [_P],
@@ -37,12 +38,16 @@ _SIGNATURES = {
     "quant_mlp_mma": [_P] * 9 + [_I] * 13 + [_P],
     "flash_attention": [_P] * 6 + [_I] * 15 + [_P],
     "flash_attention_bwd": [_P] * 12 + [_I] * 21 + [_P],
+    "topk_sample": [_P] * 5 + [_I] * 4 + [_F, _I, _P],
 }
 # entry points that live in another kernel's source (a second route)
 _SOURCE_OF = {"quant_matmul_mma": "quant_matmul", "quant4_matmul_mma": "quant4_matmul",
               "quant_mlp_mma": "quant_mlp"}
 # the kernels: one source and one wrapper each
 KERNELS = tuple(name for name in _SIGNATURES if name not in _SOURCE_OF)
+# the ops module (ops/<module>.py) of each kernel's wrapper, if not quant
+_MODULE_OF = {"flash_attention": "attention", "flash_attention_bwd": "attention",
+              "topk_sample": "sampling"}
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _lib_lock = threading.Lock()
@@ -105,6 +110,14 @@ def build_kernels(force: bool = False) -> Dict[str, ctypes.CDLL]:
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
         return _libs
+
+
+def wrappers() -> Dict[str, Callable]:
+    """{kernel name: its wrapper}, whose ``launches`` count its launches."""
+    import importlib
+
+    return {name: getattr(importlib.import_module(
+        f"sesameai_tts_tpu_torch.ops.{_MODULE_OF.get(name, 'quant')}"), name) for name in KERNELS}
 
 
 def launch(entry: str, *args) -> None:

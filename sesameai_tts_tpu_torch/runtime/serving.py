@@ -76,6 +76,7 @@ import torch
 import torch.distributed as dist
 
 from sesameai_tts_tpu_torch.models import csm as csm_model
+from sesameai_tts_tpu_torch.ops import sampling
 from sesameai_tts_tpu_torch.runtime.generator import FRAME_MS, Generator
 from sesameai_tts_tpu_torch.utils.profiling import DeviceClock, Metrics, Span, Stamp
 
@@ -561,7 +562,9 @@ class BatchedTTSServer:
         return out  # type: ignore[return-value]
 
     def metrics_summary(self) -> dict:
-        """TTFA percentiles, frame and session counters, occupancy: the
+        """TTFA percentiles, frame and session counters, occupancy, and the
+        process's sampler launches (the ``topk_sample`` kernel's: 32 a
+        sampled frame-step; the plain path's calls on the card: none): the
         /metrics HTTP surface."""
         occupied = sum(1 for s in self._sessions if s is not None)
         return {
@@ -571,6 +574,8 @@ class BatchedTTSServer:
             "slots_occupied": occupied,
             "uptime_s": round(time.perf_counter() - self._started_at, 3),
             "series": self.metrics.summary(),
+            "sampler_launches": {"topk_sample": sampling.topk_sample.launches,
+                                 "sample_topk_plain": sampling.sample_topk_plain.launches},
         }
 
     def start(self):

@@ -22,7 +22,8 @@
     GET  /healthz       → {"status": "ok", "slots": B}; ``?deep=1`` adds the
                           tick canary (``BatchedTTSServer.link_canary``)
     GET  /metrics       → engine metrics JSON (TTFA/session percentiles,
-                          frame + session counters, slot occupancy)
+                          frame + session counters, slot occupancy, the
+                          sampler kernel's launches)
 
 Concurrency rides the BatchedTTSServer slot pool: N in-flight requests
 decode in the same batched step. Voices resolve through the registry

@@ -16,8 +16,9 @@ from sesameai_tts_tpu_torch.ops import quant as tq
 
 def test_bindings_match_the_c_entry_points():
     """Every C entry point in csrc/ is bound with its own argument list: a
-    pointer for each pointer parameter, an int for each int (ctypes would
-    otherwise pass a shifted or truncated argument without complaint)."""
+    pointer for each pointer parameter, a float for each float, an int for
+    each int (ctypes would otherwise pass a shifted or truncated argument
+    without complaint)."""
     import ctypes
     import re
     from pathlib import Path
@@ -27,7 +28,8 @@ def test_bindings_match_the_c_entry_points():
     found = {}
     for src in (Path(kernels.__file__).parents[1] / "csrc").glob("*.cu"):
         for name, params in re.findall(r'extern "C" int (\w+)\(([^)]*)\)', src.read_text()):
-            found[name] = [ctypes.c_void_p if "*" in p else ctypes.c_int
+            found[name] = [ctypes.c_void_p if "*" in p else
+                           ctypes.c_float if p.split()[0] == "float" else ctypes.c_int
                            for p in params.split(",")]
             assert kernels._SOURCE_OF.get(name, name) == src.stem
     assert found == kernels._SIGNATURES

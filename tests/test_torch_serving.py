@@ -31,6 +31,7 @@ from sesameai_tts_tpu.runtime.serving import BatchedTTSServer as JServer
 from sesameai_tts_tpu_torch.codec.mimi import Mimi, mimi_test_tiny
 from sesameai_tts_tpu_torch.convert import from_jax_params
 from sesameai_tts_tpu_torch.core.config import csm_test_tiny
+from sesameai_tts_tpu_torch.ops import sampling
 from sesameai_tts_tpu_torch.runtime.frames import Segment
 from sesameai_tts_tpu_torch.runtime.generator import Generator
 from sesameai_tts_tpu_torch.runtime.serving import BatchedTTSServer, ServerSaturated
@@ -382,6 +383,17 @@ def test_one_frame_session_completes_at_admission(server):
     assert s.finished_at is not None and s.finished_at >= s.submitted_at
     m = server.metrics_summary()
     assert m["series"]["session_s"]["count"] >= 1 and m["sessions_total"] >= 1
+
+
+def test_metrics_summary_counts_the_sampler_launches(server):
+    """/metrics' sampler counts are the process's: on the CPU a sampled
+    session runs the plain path, so neither count moves."""
+    before = server.metrics_summary()["sampler_launches"]
+    assert before == {"topk_sample": sampling.topk_sample.launches,
+                      "sample_topk_plain": sampling.sample_topk_plain.launches}
+    s = server.submit("sampled", max_audio_length_ms=400, temperature=0.8, topk=5)
+    assert s.audio(timeout=WAIT).shape[0] > 0
+    assert server.metrics_summary()["sampler_launches"] == before
 
 
 def test_blocked_dispatch_does_not_delay_completion(server):
