@@ -36,7 +36,7 @@ import numpy as np
 import torch
 
 from benchmark.harness import texts, weights
-from benchmark.reference import csm as ref_csm
+from benchmark.reference import logits as ref_logits
 from benchmark.reference import mimi as ref_mimi
 
 LOWER_BITS = {"int8": 4, "int4": 3, None: 8}
@@ -59,10 +59,11 @@ def _prompt(config, voices, r, device):
     return torch.from_numpy(tok).to(device), torch.from_numpy(mask).to(device)
 
 
-def compare(config: dict, seed: int, device, voices, finished: list, rng: np.random.Generator,
-            control: bool = False) -> dict:
-    """The readings of the served requests ``finished`` → a dict of
-    numbers (and the controls' with ``control``)."""
+def compare(family, config: dict, seed: int, device, voices, finished: list,
+            rng: np.random.Generator, control: bool = False) -> dict:
+    """The readings of the served requests ``finished``, against the
+    reference of the model ``family`` → a dict of numbers (and the
+    controls' with ``control``)."""
     t0 = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -75,9 +76,9 @@ def compare(config: dict, seed: int, device, voices, finished: list, rng: np.ran
 
     sampled = _sample([r for r in finished if not r.greedy], SAMPLED_REQUESTS, frames_of, rng)
     with torch.no_grad():
-        params = weights.draw_csm(config, seed, device)
-        model = ref_csm.CSM(params, config)
-        lower = ref_csm.CSM(params, config, bits=LOWER_BITS[config.get("quantize")]) \
+        params = family.draw(config, seed, device)
+        model = family.reference(params, config)
+        lower = family.reference(params, config, bits=LOWER_BITS[config.get("quantize")]) \
             if control else None
         gaps, ctrl = [], []
         for r in finished:
@@ -88,26 +89,26 @@ def compare(config: dict, seed: int, device, voices, finished: list, rng: np.ran
                 continue
             prompt = _prompt(config, voices, r, device)
             logits = model.frame_logits(prompt, frames)
-            gaps.append(ref_csm.greedy_gaps(logits, frames))
+            gaps.append(ref_logits.greedy_gaps(logits, frames))
             out["compared_tokens"] += frames.numel()
             out["compared_requests"] += 1
             if lower is not None:
-                ctrl.append(ref_csm.argmax_gaps(logits, lower.frame_logits(prompt, frames)))
+                ctrl.append(ref_logits.argmax_gaps(logits, lower.frame_logits(prompt, frames)))
             del logits
-        out["logit_gap"] = ref_csm.widest(gaps)
+        out["logit_gap"] = ref_logits.widest(gaps)
         if lower is not None:
-            out["control_logit_gap"] = ref_csm.widest(ctrl)
+            out["control_logit_gap"] = ref_logits.widest(ctrl)
         beyond = []
         for r in sampled:
             frames = torch.from_numpy(r.frames(K)).to(device)
             if frames.shape[0] == 0:
                 continue
             logits = model.frame_logits(_prompt(config, voices, r, device), frames)
-            beyond.append(ref_csm.topk_gaps(logits, frames, r.topk))
+            beyond.append(ref_logits.topk_gaps(logits, frames, r.topk))
             out["sampled_tokens"] += frames.numel()
             out["sampled_requests"] += 1
             del logits
-        out["topk_gap"] = ref_csm.widest(beyond) if beyond else 0.0
+        out["topk_gap"] = ref_logits.widest(beyond) if beyond else 0.0
         del model, lower, params
 
         mparams = weights.draw_mimi(config, seed, device)

@@ -1,7 +1,8 @@
 """The per-layer readings that the metric readers share: the kernels'
 roofline shares from the profiled sub-window of the window and the
 card's idle share from its utilization counter (``harness/trace.py``),
-and the window's model operations.
+and the window's model operations.  The bytes and operations come from
+the cell's model family (``families/<model_type>.py``).
 
 The work a roofline is held to comes from what the sub-window served,
 not from the kernels that did it: each tick's frame-steps at B = slots
@@ -15,8 +16,9 @@ from __future__ import annotations
 
 from typing import Optional
 
-from benchmark.harness import texts, work
+from benchmark.harness import texts
 from benchmark.harness.peaks import peak_of
+from benchmark.harness.work import bound_s
 
 
 def _kernel_share(run, pattern: str, need_s: float) -> Optional[float]:
@@ -34,9 +36,9 @@ def quant_roofline(run, pattern: str, bits: int) -> Optional[float]:
     peak = peak_of(run.device_name or "")
     if run.trace is None or peak is None:
         return None
-    cfg = run.config
+    cfg, family = run.config, run.cell.family
     groups = cfg.get("int4_scale_groups", 2) if bits == 4 else 1
-    per_step = sum(work.bound_s(*work.quant_work(cfg, run.slots, bits, groups, part), peak)
+    per_step = sum(bound_s(*family.quant_work(cfg, run.slots, bits, groups, part), peak)
                    for part in ("backbone", "decoder"))
     steps = sum(t.frames for t in run.trace.ticks())
     return _kernel_share(run, pattern, steps * per_step)
@@ -58,21 +60,20 @@ def attention_roofline(run, pattern: str) -> Optional[float]:
     peak = peak_of(run.device_name or "")
     if run.trace is None or peak is None:
         return None
-    cfg = run.config
+    cfg, family = run.config, run.cell.family
     prompts = _prompts(run)
     need = 0.0
     for t in run.trace.ticks():
         keys = [prompts[sid] + sent + j + 1 for sid, sent in t.live if sid in prompts
                 for j in range(t.frames)]
         for part in ("backbone", "decoder"):
-            need += work.bound_s(*work.attention_work(cfg, keys, part), peak)
+            need += bound_s(*family.attention_work(cfg, keys, part), peak)
     by_speaker = {v.speaker: v for v in run.voices}
     for p in run.trace.prefills():
         text, speaker = p.text
         voice = by_speaker[speaker]
         rows = texts.text_rows(cfg, voice, text)
-        need += work.bound_s(*work.prefill_attention_work(cfg, rows, voice.tokens.shape[0]),
-                             peak)
+        need += bound_s(*family.prefill_attention_work(cfg, rows, voice.tokens.shape[0]), peak)
     return _kernel_share(run, pattern, need)
 
 
@@ -91,7 +92,7 @@ def mfu(run) -> Optional[float]:
     peak = peak_of(run.device_name or "")
     if peak is None:
         return None
-    cfg = run.config
+    cfg, family = run.config, run.cell.family
     flops = 0.0
     for r in run.requests:
         voice = run.voices[r.voice]
@@ -102,7 +103,7 @@ def mfu(run) -> Optional[float]:
             frames = n // run.hop
             if run.t0 <= t < run.t1:
                 for j in range(done, done + frames):
-                    flops += (work.prefill_flops(cfg, rows, ctx) if j == 0
-                              else work.frame_flops(cfg, ctx + rows + j))
+                    flops += (family.prefill_flops(cfg, rows, ctx) if j == 0
+                              else family.frame_flops(cfg, ctx + rows + j))
             done += frames
     return 100.0 * flops / (run.seconds * peak.bf16_flops)

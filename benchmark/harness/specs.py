@@ -1,13 +1,20 @@
 """The benchmark's data files, found by name.
 
 A cell is an entry of ``BENCHMARK.json``'s ``workloads``: a configuration
-(``configs/<config>.json``), a traffic mix (``traffic/<traffic>.json``,
+(``configs/<config>.json``, whose ``model_type`` names its model family
+``families/<model_type>.py``), a traffic mix (``traffic/<traffic>.json``,
 whose ``loop`` names its generator ``traffic/<loop>.py``) and the cell's
 own settings (``workloads/<cell>.json``: the pool and the limits of the
 comparison).  A metric is an entry of
 ``end_to_end`` or ``per_layer``; its reader is ``metrics/<name>.py``, or
 ``metrics/<base>.py`` for a name ``<base>.<suffix>``.  Adding a cell, a
-configuration, a mix, a loop or a metric adds files and edits none.
+configuration, a model family, a mix, a loop or a metric adds files and
+edits none.
+
+A model family is everything model-shaped that the harness needs: the
+weights (``draw``), the port's configurations (``port``), the program's
+quantization (``quantize``), the plain reference (``reference``) and the
+per-layer readers' work counts (README, "A model family").
 """
 
 from __future__ import annotations
@@ -16,6 +23,7 @@ import importlib.util
 import json
 from dataclasses import dataclass
 from pathlib import Path
+from types import ModuleType
 from typing import List, Optional
 
 BENCH_DIR = Path(__file__).resolve().parents[1]
@@ -55,11 +63,20 @@ class Cell:
     end_to_end: List[Metric]
     per_layer: List[Metric]
     bench_dir: Path
+    family: ModuleType
 
     def loop(self):
         """The traffic mix's generator module (``traffic/<loop>.py``)."""
         loop = self.traffic["loop"]
         return load_module(self.bench_dir / "traffic" / f"{loop}.py", f"loop_{loop}")
+
+
+def family(bench_dir: Path, model_type: Optional[str]) -> ModuleType:
+    """The model family ``families/<model_type>.py`` under ``bench_dir``."""
+    path = bench_dir / "families" / f"{model_type}.py"
+    if model_type is None or not path.exists():
+        raise SystemExit(f"no model family for model_type {model_type!r}: {path} is missing")
+    return load_module(path, f"family_{model_type}")
 
 
 def _applies(entry: dict, cell: str) -> bool:
@@ -78,10 +95,11 @@ def load_cell(name: str, bench_dir: Path = BENCH_DIR,
     metrics = {}
     for kind in ("end_to_end", "per_layer"):
         metrics[kind] = [Metric(m["name"], m["unit"]) for m in bench[kind] if _applies(m, name)]
+    config = load_json(bench_dir / "configs" / f"{w['config']}.json")
     return Cell(
         name=name,
         config_name=w["config"],
-        config=load_json(bench_dir / "configs" / f"{w['config']}.json"),
+        config=config,
         traffic_name=w["traffic"],
         traffic=load_json(bench_dir / "traffic" / f"{w['traffic']}.json"),
         settings=load_json(settings_path),
@@ -89,6 +107,7 @@ def load_cell(name: str, bench_dir: Path = BENCH_DIR,
         end_to_end=metrics["end_to_end"],
         per_layer=metrics["per_layer"],
         bench_dir=bench_dir,
+        family=family(bench_dir, config.get("model_type")),
     )
 
 

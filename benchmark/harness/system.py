@@ -2,7 +2,10 @@
 the benchmark drew, its ``BatchedTTSServer``, the cached voices, and the
 warm-up of every shape the cell's traffic will use.
 
-This is the one module that imports the port (``sesameai_tts_tpu_torch``).
+This module and the model families (``families/<model_type>.py``) are
+the ones that import the port (``sesameai_tts_tpu_torch``): the
+configurations, weights and quantization of the model come from the
+cell's family.
 """
 
 from __future__ import annotations
@@ -26,13 +29,24 @@ def _transformer_config(t: dict, dtype):
                              norm_eps=t["norm_eps"], rope=RoPEConfig(**t["rope"]), dtype=dtype)
 
 
-def port_configs(config: dict, name: str):
-    """The port's (CSMConfig, MimiConfig) holding the file's numbers: the
-    trunks are registered as flavors named after the configuration."""
+def mimi_config(m: dict):
+    """The port's MimiConfig holding the numbers of a configuration's
+    ``mimi`` group (every family's codec)."""
     from sesameai_tts_tpu_torch.codec.mimi import MimiConfig
     from sesameai_tts_tpu_torch.codec.rvq import RVQConfig
     from sesameai_tts_tpu_torch.codec.seanet import SEANetConfig
     from sesameai_tts_tpu_torch.codec.transformer import CodecTransformerConfig
+
+    seanet = dict(m["seanet"], ratios=tuple(m["seanet"]["ratios"]))
+    return MimiConfig(sample_rate=m["sample_rate"], frame_rate=m["frame_rate"],
+                      num_codebooks=m["num_codebooks"], seanet=SEANetConfig(**seanet),
+                      transformer=CodecTransformerConfig(**m["transformer"]),
+                      rvq=RVQConfig(**m["rvq"]), downsample_stride=m["downsample_stride"])
+
+
+def port_configs(config: dict, name: str):
+    """The port's (CSMConfig, MimiConfig) holding the file's numbers: the
+    trunks are registered as flavors named after the configuration."""
     from sesameai_tts_tpu_torch.core.config import CSMConfig, register_flavor
 
     dtype = weights.dtype_of(config["dtype"])
@@ -43,23 +57,16 @@ def port_configs(config: dict, name: str):
                     text_vocab_size=config["text_vocab_size"],
                     audio_vocab_size=config["audio_vocab_size"],
                     audio_num_codebooks=config["audio_num_codebooks"])
-    m = config["mimi"]
-    seanet = dict(m["seanet"], ratios=tuple(m["seanet"]["ratios"]))
-    mimi = MimiConfig(sample_rate=m["sample_rate"], frame_rate=m["frame_rate"],
-                      num_codebooks=m["num_codebooks"], seanet=SEANetConfig(**seanet),
-                      transformer=CodecTransformerConfig(**m["transformer"]),
-                      rvq=RVQConfig(**m["rvq"]), downsample_stride=m["downsample_stride"])
-    return csm, mimi
+    return csm, mimi_config(config["mimi"])
 
 
-def build(config: dict, name: str, seed: int, device, slots: int, chunk_frames: int,
+def build(family, config: dict, name: str, seed: int, device, slots: int, chunk_frames: int,
           quantize: Optional[str] = "config", phase=lambda what: None):
-    """The Generator over the weights drawn from ``seed`` (quantized by the
-    program as the configuration states, or as ``quantize`` overrides) and
-    its pool → the server (not started).  ``phase(name)`` is called as
-    each step ends."""
+    """The Generator over the weights that the model ``family`` draws from
+    ``seed`` (quantized by the program as the configuration states, or as
+    ``quantize`` overrides) and its pool → the server (not started).
+    ``phase(name)`` is called as each step ends."""
     from sesameai_tts_tpu_torch.codec.mimi import Mimi
-    from sesameai_tts_tpu_torch.ops.quant import quantize_csm
     from sesameai_tts_tpu_torch.runtime.generator import Generator
     from sesameai_tts_tpu_torch.runtime.serving import BatchedTTSServer
     from sesameai_tts_tpu_torch.tokenizer.text import load_text_tokenizer
@@ -68,17 +75,17 @@ def build(config: dict, name: str, seed: int, device, slots: int, chunk_frames: 
     torch.zeros(1, device=device)
     _sync(device)
     phase("device context")
-    csm_cfg, mimi_cfg = port_configs(config, name)
+    model_cfg, mimi_cfg = family.port(config, name)
     q = config.get("quantize") if quantize == "config" else quantize
-    params = weights.draw_csm(config, seed, device)
+    params = family.draw(config, seed, device)
     mimi_params = weights.draw_mimi(config, seed, device)
     _sync(device)
     phase("weights drawn")
     if q is not None:
-        params = quantize_csm(params, bits={"int8": 8, "int4": 4}[q])
+        params = family.quantize(params, {"int8": 8, "int4": 4}[q])
         _sync(device)
     phase("weights quantized")
-    gen = Generator(params, csm_cfg, Mimi(mimi_cfg), mimi_params,
+    gen = Generator(params, model_cfg, Mimi(mimi_cfg), mimi_params,
                     load_text_tokenizer(config["tokenizer"]), device=device,
                     seed=weights.sub_seeds(seed, 3)[2], fused_mlp=config.get("fused_mlp", False))
     _sync(device)

@@ -138,7 +138,7 @@ def run_cell(cell, seed: int, seconds: float, traced: bool, device="cuda",
         phase("CUPTI started")
     rng_traffic = np.random.default_rng(weights.sub_seeds(seed, 4)[3])
     mix = cell.traffic
-    srv = system.build(cell.config, cell.config_name, seed, device, s["slots"],
+    srv = system.build(cell.family, cell.config, cell.config_name, seed, device, s["slots"],
                        s["chunk_frames"], quantize, phase)
     run.voices = texts.make_voices(cell.config, mix["voices"], tuple(mix["voice_rows"]),
                                    rng_traffic)
@@ -235,8 +235,8 @@ def run_cell(cell, seed: int, seconds: float, traced: bool, device="cuda",
             if waits else None}
     lines.append(f"traffic {json.dumps(seen)}")
     rng_check = np.random.default_rng(weights.sub_seeds(seed, 5)[4])
-    readings = check.compare(cell.config, seed, device, run.voices, finished, rng_check,
-                             control=control)
+    readings = check.compare(cell.family, cell.config, seed, device, run.voices, finished,
+                             rng_check, control=control)
     lines.append(f"reference {json.dumps(readings)}")
     phase("compared with the reference")
     limits, least = s["correct"], int(s["correct"]["min_tokens"])

@@ -17,11 +17,11 @@ TINY = BENCH / "tests" / "tiny"
 
 @pytest.fixture
 def tiny_bench(tmp_path):
-    """A benchmark folder of the tiny CPU cells: the real loops, readers
-    and word list, and the tiny configuration, mixes and cells beside
-    them → (folder, its BENCHMARK.json)."""
+    """A benchmark folder of the tiny CPU cells: the real model families,
+    loops, readers and word list, and the tiny configuration, mixes and
+    cells beside them → (folder, its BENCHMARK.json)."""
     bench = tmp_path / "benchmark"
-    for d in ("traffic", "metrics"):
+    for d in ("families", "traffic", "metrics"):
         shutil.copytree(BENCH / d, bench / d)
     for d in ("configs", "traffic", "workloads"):
         (bench / d).mkdir(exist_ok=True)

@@ -10,6 +10,7 @@ import torch
 from benchmark import run as bench_run
 from benchmark.harness import specs, system, texts, weights
 from benchmark.reference import csm as ref_csm
+from benchmark.reference import logits as ref_logits
 from benchmark.reference import mimi as ref_mimi
 from conftest import TINY
 
@@ -169,5 +170,5 @@ def test_sampling_past_the_top_k_is_not_correct(chat_cell):
 def test_topk_gaps_are_zero_inside_the_top_k():
     logits = torch.tensor([[[5.0, 4.0, 3.0, 1.0, 0.5]]])
     served = torch.tensor([[[0, 2, 3, 4]]]).reshape(4, 1)
-    gaps = ref_csm.topk_gaps(logits.expand(4, 1, 5), served, 3)
+    gaps = ref_logits.topk_gaps(logits.expand(4, 1, 5), served, 3)
     assert gaps.flatten().tolist() == [0.0, 0.0, 2.0, 2.5]
