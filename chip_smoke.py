@@ -69,6 +69,14 @@ Phases, each of which fails the run if it fails:
    equal to the offline decode of their frames, the HTTP API with the
    streaming watermark and a burst answered 429, the pool's graphed tick
    bit-equal to the eager step, no graph captured after ``start()``).
+   Then ``main[hybrid]`` (``phase_hybrid``): LFM2-8B-A1B as CSM's backbone
+   (int8, weights drawn on the card): ``expert_swiglu`` against
+   ``expert_swiglu_plain`` at the published expert shape with the model's
+   own routing at 1, 16 and 64 rows, eagerly and from a graph replay,
+   timed beside its plain version and the card's bound; then a 16-slot
+   pool's graphed tick bit-equal to the eager step, sampled and greedy,
+   with exact launches (``expert_swiglu`` 66 a frame-step: 3 in each of
+   22 routed layers) and the experts-hit counters read from the card.
    Then ``main[smoke]`` (``phase_smoke``): the silentcipher network at the
    real grid (44.1 kHz, n_fft 2048, hop 512, 5 × 256, hidden 32) on a 12.6 s
    clip, encode and phase-shift decode on the card against the CPU and the
@@ -205,11 +213,12 @@ GRAPH_STEP_PROFILED_FRAMES = 4
 # the main paths: ModelSpec fields, kernel launches per decoded frame, and
 # whether the voice-context request runs
 _PATHS = (
-    ("int8", {}, {"quant_matmul": 576, "quant4_matmul": 0, "quant_mlp": 0}, True),
-    ("int4", {"quantize": "int4"}, {"quant_matmul": 0, "quant4_matmul": 576, "quant_mlp": 0},
-     False),
-    ("fused", {"fused_mlp": True}, {"quant_matmul": 288, "quant4_matmul": 0, "quant_mlp": 144},
-     False),
+    ("int8", {}, {"quant_matmul": 576, "quant4_matmul": 0, "quant_mlp": 0, "expert_swiglu": 0},
+     True),
+    ("int4", {"quantize": "int4"}, {"quant_matmul": 0, "quant4_matmul": 576, "quant_mlp": 0,
+                                    "expert_swiglu": 0}, False),
+    ("fused", {"fused_mlp": True}, {"quant_matmul": 288, "quant4_matmul": 0, "quant_mlp": 144,
+                                    "expert_swiglu": 0}, False),
 )
 
 # flash_attention phase: (label, B, H, KV, hd, T, S, pos0 per row, valid_len
@@ -331,6 +340,17 @@ SERVE_CANCEL, SERVE_LONG_PROMPT, SERVE_ROOM = 5, 11, 9
 SERVE_STREAM_MS = 8000  # the streamed HTTP responses (>= 4 s verify)
 SERVE_BURST = 64  # /tts requests at once against max_pending=32 with every slot busy
 SERVE_TICK_REPS = 3  # graphed ticks from one state, the fastest kept (the pools' tick ms)
+
+# main[hybrid]: LFM2-8B-A1B as CSM's backbone, int8.  The expert kernel at
+# these rows (one stream, the benchmark's 16-slot pool, the kernel's most);
+# a pool of HYBRID_SLOTS, one admission a slot; per frame-step the launches
+# of 18 conv (in_proj, out_proj), 6 attention (qkv, o_proj) and 2 dense
+# FFN (w13, w2) layers, 22 routed layers (up, down, sum) and CSM-1B's
+# 32 decoder passes
+HYBRID_ROWS = (1, 16, 64)
+HYBRID_SLOTS = 16
+HYBRID_PER_FRAME = {"quant_matmul": 36 + 12 + 4 + 512, "quant4_matmul": 0, "quant_mlp": 0,
+                    "flash_attention": 6 + 128, "flash_attention_bwd": 0, "expert_swiglu": 66}
 
 # main[smoke]: the silentcipher network at the real grid (SilentCipherConfig(),
 # the fixture's hidden 32) on a SMOKE_CLIP_S clip made at 24 kHz and resampled
@@ -532,12 +552,14 @@ def _replayed(torch, fn):
 
 def _measure(torch, label: str, row: dict, got, want, kernel, plain, library, copies: int,
              nbytes: float, flops: float, peak_bw: float, peak_flops: float,
-             atol: float = None) -> dict:
+             atol: float = None, plain_eager: bool = False) -> dict:
     """Check got (and the output of a CUDA-graph replay of the same call)
     against want within the stated tolerance (``atol`` replaces the default
     absolute term), check that a second call and the replay give got's
-    bits, time the kernel, its plain version and the library yardstick
-    (None: not timed), and add the bound.  kernel(0) is got's call."""
+    bits, time the kernel, its plain version (issued from Python with
+    ``plain_eager``: a plain version that syncs cannot be captured) and
+    the library yardstick (None: not timed), and add the bound.  kernel(0)
+    is got's call."""
     again = kernel(0)
     replayed = _replayed(torch, kernel)
     torch.cuda.synchronize()
@@ -555,7 +577,7 @@ def _measure(torch, label: str, row: dict, got, want, kernel, plain, library, co
         "peak_abs": peak, "atol": atol, "ok": ok, "bit_equal_repeat_and_replay": deterministic,
         "kernel_ms": _device_ms(torch, kernel, reps),
         "kernel_eager_ms": _eager_ms(torch, kernel, reps),
-        "plain_ms": _device_ms(torch, plain, min(reps, 8)),
+        "plain_ms": (_eager_ms if plain_eager else _device_ms)(torch, plain, min(reps, 8)),
         "library_ms": None if library is None else _device_ms(torch, library, reps),
         "bound_ms": max(t_bytes, t_ops) * 1e3,
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
@@ -1945,6 +1967,132 @@ def _fused_pool(torch, wrappers, gen, texts, unfused_tick_ms: float) -> dict:
     return out
 
 
+def _expert_rows(torch, moe, peak_bw, peak_flops, layers, cfg) -> list:
+    """expert_swiglu against expert_swiglu_plain on two routed layers'
+    int8 experts (352 MB each, past the L2), at each of ``HYBRID_ROWS``
+    with the first layer's own routing of random rows; the plain version
+    (a host sync an expert) timed as issued from Python."""
+    gen = torch.Generator(device="cuda").manual_seed(24)
+    D, Fe, E, k = cfg.embed_dim, cfg.moe_intermediate_dim, cfg.num_experts, \
+        cfg.num_experts_per_tok
+    ops = [(wl["experts_w13"]["q"], wl["experts_w13"]["scale"], wl["experts_w2"]["q"],
+            wl["experts_w2"]["scale"]) for wl in layers]
+    expert_bytes = 3 * D * Fe + 4 * (2 * Fe + D)
+    rows = []
+    for N in HYBRID_ROWS:
+        x = torch.randn((N, D), generator=gen, device="cuda").to(torch.bfloat16)
+        ids, w = moe.route(x, layers[0]["router"], layers[0]["expert_bias"], k,
+                           cfg.norm_topk_prob, cfg.routed_scaling_factor)
+        w = w.contiguous()
+        hit = int(torch.unique(ids).numel())
+        stats = torch.zeros(2, dtype=torch.int32, device="cuda")
+        got = moe.expert_swiglu(x, ids, w, *ops[0], stats=stats)
+        counts = torch.bincount(ids.reshape(-1), minlength=E)
+        _check(stats.tolist() == [hit, int(counts.max())],
+               f"expert_swiglu at {N} rows counted {stats.tolist()}, want "
+               f"{[hit, int(counts.max())]}")
+        rows.append(_measure(
+            torch, "expert_swiglu",
+            {"shape": f"{E} experts {D}x{Fe}, top {k}", "S": N, "experts_hit": hit,
+             "expert_rows_max": int(counts.max())},
+            got, moe.expert_swiglu_plain(x, ids, w, *ops[0]),
+            lambda i: moe.expert_swiglu(x, ids, w, *ops[i % len(ops)]),
+            lambda i: moe.expert_swiglu_plain(x, ids, w, *ops[i % len(ops)]), None,
+            len(ops), hit * expert_bytes + N * (4 * D + 12 * k), 2.0 * N * k * 3 * D * Fe,
+            peak_bw, peak_flops, plain_eager=True))
+    return rows
+
+
+def phase_hybrid(torch, wrappers, peak_bw, peak_flops, card: str) -> dict:
+    """LFM2-8B-A1B as CSM's backbone, int8 (module docstring): the model
+    drawn on the card from seed 0 (the loader's spec, ``init_csm_params``
+    on a CUDA generator, ``quantize_csm``), the expert kernel on its
+    layers (``_expert_rows``), then a 16-slot ``BatchedTTSServer``:
+    16 admissions, the pool's tick on the graphs against the eager step,
+    sampled and greedy, with exact launches (``HYBRID_PER_FRAME``), and
+    one graphed tick whose experts-hit counters are read from the card."""
+    import numpy as np
+
+    from sesameai_tts_tpu_torch.codec.mimi import Mimi
+    from sesameai_tts_tpu_torch.convert import to_device, tree_map
+    from sesameai_tts_tpu_torch.models.csm import init_csm_params
+    from sesameai_tts_tpu_torch.ops import moe
+    from sesameai_tts_tpu_torch.ops.quant import quantize_csm
+    from sesameai_tts_tpu_torch.runtime.generator import Generator
+    from sesameai_tts_tpu_torch.runtime.loader import csm_lfm2_8b_a1b_spec, init_mimi
+    from sesameai_tts_tpu_torch.runtime.serving import BatchedTTSServer, Session, _on
+    from sesameai_tts_tpu_torch.tokenizer.text import load_text_tokenizer
+
+    spec = csm_lfm2_8b_a1b_spec()
+    cfg = spec.csm
+    t0 = time.perf_counter()
+    params = init_csm_params(cfg, torch.Generator(device="cuda").manual_seed(spec.seed),
+                             torch.bfloat16)
+    params = quantize_csm(params, bits=8)
+    mimi_params = to_device(init_mimi(spec)[1], "cuda")
+    gen = Generator(params, cfg, Mimi(spec.mimi), mimi_params,
+                    load_text_tokenizer(spec.tokenizer), device="cuda")
+    torch.cuda.synchronize()
+    out = {"card": card, "built_s": time.perf_counter() - t0,
+           "built_gb": torch.cuda.memory_allocated() / 1e9}
+    bb = cfg.backbone
+    routed = [wl for i, wl in enumerate(params["backbone"]["layers"])
+              if i >= bb.num_dense_layers]
+    _check(len(routed) * 3 == HYBRID_PER_FRAME["expert_swiglu"],
+           f"hybrid: {len(routed)} routed layers")
+    out["kernel"] = _expert_rows(torch, moe, peak_bw, peak_flops, routed[:2], bb)
+    del params, routed
+
+    srv = BatchedTTSServer(gen, slots=HYBRID_SLOTS, chunk_frames=SERVE_CHUNK)
+    t0 = time.perf_counter()
+    srv.warmup()
+    out["warmup_s"] = time.perf_counter() - t0
+    for slot in range(srv.B):
+        session = Session(text=f"Slot {slot} of the routed pool reads a longer paragraph aloud.",
+                          speaker=0, max_audio_length_ms=6000, temperature=0.8, topk=40)
+        item = srv._dispatch_admission(session)
+        _check(item is not None, f"hybrid: admission failed: {session.error}")
+        item.fetch.wait()
+        with _on(srv._ticker):
+            srv._attach(slot, item)
+    torch.cuda.synchronize()
+    ms0 = tree_map(lambda x: x.clone(), srv._mimi_state)
+    _reset_counts(wrappers)
+    checks = _tick_checks(torch, srv, ms0)
+    launches = _counts(wrappers)
+    steps = 2 * sum(c["frames"] for c in checks.values())  # graphed and eager ticks
+    want = {**{k: n * steps for k, n in HYBRID_PER_FRAME.items()},
+            "topk_sample": 32 * 2 * checks["sampled"]["frames"]}
+    out.update(graph_vs_eager=checks, frame_steps=steps, launches=launches)
+    out["tick_ms_per_frame_step"], _ = _tick_ms_per_frame_step(torch, srv, ms0)
+
+    t = srv._ticker
+    stats = t._slot(srv.B).bufs.moe_stats
+    with _on(t):  # one graphed sampled tick, its counters left in place
+        stats.zero_()
+        res = t._serve_tick(srv.B, srv.chunk, 91, False, tree_map(lambda x: x.clone(), ms0))
+        torch.cuda.synchronize()
+    frames = int(res[0].shape[0])
+    hit, rows_max = stats.tolist()
+    layers = HYBRID_PER_FRAME["expert_swiglu"] // 3
+    out["counters"] = {"frame_steps": frames, "experts_hit": hit, "expert_rows_max": rows_max,
+                       "experts_hit_per_layer": hit / max(frames * layers, 1)}
+    print("main[hybrid] " + json.dumps(out), flush=True)
+    for label, c in checks.items():
+        _check(c["frames_bit_equal"] and c["valid_equal"],
+               f"hybrid: the pool's {label} tick on the graphs differs from the eager step: {c}")
+    _check(launches == want, f"hybrid: the pool's launches {launches}, want {want} "
+                             f"({steps} frame-steps at B={srv.B})")
+    _check(frames > 0 and frames * layers <= hit <= frames * layers * bb.num_experts
+           and 1 <= rows_max <= srv.B,
+           f"hybrid: the tick's counters {out['counters']} ({frames} frame-steps, "
+           f"{layers} routed layers of {bb.num_experts} experts, {srv.B} rows)")
+    _check(np.isfinite(res[3].float().cpu().numpy()).all(), "hybrid: the tick's PCM")
+    del srv, gen, res
+    _collect(torch)
+    return out
+
+
 def phase_serve(torch, wrappers, card: str):
     """Batched serving and the HTTP API at CSM-1B width (int8, bf16 Mimi):
     ``BatchedTTSServer(slots=8, chunk_frames=10, max_pending=32)``,
@@ -2062,7 +2210,8 @@ def phase_serve(torch, wrappers, card: str):
                f"serve: the long-prompt session gave {frames[SERVE_LONG_PROMPT].shape[0]} "
                f"frames with {SERVE_ROOM} rows of room")
         want = {"quant_matmul": 576 * frame_steps, "quant4_matmul": 0, "quant_mlp": 0,
-                "flash_attention": 144 * (frame_steps + admissions), "flash_attention_bwd": 0}
+                "flash_attention": 144 * (frame_steps + admissions), "flash_attention_bwd": 0,
+                "expert_swiglu": 0}
         draws = launches["topk_sample"]  # 32 a sampled frame-step or sampled admission
         _check({k: v for k, v in launches.items() if k != "topk_sample"} == want,
                f"serve: launches {launches}, want {want} ({frame_steps} frame-steps at "
@@ -3896,6 +4045,31 @@ def _entry(name: str, source: str, replaces: str, rows, launches: dict, path: st
     return entry
 
 
+def _expert_entry(rows, launches: dict) -> dict:
+    """expert_swiglu's line: times at the 16-slot pool's rows summed over a
+    frame-step's 22 calls (one a routed layer), shape rows beside."""
+    pool = next(r for r in rows if r["S"] == HYBRID_SLOTS)
+    calls = HYBRID_PER_FRAME["expert_swiglu"] // 3
+    keys = ("shape", "S", "experts_hit", "expert_rows_max", "kernel_ms", "kernel_eager_ms",
+            "plain_ms", "bound_ms", "max_abs_err", "replay_max_abs_err")
+    return {
+        "name": "expert_swiglu", "route": "cuda",
+        "source": "sesameai_tts_tpu_torch/csrc/expert_swiglu.cu",
+        "replaces": "no Pallas counterpart: LFM2-MoE's routed experts",
+        "launches": launches["hybrid"]["expert_swiglu"],
+        "launches_by_path": {p: c["expert_swiglu"] for p, c in launches.items()
+                             if c.get("expert_swiglu")},
+        "max_abs_err": max(r["max_abs_err"] for r in rows),
+        **{k: pool[k] * calls for k in ("kernel_ms", "plain_ms", "bound_ms")},
+        "ms": pool["kernel_ms"] * calls, "bound_by": "bytes", "library_ms": None,
+        "library": "not timed here (csrc/probes/expert_timing.py: a loop of torch.matmul "
+                   "over the hit experts)",
+        "timed_as": f"device time (CUDA graph replay, two layers' experts) of one call at "
+                    f"{HYBRID_SLOTS} rows, times the {calls} routed layers of a frame-step",
+        "shapes": [{k: r[k] for k in keys if k in r} for r in rows],
+    }
+
+
 def _flash_entry(rows, launches: dict, cfg, peak_bw: float) -> dict:
     """flash_attention's line: times summed over one decoded frame's
     launches (the backbone's layers at a ``_FRAME_CACHE_FILL``-row cache,
@@ -4087,6 +4261,8 @@ def main() -> int:
         paths["voice"] = timed("main[voice]", phase_voice_path, torch, wrappers, _PATHS[0][2])
         cli = timed("main[cli]", phase_cli, torch, wrappers, _PATHS[0][2])
         serving = timed("main[serve]", phase_serve, torch, wrappers, card)
+        _collect(torch)
+        hybrid = timed("main[hybrid]", phase_hybrid, torch, wrappers, peak_bw, peak_flops, card)
         rehearsal = timed("main[smoke]", phase_smoke, torch, wrappers, card)
         _collect(torch)
         training = timed("main[train]", phase_train, torch, wrappers, card)
@@ -4102,6 +4278,7 @@ def main() -> int:
         launches["serve"] = serving["traffic"]["launches"]
         launches["smoke"] = rehearsal["launches"]
         launches["apps"] = apps["launches"]
+        launches["hybrid"] = hybrid["launches"]
         print("graphed vs eager " + json.dumps(_graphed_vs_eager(paths)), flush=True)
         timed("profile", phase_profile, torch, wrappers)
         timed("qa", phase_qa, torch)
@@ -4126,6 +4303,7 @@ def main() -> int:
         _flash_entry(rows["flash_attention"], launches, csm_1b(), peak_bw),
         _bwd_entry(rows["flash_attention_bwd"], launches, csm_1b()),
     ]
+    entries.append(_expert_entry(hybrid["kernel"], launches))
     for entry in entries:  # one rank's shard shapes on a tp = 2 mesh (main[mesh] (a))
         if entry["name"] in shards:
             entry["tp2"] = {

@@ -2,7 +2,11 @@
 ``sesameai_tts_tpu/models/csm.py``).
 
 Plain functions over a parameter dict.  ``CSMState`` carries the backbone
-KV cache, which every call here updates IN PLACE, and the next position.
+KV cache, which every call here updates IN PLACE, and the next position;
+for a hybrid backbone (``models/hybrid.py``: conv and attention layers,
+dense and routed FFNs) the KV cache holds its attention layers and
+``CSMState.conv`` its conv layers' states, also updated in place.  Every
+call that runs the backbone dispatches on ``cfg.backbone.kind``.
 ``decode_step`` decodes one frame on static buffers (``DecodeBuffers``)
 and is what the Generator captures as CUDA graphs; ``decode_frames`` and
 ``generate_frame`` run the same steps eagerly.  Randomness comes from one
@@ -32,6 +36,7 @@ import torch
 import torch.distributed as dist
 
 from sesameai_tts_tpu_torch.core.config import CSMConfig
+from sesameai_tts_tpu_torch.models import hybrid
 from sesameai_tts_tpu_torch.models.transformer import (
     KVCache,
     init_kv_cache,
@@ -55,8 +60,9 @@ def init_csm_params(cfg: CSMConfig, generator: torch.Generator, dtype=None) -> d
     def randn(shape, scale):
         return (torch.randn(shape, generator=generator, device=dev) * scale).to(dtype)
 
+    init_backbone = hybrid.init_hybrid_params if bb.kind == "hybrid" else init_transformer_params
     return {
-        "backbone": init_transformer_params(bb, generator, dtype),
+        "backbone": init_backbone(bb, generator, dtype),
         "decoder": init_transformer_params(dec, generator, dtype),
         "text_embeddings": randn((cfg.text_vocab_size, bb.embed_dim), scale_b),
         "audio_embeddings": randn(
@@ -71,21 +77,34 @@ def init_csm_params(cfg: CSMConfig, generator: torch.Generator, dtype=None) -> d
 
 
 class CSMState(NamedTuple):
-    """Backbone decoding state: the KV cache (updated in place) and the
-    next position to write, (B,) on the device."""
+    """Backbone decoding state: the KV cache (updated in place), the next
+    position to write, (B,) on the device, and a hybrid backbone's conv
+    states (B, D, L-1) a conv layer (updated in place; none for Llama)."""
 
     cache: KVCache
     pos: torch.Tensor
+    conv: tuple = ()
+
+
+def _refuse_tp(cfg: CSMConfig, tp) -> None:
+    if tp is not None and cfg.backbone.kind == "hybrid":
+        raise NotImplementedError("a hybrid (conv + routed-expert) backbone runs on one card: "
+                                  "it has no tensor-parallel layout")
 
 
 def init_state(cfg: CSMConfig, batch_size: int, dtype=None, device="cpu",
                num_kv_heads: Optional[int] = None) -> CSMState:
     """Zeros; ``num_kv_heads`` is a tensor-parallel rank's local count."""
     bb = cfg.backbone
+    pos = torch.zeros(batch_size, dtype=torch.int64, device=device)
+    if bb.kind == "hybrid":
+        return CSMState(cache=hybrid.init_attention_cache(bb, batch_size, dtype, device=device),
+                        pos=pos, conv=tuple(hybrid.init_conv_state(bb, batch_size, dtype,
+                                                                   device)))
     return CSMState(
         cache=init_kv_cache(bb, batch_size, dtype or bb.dtype, device=device,
                             num_kv_heads=num_kv_heads),
-        pos=torch.zeros(batch_size, dtype=torch.int64, device=device),
+        pos=pos,
     )
 
 
@@ -93,11 +112,12 @@ def load_state(dst: CSMState, src: Optional[CSMState] = None) -> None:
     """Overwrite ``dst`` in place with ``src`` (a cached voice context), or
     with the zeros of ``init_state`` when ``src`` is None."""
     if src is None:
-        for t in dst.cache.k + dst.cache.v:
+        for t in dst.cache.k + dst.cache.v + list(dst.conv):
             t.zero_()
         dst.pos.zero_()
         return
-    for d, s in zip(dst.cache.k + dst.cache.v, src.cache.k + src.cache.v):
+    for d, s in zip(dst.cache.k + dst.cache.v + list(dst.conv),
+                    src.cache.k + src.cache.v + list(src.conv)):
         d.copy_(s)
     dst.pos.copy_(src.pos)
 
@@ -178,6 +198,9 @@ class DecodeBuffers(NamedTuple):
     # every position before causal attention reads it, so it is never zeroed
     dec_cache: KVCache
     dec_rope: torch.Tensor  # (K, hd/2, 2) the decoder's RoPE table
+    # a routed backbone's counters (ops/moe.py), int32 [experts hit, most rows
+    # an expert took], added to by every backbone step; None without experts
+    moe_stats: Optional[torch.Tensor] = None
 
 
 def init_decode_buffers(params: dict, cfg: CSMConfig, batch_size: int,
@@ -198,6 +221,8 @@ def init_decode_buffers(params: dict, cfg: CSMConfig, batch_size: int,
         dec_cache=init_kv_cache(dec, batch_size, dtype, max_seq_len=K, device=device,
                                 num_kv_heads=kv),
         dec_rope=precompute_rope(dec, max_len=K, device=device),
+        moe_stats=torch.zeros(2, dtype=torch.int32, device=device)
+        if cfg.backbone.kind == "hybrid" else None,
     )
 
 
@@ -299,7 +324,7 @@ def backbone_step(params: dict, cfg: CSMConfig, state: CSMState, bufs: DecodeBuf
     tokens = torch.cat([bufs.frame[:, None, :], text], dim=-1)
     last_h, _ = backbone_last_hidden(params, cfg, state, tokens,
                                      _feedback_mask(B, K, tokens.device), rope_cs=rope_cs,
-                                     fused_mlp=fused_mlp, tp=tp)
+                                     fused_mlp=fused_mlp, tp=tp, moe_stats=bufs.moe_stats)
     bufs.last_h.copy_(last_h)
     state.pos.add_(1).clamp_(max=state.cache.k[0].shape[2] - 1)
 
@@ -321,14 +346,31 @@ def extend_state(params: dict, cfg: CSMConfig, state: CSMState, tokens: torch.Te
                  rope_cs: Optional[torch.Tensor] = None,
                  tp: Optional[dist.ProcessGroup] = None) -> CSMState:
     """Run the backbone over rows without sampling (a voice-context prefix)."""
-    bb = cfg.backbone
     S = tokens.shape[1]
     if rope_cs is None:
-        rope_cs = precompute_rope(bb, device=tokens.device)
+        rope_cs = precompute_rope(cfg.backbone, device=tokens.device)
     x = embed_frames(params, cfg, tokens, tokens_mask, tp).to(params["projection"].dtype)
-    _, cache = transformer_forward(params["backbone"], bb, x, state.pos, state.cache,
-                                   rope_cs, valid_len=valid_len, tp=tp)
-    return CSMState(cache=cache, pos=state.pos + (valid_len if valid_len is not None else S))
+    _run_backbone(params, cfg, state, x, rope_cs, valid_len, tp=tp)
+    return CSMState(cache=state.cache, conv=state.conv,
+                    pos=state.pos + (valid_len if valid_len is not None else S))
+
+
+def _run_backbone(params: dict, cfg: CSMConfig, state: CSMState, x: torch.Tensor,
+                  rope_cs: torch.Tensor, valid_len: Optional[torch.Tensor],
+                  fused_mlp: bool = False, tp: Optional[dist.ProcessGroup] = None,
+                  moe_stats: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The backbone of ``cfg``'s kind over the window x (B, S, D) at
+    ``state.pos`` → hidden states (B, S, D); the state's cache (and conv
+    states) written in place.  ``fused_mlp`` applies to a Llama backbone,
+    ``moe_stats`` to a hybrid one's routed layers."""
+    bb = cfg.backbone
+    if bb.kind == "hybrid":
+        _refuse_tp(cfg, tp)
+        return hybrid.hybrid_forward(params["backbone"], bb, x, state.pos, state.cache,
+                                     list(state.conv), rope_cs, valid_len, moe_stats)
+    h, _ = transformer_forward(params["backbone"], bb, x, state.pos, state.cache, rope_cs,
+                               valid_len=valid_len, fused_mlp=fused_mlp, tp=tp)
+    return h
 
 
 def backbone_last_hidden(
@@ -341,23 +383,23 @@ def backbone_last_hidden(
     rope_cs: Optional[torch.Tensor] = None,
     fused_mlp: bool = False,
     tp: Optional[dist.ProcessGroup] = None,
+    moe_stats: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, CSMState]:
     """The backbone over a window of rows → ((B, D) hidden state of each
-    row's last valid row, new state); the cache is written in place."""
-    bb = cfg.backbone
+    row's last valid row, new state); the cache (and a hybrid backbone's
+    conv states) is written in place."""
     B, S, _ = tokens.shape
     if rope_cs is None:
-        rope_cs = precompute_rope(bb, device=tokens.device)
+        rope_cs = precompute_rope(cfg.backbone, device=tokens.device)
     x = embed_frames(params, cfg, tokens, tokens_mask, tp).to(params["projection"].dtype)
-    h, cache = transformer_forward(params["backbone"], bb, x, state.pos, state.cache,
-                                   rope_cs, valid_len=valid_len, fused_mlp=fused_mlp, tp=tp)
+    h = _run_backbone(params, cfg, state, x, rope_cs, valid_len, fused_mlp, tp, moe_stats)
     if valid_len is None:
-        return h[:, -1, :], CSMState(cache=cache, pos=state.pos + S)
+        return h[:, -1, :], CSMState(cache=state.cache, pos=state.pos + S, conv=state.conv)
     # clamp: a valid_len=0 row (an idle slot of a batched prefill) would
     # gather row -1; its output is meaningless but must be defined
     idx = torch.clamp_min(valid_len - 1, 0)
-    return h[torch.arange(B, device=h.device), idx], CSMState(cache=cache,
-                                                              pos=state.pos + valid_len)
+    return h[torch.arange(B, device=h.device), idx], CSMState(
+        cache=state.cache, pos=state.pos + valid_len, conv=state.conv)
 
 
 def generate_frame(
@@ -422,7 +464,7 @@ def decode_frames(
     set_sampling(bufs, temperature, topk)
     bufs.frame.copy_(prev_frame)
     bufs.done.copy_(prev_done)
-    state = CSMState(cache=state.cache, pos=state.pos.clone())
+    state = CSMState(cache=state.cache, pos=state.pos.clone(), conv=state.conv)
     generator = torch.Generator(device=dev)
     greedy = is_greedy(topk)
     frames, valids = [], []

@@ -39,6 +39,7 @@ _SIGNATURES = {
     "flash_attention": [_P] * 6 + [_I] * 15 + [_P],
     "flash_attention_bwd": [_P] * 12 + [_I] * 21 + [_P],
     "topk_sample": [_P] * 5 + [_I] * 4 + [_F, _I, _P],
+    "expert_swiglu": [_P] * 11 + [_I] * 5 + [_P],
 }
 # entry points that live in another kernel's source (a second route)
 _SOURCE_OF = {"quant_matmul_mma": "quant_matmul", "quant4_matmul_mma": "quant4_matmul",
@@ -47,7 +48,7 @@ _SOURCE_OF = {"quant_matmul_mma": "quant_matmul", "quant4_matmul_mma": "quant4_m
 KERNELS = tuple(name for name in _SIGNATURES if name not in _SOURCE_OF)
 # the ops module (ops/<module>.py) of each kernel's wrapper, if not quant
 _MODULE_OF = {"flash_attention": "attention", "flash_attention_bwd": "attention",
-              "topk_sample": "sampling"}
+              "topk_sample": "sampling", "expert_swiglu": "moe"}
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _lib_lock = threading.Lock()

@@ -967,6 +967,10 @@ def qmlp(x: torch.Tensor, w13, w2, fused: bool = False) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 _TRUNK_QUANT_KEYS = ("qkv", "o_proj", "w13", "w2")
+# a hybrid trunk's (models/hybrid.py) further products: the conv layers'
+# projections and the stacked experts; its conv taps, norms, router and
+# expert bias stay in the model dtype
+_HYBRID_QUANT_KEYS = ("in_proj", "out_proj", "experts_w13", "experts_w2")
 
 
 def dequantize_csm(params: dict, dtype=torch.bfloat16) -> dict:
@@ -992,16 +996,24 @@ def dequantize_csm(params: dict, dtype=torch.bfloat16) -> dict:
 
 
 def quantize_trunk(trunk_params: dict, bits: int = 8, group: Optional[int] = None) -> dict:
-    """Quantize qkv, o_proj, w13 and w2 of every layer: per-channel int8
-    (``bits=8``) or group-wise int4 (``bits=4``) with half-matrix groups
-    (``group = in_dim // 2``) unless ``group`` is given."""
+    """Quantize qkv, o_proj, w13 and w2 of every layer (and a hybrid
+    trunk's in_proj, out_proj and experts, where a layer has them):
+    per-channel int8 (``bits=8``; an expert stack (E, in, out) one scale a
+    column of each expert) or group-wise int4 (``bits=4``, dense products
+    only) with half-matrix groups (``group = in_dim // 2``) unless ``group``
+    is given."""
     if bits not in (4, 8):
         raise ValueError(f"bits={bits}: only int8 (8) and int4 (4) are supported")
     layers = []
     for wl in trunk_params["layers"]:
         wl = dict(wl)
-        for k in _TRUNK_QUANT_KEYS:
+        for k in _TRUNK_QUANT_KEYS + _HYBRID_QUANT_KEYS:
+            if k not in wl:
+                continue
             w = wl[k]
+            if bits == 4 and w.dim() != 2:
+                raise NotImplementedError(f"int4 {k}: only dense (in, out) products have an "
+                                          f"int4 kernel; quantize the experts to int8")
             wl[k] = (quantize_weight_int4(w, group or w.shape[-2] // 2) if bits == 4
                      else quantize_weight(w))
         layers.append(wl)

@@ -122,6 +122,10 @@ class Generator:
         mesh=None,
     ):
         self.device = resolve_device(device)
+        if mesh is not None and csm_cfg.backbone.kind == "hybrid":
+            raise NotImplementedError(
+                f"backbone {csm_cfg.backbone_flavor!r} is a hybrid (conv + routed-expert) trunk, "
+                f"which runs on one card: a mesh Generator has no layout for it")
         # multi-card inference: the CSM params' tp shards moved to this rank's
         # card, the codec replicated, states dp-split (parallel/infer.py);
         # without a mesh the single-card paths are untouched
@@ -144,8 +148,10 @@ class Generator:
         self._fused_mlp = fused_mlp
         # quantized trunks: a persistent dense shadow serves prefill (and
         # the voice-context extend), which is compute-bound; the decode
-        # streams the int8 or int4 weights through their kernels.  On a mesh
-        # there is none, as in the JAX package
+        # streams the int8 or int4 weights through their kernels.  A routed
+        # backbone's shadow holds every expert dense: its prefill runs each
+        # expert over every row, weighted by the routing (ops/moe.py).  On a
+        # mesh there is none, as in the JAX package
         trunk_layers = csm_params["backbone"]["layers"] + csm_params["decoder"]["layers"]
         if mesh is None and any(is_quantized(w) or is_quantized4(w)
                                 for wl in trunk_layers for w in wl.values()):

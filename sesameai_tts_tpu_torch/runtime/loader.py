@@ -28,7 +28,13 @@ import torch
 
 from sesameai_tts_tpu_torch.codec.mimi import Mimi, MimiConfig, mimi_test_tiny
 from sesameai_tts_tpu_torch.convert import to_device
-from sesameai_tts_tpu_torch.core.config import CSMConfig, csm_1b, csm_test_tiny
+from sesameai_tts_tpu_torch.core.config import (
+    CSMConfig,
+    csm_1b,
+    csm_lfm2_8b_a1b,
+    csm_test_tiny,
+    csm_test_tiny_hybrid,
+)
 from sesameai_tts_tpu_torch.core.weights import load_csm_checkpoint, load_pytree
 from sesameai_tts_tpu_torch.models.csm import init_csm_params
 from sesameai_tts_tpu_torch.ops.quant import quantize_csm, quantize_trunk
@@ -85,6 +91,21 @@ def csm_1b_spec(csm_checkpoint: Optional[str] = None, mimi_checkpoint: Optional[
 
 def test_tiny_spec() -> ModelSpec:
     return ModelSpec(csm=csm_test_tiny(), mimi=mimi_test_tiny(), tokenizer="tiny",
+                     dtype=torch.float32)
+
+
+def csm_lfm2_8b_a1b_spec(quantize: Optional[str] = "int8") -> ModelSpec:
+    """LFM2-8B-A1B's trunk as CSM's backbone (``core/config.py::
+    csm_lfm2_8b_a1b``), int8 (the experts have no int4 kernel), random
+    weights, the byte tokenizer and a bf16 Mimi."""
+    return ModelSpec(csm=csm_lfm2_8b_a1b(), mimi=MimiConfig(), tokenizer="byte",
+                     quantize=quantize, mimi_dtype=torch.bfloat16)
+
+
+def test_tiny_hybrid_spec() -> ModelSpec:
+    """The tiny hybrid backbone (conv, conv, attention, conv; routed FFNs)
+    under the tiny decoder and Mimi."""
+    return ModelSpec(csm=csm_test_tiny_hybrid(), mimi=mimi_test_tiny(), tokenizer="tiny",
                      dtype=torch.float32)
 
 

@@ -182,6 +182,11 @@ class Tick:
     issued: Dict[str, List[float]] = field(default_factory=dict)
     slack: Optional[float] = None
     events: list = field(default_factory=list, repr=False)  # (label, Stamp) until read
+    # a routed backbone's counters over the tick's frame-steps (ops/moe.py):
+    # the (layer, expert) pairs with a row, summed, and the most rows an
+    # expert took; None without experts
+    experts_hit: Optional[int] = None
+    expert_rows_max: Optional[int] = None
 
 
 class _Fetch:
@@ -785,6 +790,7 @@ class BatchedTTSServer:
             return
         state, bufs = self._ticker._slot(self.B)
         _copy_row(state.cache, state1.cache, row, 0)
+        _copy_row(state.conv, state1.conv, row, 0)  # a hybrid backbone's conv states
         state.pos[row:row + 1].copy_(state1.pos)
         bufs.frame[row:row + 1].copy_(frame)
         bufs.done[row] = False
@@ -909,10 +915,12 @@ class BatchedTTSServer:
         if session is not None:
             self._finish_session(session)
         self._sessions[slot] = None
-        _, bufs = self._ticker._slot(self.B)
+        state, bufs = self._ticker._slot(self.B)
         row = self._local(slot)
         if row is not None:
             bufs.done[row] = True
+            for t in state.conv:  # the idle row's conv states restart from zeros
+                t[row].zero_()
         if self._mesh is not None:
             self._freed.append(slot)
         self._budget[slot] = 0
@@ -993,15 +1001,19 @@ class BatchedTTSServer:
         tick = self._tick_record(n)
         stamps = self._stamper(tick)
         launch = (self.B, n, t._utterance_seed(None), greedy, self._mimi_state)
+        moe_stats = t._slot(self.B).bufs.moe_stats  # a routed backbone's counters
         h0 = time.perf_counter()
+        if moe_stats is not None:
+            moe_stats.zero_()
         frames, valid, done, pcm, self._mimi_state = (
             t._serve_tick(*launch) if stamps is None else t._serve_tick(*launch, stamps=stamps))
         self._launched(tick, h0)
         # launched before the previous tick is read: the host waits for that
         # tick only while this one runs.  Emission bookkeeping is taken at
         # launch: a session attached later gets none of this tick's audio
-        cur = _Launched(_Fetch([frames, valid, done, pcm], self._fetch_event()), n,
-                        list(self._sessions), self._budget.copy(), tick)
+        fetched = [frames, valid, done, pcm] + ([] if moe_stats is None else [moe_stats.clone()])
+        cur = _Launched(_Fetch(fetched, self._fetch_event()), n, list(self._sessions),
+                        self._budget.copy(), tick)
         self.metrics.record("tick_frames", n)  # frame-steps launched, B rows each
         for slot in range(self.B):
             if self._sessions[slot] is not None:
@@ -1028,9 +1040,15 @@ class BatchedTTSServer:
         """Read and emit one launched tick (lag 1 behind its launch)."""
         fetch, n, sessions, budget, tick = inflight
         h0 = time.perf_counter()
-        frames_np, valid_np, done_np, pcm_np = fetch.wait()
+        frames_np, valid_np, done_np, pcm_np, *moe = fetch.wait()
         if tick is not None:
             self._read_stamps(tick, fetch)
+        if moe:  # the routed backbone's counters over the tick's frame-steps
+            hit, rows_max = (int(v) for v in moe[0])
+            self.metrics.record("experts_hit", hit)
+            self.metrics.record("expert_rows_max", rows_max)
+            if tick is not None:
+                tick.experts_hit, tick.expert_rows_max = hit, rows_max
         cause = 0 if tick is None else tick.id
         hop = self._ticker._hop
         for slot in range(self.B):

@@ -67,6 +67,9 @@ def csm_loss(
     groups (module docstring); with ``dp`` the returned loss is this rank's
     share and the metrics the global values."""
     bb, dec = cfg.backbone, cfg.decoder
+    if bb.kind != "llama":
+        raise NotImplementedError(f"training covers Llama backbones; {cfg.backbone_flavor!r} "
+                                  f"is a {bb.kind} trunk")
     K = cfg.audio_num_codebooks
     tokens = batch.tokens.long()
     B, S, _ = tokens.shape

@@ -36,7 +36,7 @@ for want in ("runtime.qa", "ops.kernels", "ops.attention", "audio.io", "audio.re
              "training", "training.loss", "training.train_step", "training.lora",
              "training.data", "training.checkpoint", "training.finetune",
              "parallel", "parallel.mesh", "parallel.infer", "parallel.distributed",
-             "parallel.autograd"):
+             "parallel.autograd", "models.hybrid", "ops.moe"):
     assert "sesameai_tts_tpu_torch." + want in names, (want, names)
 print(len(names), bad)
 """
